@@ -22,7 +22,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    classifiers through the kernel and through the plain path.
 6. Serving: ``repro_torch.api.serve`` answers 1024 requests; the kernel
    launch count must be 4 per scored batch.
-7. Isolation: no ``jax`` and no ``repro`` module was loaded.
+7. Backward kernel against its plain version: ``ff_dense_bwd`` at the
+   four training shapes and two ragged ones (dx, dw, db scaled by
+   max |plain|), plus an all-dead row whose dg is NaN.
+8. Gradients through ``FFDense``/``FFDenseNorm`` against autograd of the
+   plain version, under the reference test's two losses.
+9. Timing of the backward kernel (and the forward at the training M),
+   its plain version and the library yardstick, beside the bound; and
+   one grad step's wall time against its parts' device times.
+10. Trainer parity: one chapter of ``train_layer_chapter`` (K = 784) and
+    of ``train_layer_chapter_perf_opt`` (K = 2000, started off the relu
+    boundary) through the kernels and through the plain path, from one
+    key: weights within 1e-4.
+11. Training, the main path: ``api.fit`` of ``PAPER_MLP`` (2 epochs,
+    2 splits, 4096 samples) with the paper's defaults and with the §4.4
+    goodness; the backward launch count must equal the grad steps, and
+    a fit through the plain path must reach a test accuracy within 0.05.
+12. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -59,6 +75,21 @@ SERVE_REQUESTS = 1024
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/ff_dense.cu"
 KERNEL_REPLACES = "src/repro/kernels/ff_dense.py:117"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/ff_dense_bwd.cu"
+BWD_REPLACES = "src/repro/kernels/ff_dense_vjp.py:77"
+
+# Training: pos and neg stacked (sumsq, M = 2B) and the §4.4 path
+# (perf_opt, M = B) at the paper's batch of 64.
+TRAIN_SHAPES = [(128, 784, 2000), (128, 2000, 2000), (64, 784, 2000),
+                (64, 2000, 2000)]
+BWD_CHECK_SHAPES = TRAIN_SHAPES + [(100, 333, 257), (16, 64, 64)]
+# max|kernel - plain| / max|plain| for fused grads and the trainer
+# weights: the reference's _scale_err gate (kernels/autotune.py:283) and
+# its ref-vs-fused weight-stream gate (tests/test_ff_dense_vjp.py:216).
+GRAD_TOL = 1e-4
+WEIGHT_TOL = 1e-4
+ACC_BAND = 0.05                # kernel fit vs plain fit, test accuracy
+FIT_TRAIN, FIT_TEST = 4096, 1000
 
 
 def check(cond, msg):
@@ -110,6 +141,57 @@ def bound(M, K, N, norm):
                                        else "bytes")
 
 
+def bwd_bound(M, K, N):
+    """(ms, what bounds it) for ff_dense_bwd: 4*M*K*N operations (the two
+    products) against x, w, y, dy_out, dg read once and dx, dw, db
+    written once."""
+    flops = 4 * M * K * N
+    nbytes = 4 * (M * K + K * N + 2 * M * N + M) + 4 * (M * K + K * N + N)
+    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bwd_inputs(gen, M, K, N, *, dead_row=False):
+    """x, w, y (from the forward kernel), random dy_out and dg."""
+    from repro_torch.kernels import ff_dense as kernel
+    x, w, b = make_inputs(gen, M, K, N, torch.float32, dead_row=dead_row)
+    y, _ = kernel.ff_dense(x, w, b)
+    dy_out = torch.randn(M, N, generator=gen).cuda()
+    dg = torch.randn(M, generator=gen).cuda()
+    if dead_row:
+        dg[0] = float("nan")    # what the norm fold gives an all-dead row
+    return x, w, y, dy_out, dg
+
+
+def stacked_ff_loss(ops_fn, peer_w):
+    """tests/test_ff_dense_vjp.py::_stacked_ff_loss: the FF loss over a
+    stacked [pos; neg] batch plus the peer term (dy and dg cotangents)."""
+    from repro_torch.core import ff
+
+    def loss(x, w, b):
+        y, g = ops_fn(x, w, b)
+        g = g / y.shape[-1]
+        half = x.shape[0] // 2
+        return (ff.ff_loss(g[:half], g[half:], 2.0)
+                + peer_w * ff.peer_norm_loss(y[:half]))
+    return loss
+
+
+def normed_loss(ops_fn, v):
+    """tests/test_ff_dense_vjp.py::_normed_loss: both outputs of the
+    normed layer (dyn through a head product, dg through tanh)."""
+    def loss(x, w, b):
+        yn, g = ops_fn(x, w, b)
+        return torch.mean((yn @ v) ** 2) + torch.mean(torch.tanh(g))
+    return loss
+
+
+def grads(loss, x, w, b):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b)]
+    return torch.autograd.grad(loss(*leaves), leaves)
+
+
 def top2_margin(scores):
     top = torch.topk(scores.float(), 2, dim=1).values
     return top[:, 0] - top[:, 1]
@@ -123,10 +205,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch import api, data
+    from repro_torch import api, data, optim
     from repro_torch.configs.ff_mlp import PAPER_MLP
     from repro_torch.core import ff_mlp
+    from repro_torch.core.rng import TorchKey
     from repro_torch.kernels import _build, ff_dense as kernel
+    from repro_torch.kernels import ff_dense_vjp as vjp
 
     # 1. device ------------------------------------------------------------
     smi = subprocess.run(
@@ -279,11 +363,268 @@ def main():
     for row in rows:
         row["launches"] = launches
 
-    # 7. isolation ---------------------------------------------------------
+    # 7. backward kernel against its plain version -------------------------
+    bwd_errs = {}
+    for M, K, N in BWD_CHECK_SHAPES:
+        x, w, y, dy_out, dg = bwd_inputs(gen, M, K, N)
+        out = vjp.ff_dense_bwd(x, w, y, dy_out, dg)
+        torch.cuda.synchronize()
+        ref = vjp.ff_dense_bwd_plain(x, w, y, dy_out, dg)
+        torch.cuda.synchronize()
+        for t, r, name in zip(out, ref, ("dx", "dw", "db")):
+            check(t.shape == r.shape and t.dtype == torch.float32
+                  and bool(torch.isfinite(t).all()),
+                  f"ff_dense_bwd {name} shape/type/finite at {(M, K, N)}")
+        e = [scaled_err(t, r) for t, r in zip(out, ref)]
+        bwd_errs[(M, K, N)] = max(float((t - r).abs().max())
+                                  for t, r in zip(out, ref))
+        print(f"[7 check] ff_dense_bwd {(M, K, N)}: dx err {e[0]:.3e}, "
+              f"dw err {e[1]:.3e}, db err {e[2]:.3e} (<= {GRAD_TOL})")
+        check(max(e) <= GRAD_TOL, f"ff_dense_bwd disagrees with its plain "
+              f"version at {(M, K, N)}")
+    x, w, y, dy_out, dg = bwd_inputs(gen, 64, 784, 2000, dead_row=True)
+    dx, dw, db = vjp.ff_dense_bwd(x, w, y, dy_out, dg)
+    torch.cuda.synchronize()
+    check(bool((y[0] == 0).all()), "the dead-row case has a live unit")
+    check(all(bool(torch.isfinite(t).all()) for t in (dx, dw, db)),
+          "NaN dg on a dead row leaked into the backward's outputs")
+    check(bool((dx[0] == 0).all()), "the dead row's dx is not zero")
+    print("[7 check] dead row with dg = NaN: dx, dw, db finite, dead "
+          "row's dx == 0")
+
+    # 8. gradients through the autograd Functions --------------------------
+    for M, K, N in [(128, 2000, 2000), (64, 2000, 2000)]:
+        x, w, b = make_inputs(gen, M, K, N, torch.float32)
+        v = torch.randn(N, generator=gen).cuda()
+        cases = [
+            ("ff_dense_vjp, _stacked_ff_loss peer_w=0.3",
+             stacked_ff_loss(vjp.ff_dense_vjp, 0.3),
+             stacked_ff_loss(lambda *a: kernel.ff_dense_plain(*a), 0.3)),
+            ("ff_dense_norm_vjp, _normed_loss",
+             normed_loss(vjp.ff_dense_norm_vjp, v),
+             normed_loss(lambda *a: kernel.ff_dense_plain(*a, norm=True),
+                         v)),
+        ]
+        for name, fused, plain in cases:
+            before = vjp.LAUNCHES
+            gk = grads(fused, x, w, b)
+            torch.cuda.synchronize()
+            check(vjp.LAUNCHES - before == 1,
+                  f"{name}: the backward kernel did not run once")
+            gp = grads(plain, x, w, b)
+            e = [scaled_err(a, r) for a, r in zip(gk, gp)]
+            print(f"[8 grad] {name} {(M, K, N)}: dx {e[0]:.3e}, dw "
+                  f"{e[1]:.3e}, db {e[2]:.3e} (<= {GRAD_TOL})")
+            check(max(e) <= GRAD_TOL, f"{name} at {(M, K, N)} disagrees "
+                  f"with autograd of the plain version")
+
+    # 9. timing: backward (and forward) at the training shapes -------------
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    bwd_rows, fwd_rows = [], []
+    for M, K, N in TRAIN_SHAPES:
+        x, w, y, dy_out, dg = bwd_inputs(gen, M, K, N)
+        dy = torch.where(y > 0, dy_out + 2.0 * y * dg[:, None],
+                         torch.zeros((), device="cuda"))
+
+        def library():
+            return torch.mm(dy, w.T), torch.mm(x.T, dy), dy.sum(0)
+        kernel_ms = time_ms(lambda: vjp.ff_dense_bwd(x, w, y, dy_out, dg),
+                            flush)
+        plain_ms = time_ms(
+            lambda: vjp.ff_dense_bwd_plain(x, w, y, dy_out, dg), flush)
+        library_ms = time_ms(library, flush)
+        bound_ms, bound_by = bwd_bound(M, K, N)
+        bwd_rows.append({
+            "name": "ff_dense_bwd", "route": "cuda", "source": BWD_SOURCE,
+            "replaces": BWD_REPLACES, "shape": [M, K, N],
+            "dtype": "float32", "launches": None,
+            "max_abs_err": bwd_errs[(M, K, N)], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "torch.mm(dy, w.T) + torch.mm(x.T, dy) + "
+                       "dy.sum(0) on a precomputed dy, TF32 off"})
+        print(f"[9 time] ff_dense_bwd {(M, K, N)}: kernel {kernel_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+    for M, K, N in TRAIN_SHAPES[:2]:
+        x, w, b = make_inputs(gen, M, K, N, torch.float32)
+        y, g = kernel.ff_dense(x, w, b)
+        yp, gp = kernel.ff_dense_plain(x, w, b)
+        max_abs_err = float(max((y - yp).abs().max(), (g - gp).abs().max()))
+        kernel_ms = time_ms(lambda: kernel.ff_dense(x, w, b), flush)
+        plain_ms = time_ms(lambda: kernel.ff_dense_plain(x, w, b), flush)
+        library_ms = time_ms(lambda: torch.addmm(b, x, w), flush)
+        bound_ms, bound_by = bound(M, K, N, False)
+        fwd_rows.append({
+            "name": "ff_dense", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": KERNEL_REPLACES, "shape": [M, K, N], "norm": False,
+            "dtype": "float32", "launches": None,
+            "max_abs_err": max_abs_err, "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "torch.addmm(b, x, w), TF32 off: matmul only"})
+        print(f"[9 time] ff_dense {(M, K, N)} (training M): kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, addmm "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # One sumsq grad step at (128, 2000, 2000), the training shape of
+    # layers 1-3: device time of Adam's update (the kernels' are above),
+    # and the wall time of 50 steps run back to back.
+    M, K, N = TRAIN_SHAPES[1]
+    xb = ff_mlp._norm(torch.randn(M, K, generator=gen)).cuda()
+    lp = {"w": (torch.randn(K, N, generator=gen) * K ** -0.5).cuda(),
+          "b": torch.zeros(N, device="cuda")}
+    opt, lr0 = optim.adam_init(lp), torch.tensor(1e-3)
+
+    def step():
+        g = ff_mlp._grad(ff_mlp._ff_layer_loss, lp, xb, 2.0, 0.0, "auto")
+        optim.adam_update(lp, g, opt, lr=lr0, step=1)
+        return g
+    g_step = step()
+    adam_ms = time_ms(
+        lambda: optim.adam_update(lp, g_step, opt, lr=lr0, step=1), flush)
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        step()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 50
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 50
+    print(f"[9 step] sumsq grad step {(M, K, N)}: {step_ms:.4f} ms wall "
+          f"per step over 50 (host enqueue {enqueue_ms:.4f} ms); Adam "
+          f"update {adam_ms:.4f} ms on the card; kernels: forward "
+          f"{fwd_rows[1]['ms']:.4f} ms + backward {bwd_rows[1]['ms']:.4f} "
+          f"ms (cold L2)")
+    del flush
+
+    # 10. trainer parity: kernels vs the plain path, one key ----------------
+    # Inputs are length-normalized rows, as every layer's inputs are in
+    # training (ff_mlp._norm, the norm=True epilogue).
+    n, lrs = 1024, torch.full((1,), 0.01)
+    tgen = torch.Generator().manual_seed(1)
+    K, N = 784, 2000
+    xs = [ff_mlp._norm(torch.randn(n, K, generator=tgen)).cuda()
+          for _ in range(2)]
+    w0 = torch.randn(K, N, generator=tgen) * K ** -0.5
+    out = {}
+    for impl in ("auto", "ref"):
+        lp = {"w": w0.clone().cuda(), "b": torch.zeros(N, device="cuda")}
+        before = vjp.LAUNCHES
+        ff_mlp.train_layer_chapter(
+            lp, optim.adam_init(lp), xs[0], xs[1], lrs, TorchKey(5),
+            batch=64, epochs=1, theta=2.0, peer_w=0.0, impl=impl)
+        out[impl] = (lp, vjp.LAUNCHES - before)
+    check(out["auto"][1] == n // 64 and out["ref"][1] == 0,
+          f"train_layer_chapter backward launches {out['auto'][1]} / "
+          f"{out['ref'][1]}, expected {n // 64} / 0")
+    err = max(float((out["auto"][0][k] - out["ref"][0][k]).abs().max())
+              for k in ("w", "b"))
+    print(f"[10 trainer] train_layer_chapter (n={n}, K={K}, N={N}, 1 "
+          f"epoch): kernel vs plain weights max-abs {err:.3e} "
+          f"(<= {WEIGHT_TOL})")
+    check(err <= WEIGHT_TOL, "train_layer_chapter: kernel and plain "
+          "weight streams diverge")
+    # The perf_opt gradient is discontinuous at the relu boundary: dy =
+    # dyn * u does not vanish as y -> 0 (sumsq's 2 y dg does). Where two
+    # f32 summation orders put a pre-activation on opposite sides of 0,
+    # the two paths take different Adam steps on that unit's column. So
+    # the gated run starts from biases of 0.5, which keep pre-activations
+    # (std ~0.02 on normalized rows) far from the boundary even after 16
+    # Adam steps of ~lr = 0.01 each; the run from b = 0 is printed, not
+    # gated. The relu mask itself is held in phases 7 and 8.
+    K = N = 2000
+    x = ff_mlp._norm(torch.randn(n, K, generator=tgen)).cuda()
+    yl = torch.randint(0, 10, (n,), generator=tgen).cuda()
+    w0 = torch.randn(K, N, generator=tgen) * K ** -0.5
+    h0 = torch.randn(N, 10, generator=tgen) * N ** -0.5
+    for b0 in (0.0, 0.5):
+        for impl in ("auto", "ref"):
+            lp = {"w": w0.clone().cuda(),
+                  "b": torch.full((N,), b0, device="cuda")}
+            head = {"w": h0.clone().cuda(),
+                    "b": torch.zeros(10, device="cuda")}
+            ff_mlp.train_layer_chapter_perf_opt(
+                lp, head, optim.adam_init(lp), optim.adam_init(head), x,
+                yl, lrs, TorchKey(6), batch=64, epochs=1, impl=impl)
+            out[impl] = (lp, head)
+        err = max(float((out["auto"][i][k] - out["ref"][i][k]).abs().max())
+                  for i in (0, 1) for k in ("w", "b"))
+        dw = (out["auto"][0]["w"] - out["ref"][0]["w"]).abs()
+        units = int((dw > WEIGHT_TOL).any(dim=0).sum())
+        print(f"[10 trainer] train_layer_chapter_perf_opt (n={n}, K=N={N}, "
+              f"1 epoch, b0={b0}): kernel vs plain weights max-abs "
+              f"{err:.3e}, {int((dw > WEIGHT_TOL).sum())} weights in "
+              f"{units} units beyond {WEIGHT_TOL}"
+              + (f" (gated: <= {WEIGHT_TOL})" if b0 else " (not gated)"))
+    check(err <= WEIGHT_TOL, "train_layer_chapter_perf_opt: kernel and "
+          "plain weight streams diverge")
+
+    # 11. training at full width: the main path ----------------------------
+    fit_task = data.mnist_like(seed=0, n_train=FIT_TRAIN, n_test=FIT_TEST)
+    base = dataclasses.replace(PAPER_MLP, epochs=2, splits=2)
+    n_layers = len(base.layer_sizes) - 1
+    grad_steps = (base.splits * n_layers * (base.epochs // base.splits)
+                  * -(-FIT_TRAIN // base.batch_size))
+    p0 = ff_mlp.init(base, TorchKey(base.seed), "cuda")
+    train_launches = {}
+    for label, cfg in (
+            ("adaptive negatives, goodness", base),
+            ("perf_opt goodness, perf_opt_all",
+             dataclasses.replace(base, goodness_fn="perf_opt",
+                                 classifier="perf_opt_all"))):
+        kernel.LAUNCHES = 0
+        vjp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = api.fit(cfg, fit_task, backend="sequential")
+        fit_s = time.perf_counter() - t0
+        fwd_calls, bwd_calls = kernel.LAUNCHES, vjp.LAUNCHES
+        train_launches["fwd"] = train_launches.get("fwd", 0) + fwd_calls
+        train_launches["bwd"] = train_launches.get("bwd", 0) + bwd_calls
+        t0 = time.perf_counter()
+        res_ref = api.fit(dataclasses.replace(cfg, kernel_impl="ref"),
+                          fit_task, backend="sequential")
+        ref_s = time.perf_counter() - t0
+        leaves = [lp[k] for lp in res.params["layers"] for k in ("w", "b")]
+        check(all(bool(torch.isfinite(t).all()) for t in leaves),
+              f"{label}: non-finite params after the fit")
+        moved = float((res.params["layers"][0]["w"]
+                       - p0["layers"][0]["w"]).abs().max())
+        check(moved > 0, f"{label}: the first layer did not move")
+        check(bwd_calls == grad_steps,
+              f"{label}: {bwd_calls} backward kernel calls for "
+              f"{grad_steps} grad steps")
+        check(fwd_calls >= grad_steps,
+              f"{label}: {fwd_calls} forward kernel calls")
+        check(abs(res.test_acc - res_ref.test_acc) <= ACC_BAND,
+              f"{label}: test_acc {res.test_acc} (kernels) vs "
+              f"{res_ref.test_acc} (plain)")
+        sim = api.simulate(res, "all_layers", 4)
+        print(f"[11 fit] PAPER_MLP {label}: test_acc {res.test_acc:.4f} "
+              f"(plain path {res_ref.test_acc:.4f}), train_acc "
+              f"{res.train_acc:.4f}; {bwd_calls} backward calls "
+              f"({2 * bwd_calls} CUDA launches) for {grad_steps} grad "
+              f"steps, {fwd_calls} forward calls; fit {fit_s:.3f} s "
+              f"(plain path {ref_s:.3f} s)")
+        print(json.dumps({"fit": label, "task_s": [
+            [r.kind, r.layer, r.chapter, r.duration] for r in res.records],
+            "plain_task_s": [[r.kind, r.layer, r.chapter, r.duration]
+                             for r in res_ref.records]}))
+        print(f"[11 fit] all_layers speedup on 4 nodes {sim.speedup:.4f}, "
+              f"utilization {sim.utilization:.4f}: simulated from H100 "
+              f"task times, not run on 4 cards")
+    for row in bwd_rows:
+        row["launches"] = train_launches["bwd"]
+    for row in fwd_rows:
+        row["launches"] = train_launches["fwd"]
+    rows += fwd_rows + bwd_rows
+
+    # 12. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[7 isolation] no jax, no repro module loaded")
+    print("[12 isolation] no jax, no repro module loaded")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

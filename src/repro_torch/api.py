@@ -1,21 +1,28 @@
 """``repro_torch.api`` — the port's facade (``repro.api``'s counterpart).
 
-This slice serves a fixed parameter snapshot:
+Training (``fit``) drives the paper's chapter schedule on the card:
 
-    import torch
     from repro_torch import api, data
     from repro_torch.configs.ff_mlp import PAPER_MLP
-    from repro_torch.core import ff_mlp
 
-    task = data.mnist_like(n_train=64, n_test=1000)
-    params = ff_mlp.init(PAPER_MLP, torch.Generator().manual_seed(0))
-    res = api.serve(PAPER_MLP, task, params=params, traffic="uniform",
+    task = data.mnist_like(n_train=4096, n_test=1000)
+    res = api.fit(PAPER_MLP, task)                          # sequential
+    res = api.fit(PAPER_MLP, task, backend="federated", num_nodes=4)
+    res = api.fit(PAPER_MLP, task, backend="simulate",      # event sim
+                  schedule="all_layers", num_nodes=4)
+    api.simulate(res, "single_layer", 4).speedup
+
+Serving (``serve``) answers requests from a fixed parameter snapshot:
+
+    res = api.serve(PAPER_MLP, task, params=res.params, traffic="uniform",
                     n_requests=1024, rate=2000.0, max_batch=64)
     res.slo["latency_p99_ms"], res.slo["consistency_violations"]
 
-It runs on ``cuda`` unless ``device="cpu"`` is passed. Training
-(``fit``) and train-while-serve come with later slices; ``serve``
-without ``params`` raises ``NotImplementedError`` until then.
+Both run on ``cuda`` unless ``device="cpu"`` is passed. Strategy
+variation (negatives, goodness objective, classifier) is config-driven
+through the registries re-exported here. The ``executor`` and ``pod``
+backends and train-while-serve come with later slices; they raise
+``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -24,7 +31,11 @@ from typing import List, Optional
 
 from repro_torch import data as data_lib
 from repro_torch.convert import tree_map
-from repro_torch.core import ff_mlp, strategies
+from repro_torch.core import ff_mlp, pff, strategies
+from repro_torch.core.strategies import (    # noqa: F401  re-exported
+    classifier, goodness, negatives,
+    register_classifier, register_goodness, register_negatives,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import registry as kernel_registry
 from repro_torch.obs import trace as obs_trace
@@ -32,8 +43,43 @@ from repro_torch.serve import engine as serve_engine
 from repro_torch.serve.engine import ServeConfig       # noqa: F401  re-export
 from repro_torch.serve.traffic import register_traffic, traffic  # noqa: F401
 
-__all__ = ["serve", "ServeResult", "ServeConfig", "traffic",
-           "register_traffic"]
+__all__ = ["fit", "simulate", "serve", "FitResult", "ServeResult",
+           "ServeConfig", "BACKENDS",
+           "negatives", "goodness", "classifier", "traffic",
+           "register_negatives", "register_goodness",
+           "register_classifier", "register_traffic"]
+
+BACKENDS = ("sequential", "simulate", "executor", "federated", "pod")
+
+# the slice of the port each backend not ported yet comes with
+_PENDING_BACKENDS = {
+    "executor": "the executor slice (core/pff_exec.py's PFFExecutor)",
+    "pod": "the pod slice (core/pff_pod.py on torch.distributed)",
+}
+
+
+@dataclasses.dataclass
+class FitResult:
+    """What every backend returns, as the reference's ``FitResult``
+    has it for the ported backends. Fields a backend cannot measure stay
+    None (``makespan`` for plain sequential training). ``raw`` keeps the
+    backend's own result (``pff.TrainResult``)."""
+    backend: str
+    cfg: object
+    params: Optional[dict] = None
+    schedule: Optional[str] = None
+    num_nodes: int = 1
+    records: Optional[List[pff.TaskRecord]] = None
+    test_acc: Optional[float] = None
+    train_acc: Optional[float] = None
+    history: list = dataclasses.field(default_factory=list)
+    makespan: Optional[float] = None
+    speedup: Optional[float] = None
+    utilization: Optional[float] = None
+    sim: Optional[pff.SimResult] = None
+    device: Optional[str] = None
+    trace: Optional[object] = None          # obs.trace.Tracer (trace=...)
+    raw: object = None
 
 
 @dataclasses.dataclass
@@ -58,9 +104,9 @@ class ServeResult:
 
 def _validate_strategies(cfg):
     """Fail fast with the registries' helpful errors + pairing checks
-    (goodness, classifier and kernel impl; negatives come with
-    training)."""
+    (goodness, negatives, classifier and kernel impl)."""
     good = strategies.goodness.get(cfg.goodness_fn)
+    strategies.negatives.get(cfg.neg_mode)
     cls = strategies.classifier.get(cfg.classifier)
     impl = ff_mlp.kernel_impl(cfg)
     if impl != "auto":
@@ -71,6 +117,79 @@ def _validate_strategies(cfg):
             f"goodness_fn={cls.requires_goodness!r}, but the config has "
             f"goodness_fn={cfg.goodness_fn!r}")
     return good
+
+
+def fit(cfg, task=None, *, backend="sequential", schedule=None,
+        num_nodes=1, probe_every=0, verbose=False, trace=None,
+        comm_time=0.0, device=None, key=None) -> FitResult:
+    """Train ``cfg`` on ``task`` with the chosen backend.
+
+    sequential  the canonical chapter-schedule trainer (times every
+                task; its records feed the simulator).
+    federated   the same trainer on ``num_nodes`` node-local shards
+                (Federated PFF §4.3).
+    simulate    trains sequentially once, then replays the measured task
+                timings under ``schedule`` (default ``"all_layers"``, or
+                ``"sequential"`` when ``num_nodes == 1``) on
+                ``num_nodes`` simulated nodes; ``comm_time`` is the
+                per-DAG-edge cross-node hand-off cost.
+
+    probe_every/verbose: chapter-level accuracy probes.
+    trace: ``True`` or an ``obs.trace.Tracer``: one span around the
+    backend's run, in ``FitResult.trace``.
+    device: ``None`` = ``cuda`` (raises without a GPU); ``"cpu"`` runs
+    the plain PyTorch path.
+    key: the run's random key (``core.rng``); default
+    ``TorchKey(cfg.seed)``.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if backend in _PENDING_BACKENDS:
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported yet: it comes with "
+            f"{_PENDING_BACKENDS[backend]}")
+    _validate_strategies(cfg)
+    dev = resolve_device(device)
+    tracer = obs_trace.as_tracer(trace)
+    out_trace = tracer if tracer.enabled else None
+    kw = dict(probe_every=probe_every, verbose=verbose, device=dev,
+              key=key)
+    sim = None
+    if backend == "federated":
+        schedule = "federated"
+        with tracer.span("fit:federated", num_nodes=num_nodes):
+            res = pff.run_federated_schedule(cfg, task, num_nodes, **kw)
+    elif backend == "sequential":
+        schedule, num_nodes = "sequential", 1
+        with tracer.span("fit:sequential"):
+            res = pff.run_chapter_schedule(cfg, task, **kw)
+    else:       # simulate: train once, replay the task times
+        schedule = schedule or ("sequential" if num_nodes == 1
+                                else "all_layers")
+        with tracer.span("fit:simulate", schedule=schedule,
+                         num_nodes=num_nodes):
+            res = pff.run_chapter_schedule(cfg, task, **kw)
+            sim = pff.simulate_schedule(res.records, schedule, num_nodes,
+                                        comm_time=comm_time)
+    return FitResult(
+        backend=backend, cfg=cfg, params=res.params, schedule=schedule,
+        num_nodes=num_nodes, records=res.records, test_acc=res.test_acc,
+        train_acc=res.train_acc, history=res.history,
+        makespan=sim.makespan if sim else None,
+        speedup=sim.speedup if sim else None,
+        utilization=sim.utilization if sim else None, sim=sim,
+        device=str(dev), trace=out_trace, raw=res)
+
+
+def simulate(result_or_records, schedule, num_nodes,
+             **kw) -> pff.SimResult:
+    """Replay a training run's task records under another schedule:
+    a ``FitResult`` or a raw record list."""
+    records = getattr(result_or_records, "records", result_or_records)
+    if records is None:
+        raise ValueError("no task records on this result")
+    return pff.simulate_schedule(records, schedule, num_nodes, **kw)
 
 
 def _serve_records(engine_res) -> List[dict]:

@@ -20,6 +20,14 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_leaves(tree):
+    """The leaves of a tree of dicts, lists and tuples, in ``tree_map``'s
+    order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def params_from_numpy(tree, device):
     """numpy leaves -> tensors on ``device`` (copies, so a read-only or
     later-mutated source array never aliases the port's weights)."""

@@ -1,26 +1,35 @@
 """The paper's network, [784, 2000, 2000, 2000, 2000] ReLU MLP trained
-with Forward-Forward: the port's parameters and prediction path
-(``repro.core.ff_mlp``'s counterpart). The chapter trainers come with
-the training slice.
+with Forward-Forward, layer by layer, in chapters: the port's
+parameters, chapter trainers and prediction path
+(``repro.core.ff_mlp``'s counterpart).
 
 Faithful details kept from the reference:
-  * label overlay on the first C pixels
-  * goodness = sum of squared activities
+  * label overlay on the first C pixels (pos = true, neg = wrong label)
+  * goodness = sum of squared activities, loss = softplus(±(theta - g))
   * activity vectors are length-normalized between layers (Hinton); the
     divide is the ``norm=True`` epilogue of the fused ``ff_dense``
+  * Adam per layer; LR cooldown after half the epochs (paper §5.1)
   * goodness prediction accumulates layers 2..L (all but the first)
-  * the softmax head reads normalized activations of layers 2..L
-  * Performance-Optimized prediction sums per-layer local-head logits
+  * the softmax head reads normalized activations of layers 2..L and is
+    trained layer-locally (it never propagates into FF layers)
+  * Performance-Optimized goodness: per-layer softmax head trained with
+    two-layer-deep backprop, no negative data (paper §4.4)
 
 Parameters are plain dicts of tensors in the reference's layout, so
 ``convert.params_from_numpy`` carries a reference tree over leaf by leaf.
-Everything here runs eagerly on the parameters' device.
+Everything here runs eagerly on the parameters' device. The chapter
+trainers take gradients with ``torch.autograd.grad`` over leaf views of
+the trained parameters and update params and Adam state IN PLACE (the
+counterpart of the reference's donated buffers): a caller that needs the
+old values copies them first. Their random draws come from a key
+(``core.rng``), folded exactly as the reference folds its jax key.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.convert import tree_map
+from repro_torch import optim
+from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.core import ff, strategies
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ff_dense as kernels_ff_dense, ops
@@ -33,6 +42,15 @@ def _norm(x, eps=kernels_ff_dense.NORM_EPS):
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
 
 
+def fwd_norm(lp, x, impl="auto"):
+    """One layer forward + Hinton length-norm: the inter-layer hand-off
+    of the chapter trainer, one ``ff_dense`` call with the divide in the
+    kernel's epilogue. Forward only: callers run it under
+    ``torch.no_grad()``."""
+    yn, _ = ops.ff_dense(x, lp["w"], lp["b"], impl=impl, norm=True)
+    return yn
+
+
 def kernel_impl(cfg):
     """The config's ``ops.ff_dense`` path (auto | cuda | ref)."""
     return getattr(cfg, "kernel_impl", "auto")
@@ -42,27 +60,178 @@ def kernel_impl(cfg):
 # Params
 # ---------------------------------------------------------------------------
 
+def _sources(src, n):
+    """``n`` sources for ``n`` successive draws: a ``torch.Generator``
+    serves them all in turn; a key is split ``n`` ways, as the
+    reference splits its jax key."""
+    if isinstance(src, torch.Generator):
+        return [src] * n
+    return src.split(n)
+
+
+def _normal(src, shape):
+    if isinstance(src, torch.Generator):
+        return torch.randn(*shape, generator=src)
+    return src.normal(shape)
+
+
 def init(cfg, generator, device=None):
     """Random parameters in the reference's layout and scaling, drawn on
-    the CPU from ``generator`` (a CPU ``torch.Generator``) and moved to
-    ``device`` (default ``cuda``; see ``device.resolve_device``)."""
+    the CPU and moved to ``device`` (default ``cuda``; see
+    ``device.resolve_device``). ``generator`` is a CPU
+    ``torch.Generator`` or a key (``core.rng``), which is split as the
+    reference's ``init`` splits its jax key."""
     dev = resolve_device(device)
     sizes = cfg.layer_sizes
+    n_hidden = len(sizes) - 1
+    ks = _sources(generator, n_hidden + 1)
     layers = []
-    for i in range(len(sizes) - 1):
-        w = torch.randn(sizes[i], sizes[i + 1],
-                        generator=generator) * sizes[i] ** -0.5
+    for i in range(n_hidden):
+        w = _normal(ks[i], (sizes[i], sizes[i + 1])) * sizes[i] ** -0.5
         layers.append({"w": w, "b": torch.zeros(sizes[i + 1])})
     # layers 2..L feed the head (all of them for a 1-hidden-layer net)
     feat_dim = sum(sizes[2:]) or sizes[-1]
-    head = {"w": torch.randn(feat_dim, cfg.num_classes,
-                             generator=generator) * feat_dim ** -0.5,
+    head = {"w": _normal(ks[-1], (feat_dim, cfg.num_classes))
+            * feat_dim ** -0.5,
             "b": torch.zeros(cfg.num_classes)}
     params = {"layers": layers, "head": head}
     extras_init = strategies.goodness.get(cfg.goodness_fn).init_extras
     if extras_init is not None:
-        params.update(extras_init(generator, cfg))
+        params.update(extras_init(ks[-1], cfg))
     return tree_map(lambda t: t.to(dev), params)
+
+
+def opt_init(params):
+    out = {"layers": [optim.adam_init(lp) for lp in params["layers"]],
+           "head": optim.adam_init(params["head"])}
+    if "local_heads" in params:
+        out["local_heads"] = [optim.adam_init(h)
+                              for h in params["local_heads"]]
+    return out
+
+
+def layer_apply(lp, x):
+    return torch.relu(x @ lp["w"] + lp["b"])
+
+
+# ---------------------------------------------------------------------------
+# Layer-local training (one chapter = C mini-epochs over all batches)
+# ---------------------------------------------------------------------------
+
+def _num_batches(n, batch):
+    """Batches per mini-epoch, tail included (ceil division)."""
+    return -(-n // batch)
+
+
+def _epoch_perm(key, ei, n, batch):
+    """Shuffled sample order for mini-epoch ``ei`` (int64, on the CPU),
+    padded to a whole number of batches by WRAPPING the permutation:
+    every sample is consumed at least once per mini-epoch and every
+    batch is full. Tiling (not a single wrap) also covers n < batch."""
+    perm = key.fold_in(ei).permutation(n).long()
+    total = _num_batches(n, batch) * batch
+    if total > n:
+        perm = perm.repeat(-(-total // n))[:total]
+    return perm
+
+
+def _grad(loss_fn, tree, *args):
+    """d loss_fn(tree, *args) / d tree, as a tree of the same shape,
+    taken over leaf views of ``tree``'s tensors."""
+    leaf = tree_map(lambda t: t.detach().requires_grad_(True), tree)
+    with torch.enable_grad():
+        grads = iter(torch.autograd.grad(loss_fn(leaf, *args),
+                                         tree_leaves(leaf)))
+    return tree_map(lambda _: next(grads), leaf)
+
+
+def _ff_layer_loss(lp, xb, theta, peer_w, impl="auto"):
+    """FF objective over a stacked [pos; neg] batch xb: (2B, K), ONE
+    ``ff_dense`` call. Goodness is the MEAN of squared activities with
+    theta ~ 2 (one theta across layer widths)."""
+    y, g = ops.ff_dense(xb, lp["w"], lp["b"], impl=impl)
+    g = g / y.shape[-1]                       # sum-of-squares -> mean
+    half = xb.shape[0] // 2
+    loss = ff.ff_loss(g[:half], g[half:], theta)
+    if peer_w:
+        loss = loss + peer_w * ff.peer_norm_loss(y[:half])
+    return loss
+
+
+def train_layer_chapter(lp, opt, x_pos, x_neg, lrs, key, *, batch, epochs,
+                        theta, peer_w=0.0, impl="auto"):
+    """Trains one layer for ``epochs`` mini-epochs. x_pos/x_neg are this
+    layer's (already normalized) inputs over the whole train set; lrs:
+    (epochs,) float32 learning rate per mini-epoch (cooldown-aware).
+    lp/opt are updated in place and returned."""
+    n = x_pos.shape[0]
+    n_batches = _num_batches(n, batch)
+    step = 0
+    for ei in range(epochs):
+        perm = _epoch_perm(key, ei, n, batch).to(x_pos.device)
+        for bi in range(n_batches):
+            idx = perm[bi * batch:(bi + 1) * batch]
+            xb = torch.cat([x_pos[idx], x_neg[idx]], dim=0)
+            g = _grad(_ff_layer_loss, lp, xb, theta, peer_w, impl)
+            step += 1
+            lp, opt = optim.adam_update(lp, g, opt, lr=lrs[ei], step=step)
+    return lp, opt
+
+
+def _perf_opt_loss(lp_and_head, xb, yb, impl="auto"):
+    """§4.4 local-head loss: activation, normalizer and the norm divide
+    from one ``ff_dense`` call (norm=True); the small (N, C) head matmul
+    stays a plain product."""
+    lp, head = lp_and_head
+    yn, _ = ops.ff_dense(xb, lp["w"], lp["b"], impl=impl, norm=True)
+    logits = yn @ head["w"] + head["b"]
+    rows = torch.arange(xb.shape[0], device=xb.device)
+    return torch.mean(-torch.log_softmax(logits, dim=-1)[rows, yb.long()])
+
+
+def train_layer_chapter_perf_opt(lp, head, opt, opt_h, x, y, lrs, key, *,
+                                 batch, epochs, impl="auto"):
+    """Performance-Optimized goodness (paper §4.4): train (layer, local
+    softmax head) with two-layer backprop; no negative data. All four
+    trees are updated in place and returned."""
+    n = x.shape[0]
+    n_batches = _num_batches(n, batch)
+    step = 0
+    for ei in range(epochs):
+        perm = _epoch_perm(key, ei, n, batch).to(x.device)
+        for bi in range(n_batches):
+            idx = perm[bi * batch:(bi + 1) * batch]
+            g_lp, g_h = _grad(_perf_opt_loss, (lp, head), x[idx], y[idx],
+                              impl)
+            step += 1
+            lp, opt = optim.adam_update(lp, g_lp, opt, lr=lrs[ei],
+                                        step=step)
+            head, opt_h = optim.adam_update(head, g_h, opt_h, lr=lrs[ei],
+                                            step=step)
+    return lp, head, opt, opt_h
+
+
+def _head_loss(head, feats, y):
+    logits = feats @ head["w"] + head["b"]
+    rows = torch.arange(y.shape[0], device=y.device)
+    return torch.mean(-torch.log_softmax(logits, dim=-1)[rows, y.long()])
+
+
+def train_head_chapter(head, opt, feats, y, lrs, key, *, batch, epochs):
+    """Softmax head on concatenated normalized feats of layers 2..L.
+    head/opt are updated in place and returned."""
+    n = feats.shape[0]
+    n_batches = _num_batches(n, batch)
+    step = 0
+    for ei in range(epochs):
+        perm = _epoch_perm(key, ei, n, batch).to(feats.device)
+        for bi in range(n_batches):
+            idx = perm[bi * batch:(bi + 1) * batch]
+            g = _grad(_head_loss, head, feats[idx], y[idx])
+            step += 1
+            head, opt = optim.adam_update(head, g, opt, lr=lrs[ei],
+                                          step=step)
+    return head, opt
 
 
 # ---------------------------------------------------------------------------
@@ -166,13 +335,6 @@ def accuracy(params, x, y, num_classes, mode="goodness", chunk=2000,
 # Builtin strategies (see core.strategies)
 # ---------------------------------------------------------------------------
 
-def _train_slice_pending(*args, **kwargs):
-    raise NotImplementedError(
-        "chapter training is not ported yet: it comes with the training "
-        "slice (the ff_dense backward kernel, optim, the chapter "
-        "trainers and api.fit)")
-
-
 def _sumsq_get_state(params, opt, k):
     return (params["layers"][k], opt["layers"][k])
 
@@ -181,13 +343,23 @@ def _sumsq_set_state(params, opt, k, state):
     params["layers"][k], opt["layers"][k] = state
 
 
-def _perf_opt_init_extras(generator, cfg):
+def _sumsq_train_chapter(state, acts, extras, lrs, key, *, cfg, epochs):
+    lp, o = state
+    xp, xn = acts
+    return train_layer_chapter(
+        lp, o, xp, xn, lrs, key, batch=cfg.batch_size, epochs=epochs,
+        theta=cfg.theta, peer_w=cfg.peer_w, impl=kernel_impl(cfg))
+
+
+def _perf_opt_init_extras(src, cfg):
     sizes = cfg.layer_sizes
+    n_hidden = len(sizes) - 1
+    kk = _sources(src, n_hidden)
     return {"local_heads": [
-        {"w": torch.randn(sizes[i + 1], cfg.num_classes,
-                          generator=generator) * sizes[i + 1] ** -0.5,
+        {"w": _normal(kk[i], (sizes[i + 1], cfg.num_classes))
+         * sizes[i + 1] ** -0.5,
          "b": torch.zeros(cfg.num_classes)}
-        for i in range(len(sizes) - 1)]}
+        for i in range(n_hidden)]}
 
 
 def _perf_opt_get_state(params, opt, k):
@@ -200,17 +372,26 @@ def _perf_opt_set_state(params, opt, k, state):
      opt["layers"][k], opt["local_heads"][k]) = state
 
 
+def _perf_opt_train_chapter(state, acts, extras, lrs, key, *, cfg, epochs):
+    lp, head, o, oh = state
+    (xk,) = acts
+    (y,) = extras
+    return train_layer_chapter_perf_opt(
+        lp, head, o, oh, xk, y, lrs, key, batch=cfg.batch_size,
+        epochs=epochs, impl=kernel_impl(cfg))
+
+
 strategies.register_goodness("sumsq", strategies.GoodnessStrategy(
     name="sumsq", uses_negatives=True,
     get_state=_sumsq_get_state, set_state=_sumsq_set_state,
-    train_chapter=_train_slice_pending,
+    train_chapter=_sumsq_train_chapter,
     export=lambda states: {"layers": [s[0] for s in states]},
     eval_mode=lambda cfg: cfg.classifier))
 
 strategies.register_goodness("perf_opt", strategies.GoodnessStrategy(
     name="perf_opt", uses_negatives=False,
     get_state=_perf_opt_get_state, set_state=_perf_opt_set_state,
-    train_chapter=_train_slice_pending,
+    train_chapter=_perf_opt_train_chapter,
     export=lambda states: {"layers": [s[0] for s in states],
                            "local_heads": [s[1] for s in states]},
     # honor an explicitly chosen classifier; only remap the config

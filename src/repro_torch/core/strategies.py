@@ -1,18 +1,20 @@
 """Strategy registries of the port (``repro.core.strategies``'s
 counterparts).
 
-The paper's variation axes are registries of looked-up callables: WHAT
-each layer trains (``goodness``: sum-of-squares vs the Performance-
-Optimized local-head loss, §4.4) and WHICH classifier produces label
-scores (``classifier``). The builtins are registered at the bottom of
-``core.ff_mlp``. The ``negatives`` registry and its builtins come with
-the training slice; ``NegativesStrategy`` is here so the three strategy
-types keep one home.
+The paper's variation axes are registries of looked-up callables: HOW
+negatives are generated (``negatives``: AdaptiveNEG / FixedNEG /
+RandomNEG, registered here), WHAT each layer trains (``goodness``:
+sum-of-squares vs the Performance-Optimized local-head loss, §4.4) and
+WHICH classifier produces label scores (``classifier``). The goodness
+and classifier builtins are registered at the bottom of
+``core.ff_mlp``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+from repro_torch.core import ff
 
 
 class Registry:
@@ -55,9 +57,13 @@ class Registry:
 @dataclasses.dataclass(frozen=True)
 class NegativesStrategy:
     """How negative samples are (re)generated:
-    ``fn(generator, cfg, params, x, y, scores) -> (N, D)`` label-overlaid
-    images. ``regenerates``: a per-chapter regeneration task exists;
-    ``needs_scores``: regeneration reads the live model's class scores."""
+    ``fn(key, cfg, params, x, y, scores) -> (N, D)`` label-overlaid
+    images (raw; callers normalize). ``params`` and ``scores`` (the
+    (N, C) class scores) are the live model only when ``needs_scores``,
+    and None before a model exists (chapter 0), when every strategy
+    degrades to key-only wrong labels. ``regenerates``: a per-chapter
+    regeneration task exists; ``needs_scores``: regeneration reads the
+    live model's class scores."""
     name: str
     fn: Callable
     regenerates: bool = True
@@ -71,13 +77,13 @@ class GoodnessStrategy:
       get_state(params, opt, k)          -> state (first element: the
                                             layer's param dict)
       set_state(params, opt, k, state)   writes state back
-      train_chapter(state, acts, extras, lrs, generator, *, cfg, epochs)
-                                         -> state
+      train_chapter(state, acts, extras, lrs, key, *, cfg, epochs)
+                                         -> state (updated in place)
       export(states)                     -> partial params dict
 
     uses_negatives: False means labeled data only (the §4.4 path).
     eval_mode(cfg): the classifier-registry entry used for evaluation.
-    init_extras(generator, cfg), when set, returns extra parameter
+    init_extras(src, cfg), when set, returns extra parameter
     groups (e.g. the §4.4 local heads) merged into ``ff_mlp.init``'s
     params.
     """
@@ -104,8 +110,17 @@ class ClassifierStrategy:
     requires_goodness: Optional[str] = None
 
 
+negatives = Registry("negatives")
 goodness = Registry("goodness")
 classifier = Registry("classifier")
+
+
+def register_negatives(name, fn, *, regenerates=True, needs_scores=False,
+                       overwrite=False):
+    """Plug a new negative-sample strategy into the facade."""
+    return negatives.register(
+        name, NegativesStrategy(name, fn, regenerates, needs_scores),
+        overwrite=overwrite)
 
 
 def register_goodness(name, strategy, *, overwrite=False):
@@ -118,3 +133,28 @@ def register_classifier(name, scores, *, trains_head=False,
         name, ClassifierStrategy(name, scores, trains_head,
                                  requires_goodness),
         overwrite=overwrite)
+
+
+# ---------------------------------------------------------------------------
+# Builtin negative-sample strategies (paper §4.2)
+# ---------------------------------------------------------------------------
+
+def _random_negatives(key, cfg, params, x, y, scores):
+    """RandomNEG: uniform over the C-1 wrong labels, fresh each chapter."""
+    labels = ff.random_wrong_labels(key, y, cfg.num_classes)
+    return ff.overlay_label(x, labels, cfg.num_classes)
+
+
+def _adaptive_negatives(key, cfg, params, x, y, scores):
+    """AdaptiveNEG: confusable wrong labels from the model's own class
+    scores; RandomNEG before a model exists (chapter 0)."""
+    if scores is None:
+        return _random_negatives(key, cfg, params, x, y, scores)
+    labels = ff.adaptive_wrong_labels(scores, y, key=key)
+    return ff.overlay_label(x, labels, cfg.num_classes)
+
+
+register_negatives("random", _random_negatives)
+register_negatives("adaptive", _adaptive_negatives, needs_scores=True)
+# FixedNEG = RandomNEG sampled once, never refreshed
+register_negatives("fixed", _random_negatives, regenerates=False)

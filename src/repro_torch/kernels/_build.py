@@ -1,8 +1,9 @@
 """Build the port's CUDA sources into one shared library at first use.
 
-Every ``*.cu`` under ``kernels/csrc/`` is compiled by ``nvcc`` for
-``sm_90a`` into a plain-C shared library (no PyTorch headers, so the
-build takes seconds) and loaded with ``ctypes``. The library lands in
+Every ``*.cu`` under ``kernels/csrc/`` is compiled by its own ``nvcc``
+for ``sm_90a``, all started together, and the objects are linked into
+one plain-C shared library (no PyTorch headers, so the build takes
+seconds) loaded with ``ctypes``. The library lands in
 ``build/repro_torch/`` at the root of the checkout, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged
 one is reused. Nothing is built or loaded at import: the CPU tests
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               # per-kernel registers, shared memory and spills, kept in
               # the build log beside the library
               "-Xptxas", "-v")
@@ -56,25 +57,53 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Runs the commands concurrently; returns [(returncode, output)]."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; returns
-    its path. The output is written under a temporary name and renamed,
-    so concurrent builders never load a half-written file."""
+    its path. One ``nvcc -c`` per source runs in parallel, then one link.
+    The output is written under a temporary name and renamed, so
+    concurrent builders never load a half-written file."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc = find_nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(srcs, objs)]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+            *(str(o) for o in objs)]
+    log, failed = [], None
+    try:
+        for cmd, (rc, out) in zip(compiles, _run_all(compiles)):
+            log.append(" ".join(cmd) + "\n" + out)
+            if rc != 0 and failed is None:
+                failed = (rc, out)
+        if failed is None:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (proc.returncode, proc.stderr)
+        lib.with_suffix(".log").write_text("".join(log))
+        if failed is not None:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed with exit code {failed[0]}:"
+                               f"\n{failed[1]}")
+        os.replace(tmp, lib)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 

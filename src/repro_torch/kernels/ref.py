@@ -1,6 +1,8 @@
 """Plain PyTorch oracles for the port's kernels (``repro.kernels.ref``'s
-counterparts). ``ff_dense`` is the only kernel ported so far; its
-arithmetic lives once, in ``kernels.ff_dense.ff_dense_plain``."""
+counterparts) for ``ops.ff_dense``, whose arithmetic lives once, in
+``kernels.ff_dense.ff_dense_plain``; autograd differentiates them (the
+reference's ``impl="ref"`` anchor). The backward's plain version is
+``kernels.ff_dense_vjp.ff_dense_bwd_plain``."""
 from __future__ import annotations
 
 from repro_torch.kernels.ff_dense import ff_dense_plain

@@ -2,20 +2,23 @@
 predicate, as ``repro.kernels.registry`` has them. Only ``ff_dense`` is
 ported so far.
 
-Impl contract: ``fn(x, w, b, *, norm) -> (y, g)``.
+Impl contract: ``fn(x, w, b, *, norm) -> (y, g)``, differentiable with
+respect to x, w and b.
 
 ``"auto"`` resolves by the platform of the operands' device
 (``tensor.device.type``): the first registered impl that prefers it,
-else the fallback. On ``"cuda"`` that is the hand-written kernel; on
-the CPU the plain oracle. Unknown names raise ``ValueError`` listing
-the registered choices.
+else the fallback. On ``"cuda"`` that is the hand-written kernel pair
+(``ff_dense_vjp`` / ``ff_dense_norm_vjp``: the forward kernel, with the
+backward kernel as its gradient); on the CPU the plain oracle, which
+autograd differentiates. Unknown names raise ``ValueError`` listing the
+registered choices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from repro_torch.kernels import ff_dense as ff_dense_kernel, ref
+from repro_torch.kernels import ff_dense_vjp, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +87,9 @@ def _ff_dense_cuda(x, w, b, *, norm):
     if x.device.type != "cuda":
         raise ValueError(f"ff_dense impl 'cuda' needs CUDA tensors, got "
                          f"{x.device}; use impl='ref' (or 'auto') there")
-    return ff_dense_kernel.ff_dense(x, w, b, norm=norm)
+    fused = (ff_dense_vjp.ff_dense_norm_vjp if norm
+             else ff_dense_vjp.ff_dense_vjp)
+    return fused(x, w, b)
 
 
 def _ff_dense_ref(x, w, b, *, norm):

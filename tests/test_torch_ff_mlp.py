@@ -2,8 +2,9 @@
 parameters (the reference's ``ff_mlp.init``, carried over with
 ``convert.params_from_numpy``) and the same inputs give the same class
 scores under all four classifiers, the same predictions and accuracy;
-the port's own ``init`` builds the reference's tree; the FF primitives
-and strategy registries match."""
+the port's own ``init`` builds the reference's tree; one chapter of each
+goodness strategy trains as the reference's does; the FF primitives and
+strategy registries match."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,10 @@ from repro_torch import data as tdata
 from repro_torch.configs.ff_mlp import FFMLPConfig as TConfig
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core import ff as tff, ff_mlp as tmlp, strategies as tstrat
+
+from repro_torch.core.rng import TorchKey
+
+from test_torch_train import JaxKey
 
 SIZES = (784, 64, 48, 32)
 RTOL = 1e-5
@@ -91,6 +96,29 @@ def test_init_builds_the_reference_tree(ref_params, good):
         assert abs(lp["w"].std() * k ** 0.5 - 1.0) < 0.1   # N(0, 1/K)
 
 
+@pytest.mark.parametrize("good", ["sumsq", "perf_opt"])
+def test_init_from_a_key_splits_it_as_the_reference_does(good):
+    """Given the reference's key (through ``JaxKey``), the port's init
+    draws the reference's eager ``init`` bit for bit (the jitted one
+    may fuse the scaling and round the last bit differently)."""
+    got = params_to_numpy(tmlp.init(
+        TConfig(layer_sizes=SIZES, goodness_fn=good),
+        JaxKey(jax.random.PRNGKey(3)), "cpu"))
+    want = jax.tree_util.tree_map(np.asarray, jmlp.init(
+        jax.random.PRNGKey(3), JConfig(layer_sizes=SIZES,
+                                       goodness_fn=good)))
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(want)
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    own = tmlp.init(TConfig(layer_sizes=SIZES, goodness_fn=good),
+                    TorchKey(3), "cpu")
+    assert torch.equal(own["layers"][0]["w"], tmlp.init(
+        TConfig(layer_sizes=SIZES, goodness_fn=good), TorchKey(3),
+        "cpu")["layers"][0]["w"])
+
+
 def test_init_is_a_function_of_the_generator():
     cfg = TConfig(layer_sizes=SIZES)
     a = tmlp.init(cfg, torch.Generator().manual_seed(7), "cpu")
@@ -131,6 +159,11 @@ def test_ff_primitives_match_reference():
 def test_registries_match_reference_names():
     assert tstrat.classifier.names() == jstrat.classifier.names()
     assert tstrat.goodness.names() == jstrat.goodness.names()
+    assert tstrat.negatives.names() == jstrat.negatives.names()
+    for name in tstrat.negatives.names():
+        t, j = tstrat.negatives.get(name), jstrat.negatives.get(name)
+        assert (t.regenerates, t.needs_scores) == (j.regenerates,
+                                                   j.needs_scores)
     for name in tstrat.classifier.names():
         t, j = tstrat.classifier.get(name), jstrat.classifier.get(name)
         assert (t.trains_head, t.requires_goodness) == (
@@ -146,10 +179,43 @@ def test_registries_match_reference_names():
 
 
 @pytest.mark.parametrize("good", ["sumsq", "perf_opt"])
-def test_chapter_training_waits_for_the_training_slice(good):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tstrat.goodness.get(good).train_chapter(None, None, None, None,
-                                                None, cfg=None, epochs=1)
+def test_chapter_training_matches_reference(good, ref_params):
+    """One ``train_chapter`` of each goodness strategy, through the
+    registries, from the reference's params and with the reference's
+    random draws (``JaxKey``): the layer's state after the chapter
+    agrees within the reference's ref-vs-fused gate (1e-4 max-abs)."""
+    jcfg = JConfig(layer_sizes=SIZES, goodness_fn=good, batch_size=32)
+    tcfg = TConfig(layer_sizes=SIZES, goodness_fn=good, batch_size=32)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((96, SIZES[0]))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    if good == "sumsq":
+        xn = rng.standard_normal((96, SIZES[0]))
+        xn = (xn / np.linalg.norm(xn, axis=1, keepdims=True)).astype(
+            np.float32)
+        acts, extras = (x, xn), ()
+    else:
+        acts, extras = (x,), (rng.integers(0, 10, 96).astype(np.int32),)
+    lrs = np.full(2, 0.01, np.float32)
+    key = jax.random.PRNGKey(9)
+    jp = jax.tree_util.tree_map(jnp.asarray, ref_params[good])
+    jstrat_good = jstrat.goodness.get(good)
+    want = jstrat_good.train_chapter(
+        jstrat_good.get_state(jp, jmlp.opt_init(jp), 0),
+        tuple(map(jnp.asarray, acts)), tuple(map(jnp.asarray, extras)),
+        jnp.asarray(lrs), key, cfg=jcfg, epochs=2)
+    tp = params_from_numpy(ref_params[good], "cpu")
+    tstrat_good = tstrat.goodness.get(good)
+    got = tstrat_good.train_chapter(
+        tstrat_good.get_state(tp, tmlp.opt_init(tp), 0),
+        tuple(map(torch.tensor, acts)), tuple(map(torch.tensor, extras)),
+        torch.tensor(lrs), JaxKey(key), cfg=tcfg, epochs=2)
+    assert len(got) == len(want)
+    for a, b in zip(jax.tree_util.tree_leaves(params_to_numpy(got)),
+                    jax.tree_util.tree_leaves(want)):
+        assert float(np.abs(a - np.asarray(b)).max()) <= 1e-4
+    assert not np.array_equal(params_to_numpy(got[0])["w"],
+                              ref_params[good]["layers"][0]["w"])
 
 
 def test_data_tasks_feed_both_packages_alike():
