@@ -38,7 +38,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
     2 splits, 4096 samples) with the paper's defaults and with the §4.4
     goodness; the backward launch count must equal the grad steps, and
     a fit through the plain path must reach a test accuracy within 0.05.
-12. Isolation: no ``jax`` and no ``repro`` module was loaded.
+12. Attention kernel against its plain version: ``flash_attention`` at
+    the qwen2-0.5b prefill shape (bf16, f32), a ragged S with a window,
+    G = 1 at hd 128, Sq != Sk non-causal, and rows that see no key.
+13. SSD kernel against its plain version: ``mamba2_ssd`` at the
+    mamba2-780m prefill shape (strong and mild decay), a ragged S and
+    chunk 128.
+14. Timing of both (CUDA events, L2 flushed) beside the plain versions,
+    the bound and, for attention, ``F.scaled_dot_product_attention``.
+15. LM serving, the main path: ``launch.serve.lm_decode`` of qwen2-0.5b
+    and mamba2-780m at full width and depth (random weights from seed 0,
+    batch 4, prompt 2048, 32 tokens) in bf16 through the kernels and
+    through the plain path; 24 attention / 48 SSD kernel calls per
+    prefill, none in decode; last-position prefill logits gated against
+    the plain path; then once in f32, first tokens equal where decided.
+16. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -59,9 +74,10 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM published peaks: f32 outside the tensor cores, and HBM
-# bandwidth.
+# H100 SXM published peaks: f32 outside the tensor cores, bf16 dense on
+# the tensor cores, and HBM bandwidth.
 F32_PEAK_FLOPS = 67e12
+BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 # (y, g) limits on max|kernel - plain| / max|plain|: the reference's own
@@ -90,6 +106,40 @@ GRAD_TOL = 1e-4
 WEIGHT_TOL = 1e-4
 ACC_BAND = 0.05                # kernel fit vs plain fit, test accuracy
 FIT_TRAIN, FIT_TEST = 4096, 1000
+
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:72"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/mamba2_ssd.cu"
+SSD_REPLACES = "src/repro/kernels/mamba2_ssd.py:67"
+# max|kernel - plain| / max|plain|: the reference's own tolerances
+# (tests/test_kernels.py): attention 2e-5 in f32, 5e-2 in bf16; SSD 2e-4.
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+# bf16 attention, elementwise as well: both sides compute in f32 from the
+# same bf16 inputs and round once to bf16, so they may differ by one bf16
+# step (at most 2^-7 |plain|) plus f32 rounding (1e-4 max|plain|).
+FA_BF16_REL, FA_BF16_ABS = 2.0 ** -7, 1e-4
+SSD_TOL = 2e-4
+# (B, Sq, Sk, H, KV, hd, causal, window): the qwen2-0.5b prefill first
+QWEN_ATTN = (4, 2048, 2048, 14, 2, 64, True, None)
+FA_CHECKS = [QWEN_ATTN, (2, 333, 333, 14, 2, 64, True, 128),
+             (2, 512, 512, 4, 4, 128, True, None),
+             (2, 300, 700, 8, 2, 64, False, None),
+             (1, 90, 40, 2, 1, 128, False, 16)]
+# (B, S, H, hd, N, chunk, decay): the mamba2-780m prefill first
+MAMBA_SSD = (4, 2048, 48, 64, 128, 256)
+SSD_CHECKS = [MAMBA_SSD + ("strong",), MAMBA_SSD + ("mild",),
+              (2, 1000, 48, 64, 128, 256, "mild"),
+              (2, 1024, 48, 64, 128, 128, "mild")]
+# LM serving: batch, prompt and generated tokens; kernel calls per prefill
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+LM_CALLS = {"qwen2-0.5b": ("flash_attention", 24),
+            "mamba2-780m": ("mamba2_ssd", 48)}
+# last-position prefill logits, kernel path vs plain path, scaled: bf16
+# through 24 / 48 layers (the kernels' own bf16 limit), f32 at the
+# tests' whole-path limit (PATH_TOL); f32 first tokens are held equal
+# where the plain path's top-2 margin exceeds F32_MARGIN
+LM_BF16_TOL = 5e-2
+F32_MARGIN = 1e-3
 
 
 def check(cond, msg):
@@ -136,9 +186,7 @@ def bound(M, K, N, norm):
     over the memory rate."""
     flops = 2 * M * K * N + 4 * M * N + (M * N if norm else 0)
     nbytes = 4 * (M * K + K * N + N) + 4 * (M * N + M)
-    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return roofline(flops, nbytes)
 
 
 def bwd_bound(M, K, N):
@@ -147,9 +195,7 @@ def bwd_bound(M, K, N):
     written once."""
     flops = 4 * M * K * N
     nbytes = 4 * (M * K + K * N + 2 * M * N + M) + 4 * (M * K + K * N + N)
-    t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return roofline(flops, nbytes)
 
 
 def bwd_inputs(gen, M, K, N, *, dead_row=False):
@@ -195,6 +241,69 @@ def grads(loss, x, w, b):
 def top2_margin(scores):
     top = torch.topk(scores.float(), 2, dim=1).values
     return top[:, 0] - top[:, 1]
+
+
+def fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype):
+    q = torch.randn(B, Sq, H, hd, generator=gen)
+    k = torch.randn(B, Sk, KV, hd, generator=gen)
+    v = torch.randn(B, Sk, KV, hd, generator=gen)
+    return [t.to(dtype).cuda() for t in (q, k, v)]
+
+
+def fa_bound(B, Sq, Sk, H, KV, hd, causal, dtype):
+    """(f32 operations, bytes, bf16 operations) for attention: the two
+    products over the visible pairs (half the dense pairs when causal),
+    against q, k, v read once and out written once. Q.K^T runs on bf16
+    operands when the inputs are bf16 and hd^-0.5 is a power of two (q
+    times the scale is still a bf16 value); P.V has f32 operands (P)."""
+    pairs = B * H * Sq * Sk / (2 if causal else 1)
+    nbytes = (torch.finfo(dtype).bits // 8) * hd * (2 * B * Sq * H
+                                                    + 2 * B * Sk * KV)
+    qk = 2 * pairs * hd
+    if dtype == torch.bfloat16 and math.log2(hd) % 2 == 0:
+        return qk, nbytes, qk
+    return 2 * qk, nbytes, 0
+
+
+def ssd_inputs(gen, B, S, H, hd, N, decay):
+    """xbar, dA, b, c as the model forms them: dA = dt * A < 0, strong
+    (-softplus(normal), the reference tests' draw) or mild (dt in
+    [0.001, 0.1] against A = -1, mamba2's dt init, so the state carries
+    across chunks)."""
+    xbar = torch.randn(B, S, H, hd, generator=gen)
+    if decay == "strong":
+        dA = -torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen))
+    else:
+        dA = -torch.exp(torch.rand(B, S, H, generator=gen)
+                        * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+    b = torch.randn(B, S, N, generator=gen)
+    c = torch.randn(B, S, N, generator=gen)
+    return [t.cuda() for t in (xbar, dA, b, c)]
+
+
+def ssd_bound(B, S, H, hd, N, chunk):
+    """(operations, bytes) for the SSD scan: scores 2·B·nc·N·L(L+1)/2,
+    intra-chunk 2·B·H·nc·hd·L(L+1)/2, inter-chunk and state 2·2·B·S·H·hd·N
+    operations at the f32 peak, against xbar, dA, b, c read once and y,
+    hT written once."""
+    L = min(chunk, S)
+    nc = -(-S // L)
+    tri = L * (L + 1) / 2
+    flops = (2 * B * nc * N * tri + 2 * B * H * nc * hd * tri
+             + 4 * B * S * H * hd * N)
+    nbytes = 4 * (2 * B * S * H * hd + B * S * H + 2 * B * S * N
+                  + B * H * hd * N)
+    return flops, nbytes
+
+
+def roofline(flops, nbytes, bf16_flops=0):
+    """(ms, what bounds it): the larger of the operations (f32 ones over
+    the f32 peak plus bf16 ones over the bf16 tensor-core peak) and the
+    bytes over the memory rate."""
+    t_ops = flops / F32_PEAK_FLOPS + bf16_flops / BF16_PEAK_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def main():
@@ -620,11 +729,241 @@ def main():
         row["launches"] = train_launches["fwd"]
     rows += fwd_rows + bwd_rows
 
-    # 12. isolation --------------------------------------------------------
+    # 12. attention kernel against its plain version ----------------------
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import lm_decode
+    from repro_torch.models import transformer
+
+    fa_errs = {}
+    for B, Sq, Sk, H, KV, hd, causal, window in FA_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
+            o = fa.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            p = fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            check(o.dtype == dtype and o.shape == q.shape
+                  and bool(torch.isfinite(o.float()).all()),
+                  f"flash_attention output type/shape/finite at {(B, Sq, Sk)}")
+            e = scaled_err(o, p)
+            shape = (B, Sq, Sk, H, KV, hd, causal, window)
+            diff = (o.float() - p.float()).abs()
+            fa_errs[shape + (dtype,)] = float(diff.max())
+            msg = ""
+            if dtype == torch.bfloat16:
+                # worst |o - p| over its elementwise limit (<= 1 passes)
+                lim = (FA_BF16_REL * p.float().abs()
+                       + FA_BF16_ABS * p.float().abs().max())
+                r = float((diff / lim).max())
+                msg = (f"; elementwise {r:.3f} of 2^-7 |p| + "
+                       f"{FA_BF16_ABS} max|p| (<= 1)")
+                check(r <= 1.0, f"flash_attention bf16 differs from its "
+                      f"plain version by more than one bf16 rounding at "
+                      f"{shape}")
+            print(f"[12 check] flash_attention {shape} {str(dtype)[6:]}: err "
+                  f"{e:.3e} (<= {FA_TOL[dtype]}){msg}")
+            check(e <= FA_TOL[dtype], f"flash_attention disagrees with its "
+                  f"plain version at {shape} {dtype}")
+            del q, k, v, o, p
+
+    # 13. SSD kernel against its plain version ----------------------------
+    ssd_errs = {}
+    for B, S, H, hd, N, chunk, decay in SSD_CHECKS:
+        xbar, dA, b, c = ssd_inputs(gen, B, S, H, hd, N, decay)
+        y, hT = ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        yp, hp = ssd.mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk)
+        check(y.shape == yp.shape and hT.shape == hp.shape
+              and bool(torch.isfinite(y).all() and torch.isfinite(hT).all()),
+              f"mamba2_ssd output shape/finite at {(B, S, H, hd, N, chunk)}")
+        ey, eh = scaled_err(y, yp), scaled_err(hT, hp)
+        shape = (B, S, H, hd, N, chunk)
+        ssd_errs[shape + (decay,)] = float(max((y - yp).abs().max(),
+                                               (hT - hp).abs().max()))
+        print(f"[13 check] mamba2_ssd {shape} {decay} decay: y err {ey:.3e}, "
+              f"hT err {eh:.3e} (<= {SSD_TOL})")
+        check(max(ey, eh) <= SSD_TOL, f"mamba2_ssd disagrees with its plain "
+              f"version at {shape} ({decay} decay)")
+        del xbar, dA, b, c, y, hT, yp, hp
+
+    # 14. timing of both beside their bounds -----------------------------
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    lm_rows = []
+    B, Sq, Sk, H, KV, hd, causal, window = QWEN_ATTN
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), flush)
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        bound_ms, bound_by = roofline(*fa_bound(B, Sq, Sk, H, KV, hd, causal,
+                                                dtype))
+        lm_rows.append({
+            "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+            "replaces": FA_REPLACES, "shape": [B, Sq, Sk, H, KV, hd],
+            "causal": True, "dtype": str(dtype)[6:], "launches": None,
+            "max_abs_err": fa_errs[QWEN_ATTN + (dtype,)], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) on (B, H, S, hd) copies, TF32 off"})
+        print(f"[14 time] flash_attention {QWEN_ATTN} {str(dtype)[6:]}: "
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del q, k, v, qt, kt, vt
+    B, S, H, hd, N, chunk = MAMBA_SSD
+    xbar, dA, b, c = ssd_inputs(gen, B, S, H, hd, N, "mild")
+    kernel_ms = time_ms(lambda: ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk),
+                        flush)
+    plain_ms = time_ms(
+        lambda: ssd.mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk), flush)
+    bound_ms, bound_by = roofline(*ssd_bound(B, S, H, hd, N, chunk))
+    lm_rows.append({
+        "name": "mamba2_ssd", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES, "shape": [B, S, H, hd, N, chunk],
+        "dtype": "float32", "launches": None,
+        "max_abs_err": ssd_errs[MAMBA_SSD + ("mild",)], "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan"})
+    print(f"[14 time] mamba2_ssd {MAMBA_SSD}: kernel {kernel_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"no library call computes the scan")
+    del xbar, dA, b, c, flush
+
+    # 15. LM serving at full width and depth: the main path ---------------
+    # Each model in bf16: one short warm-up run per path (first-use costs
+    # of cuBLAS's kernels and ours), then the main path through the
+    # kernels with every count zeroed just before and read just after,
+    # then plain, plain, kernels again (times compared in turns). Logits
+    # are compared over the real vocab: the padded rows are -1e30.
+    def run_lm(cfg, params, impl, gen=LM_GEN):
+        return lm_decode(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=gen,
+                         seed=0, params=params, impl=impl)
+
+    def times(res):
+        return {k: res[k] for k in ("prefill_s", "decode_s",
+                                    "decode_tok_per_s")}
+
+    lm_launches = {}
+    for name, (op, calls) in LM_CALLS.items():
+        cfg = get_config(name)
+        counter = fa if op == "flash_attention" else ssd
+        other = ssd if counter is fa else fa
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        for impl in ("auto", "ref"):
+            run_lm(cfg, params, impl, gen=2)
+        fa.LAUNCHES = ssd.LAUNCHES = 0
+        res = run_lm(cfg, params, "auto")
+        launches = counter.LAUNCHES
+        lm_launches[op] = launches
+        check(launches == calls and other.LAUNCHES == 0,
+              f"{name}: lm_decode made {launches} {op} kernel calls (and "
+              f"{other.LAUNCHES} of the other op), expected {calls} and 0")
+        res_ref = run_lm(cfg, params, "ref")
+        res_ref2 = run_lm(cfg, params, "ref")
+        res2 = run_lm(cfg, params, "auto")
+        check(counter.LAUNCHES == 2 * calls and other.LAUNCHES == 0,
+              f"{name}: impl='ref' launched a kernel, or a kernel run did "
+              f"not launch {calls}")
+        gk, gr = res["generated"], res_ref["generated"]
+        check(gk.shape == (LM_BATCH, LM_GEN) and bool(
+            ((gk >= 0) & (gk < cfg.vocab)).all()),
+              f"{name}: generated tokens of the wrong shape or range")
+        check(torch.equal(gk, res2["generated"])
+              and torch.equal(gr, res_ref2["generated"]),
+              f"{name}: two runs of one path generated different tokens")
+        agree = float((gk == gr).float().mean())
+        first = int((gk[:, 0] == gr[:, 0]).sum())
+        # the prefill alone, each path: kernel calls, logits, and decode
+        prompts = torch.as_tensor(next(iter(data.lm_batches(
+            cfg.vocab, LM_BATCH, LM_PROMPT - 1, 1, 0))), device="cuda")
+        with torch.no_grad():
+            fa.LAUNCHES = ssd.LAUNCHES = 0
+            lk, caches = transformer.prefill(params, cfg, prompts,
+                                             max_len=LM_PROMPT + LM_GEN,
+                                             last_only=True)
+            check(counter.LAUNCHES == calls,
+                  f"{name}: prefill made {counter.LAUNCHES} kernel calls")
+            tok = lk.argmax(-1)
+            for i in range(3):
+                _, caches = transformer.serve_step(params, cfg, caches, tok,
+                                                   LM_PROMPT + i)
+            torch.cuda.synchronize()
+            check(fa.LAUNCHES + ssd.LAUNCHES == calls,
+                  f"{name}: decode launched a kernel")
+            lr, _ = transformer.prefill(params, cfg, prompts,
+                                        max_len=LM_PROMPT + LM_GEN,
+                                        last_only=True, impl="ref")
+        lk, lr = lk[:, :cfg.vocab], lr[:, :cfg.vocab]
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        e = scaled_err(lk, lr)
+        print(f"[15 lm] {name} bf16 (B {LM_BATCH}, prompt {LM_PROMPT}, gen "
+              f"{LM_GEN}): {launches} {op} calls in prefill, 0 in decode; "
+              f"last-position prefill logits kernel vs plain err {e:.3e} "
+              f"(<= {LM_BF16_TOL}); greedy tokens agree {agree:.4f} (first "
+              f"token {first}/{LM_BATCH}, top-2 margins of the plain path "
+              f"{[round(float(m), 4) for m in top2_margin(lr)]})")
+        print(f"[15 lm] {name} bf16 prefill s, kernel / plain / plain / "
+              f"kernel: {res['prefill_s']:.4f} / {res_ref['prefill_s']:.4f} "
+              f"/ {res_ref2['prefill_s']:.4f} / {res2['prefill_s']:.4f}; "
+              f"decode tok/s {res['decode_tok_per_s']:.2f} / "
+              f"{res_ref['decode_tok_per_s']:.2f} / "
+              f"{res_ref2['decode_tok_per_s']:.2f} / "
+              f"{res2['decode_tok_per_s']:.2f}")
+        print(json.dumps({"lm": name, "dtype": "bfloat16",
+                          "kernel": [times(res), times(res2)],
+                          "plain": [times(res_ref), times(res_ref2)],
+                          "kernel_calls": launches, "logit_err": e,
+                          "token_agreement": agree}))
+        check(e <= LM_BF16_TOL, f"{name}: prefill logits, kernel path vs "
+              f"plain path, {e} > {LM_BF16_TOL}")
+        del params, caches, res, res2, res_ref, res_ref2
+
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg32)
+        for impl in ("auto", "ref"):
+            run_lm(cfg32, p32, impl, gen=2)
+        res = run_lm(cfg32, p32, "auto")
+        res_ref = run_lm(cfg32, p32, "ref")
+        with torch.no_grad():
+            lk, _ = transformer.prefill(p32, cfg32, prompts, last_only=True)
+            lr, _ = transformer.prefill(p32, cfg32, prompts, last_only=True,
+                                        impl="ref")
+        lk, lr = lk[:, :cfg.vocab], lr[:, :cfg.vocab]
+        decided = top2_margin(lr) > F32_MARGIN
+        same = res["generated"][:, 0] == res_ref["generated"][:, 0]
+        e = scaled_err(lk, lr)
+        print(f"[15 lm] {name} f32: last-position prefill logits kernel vs "
+              f"plain err {e:.3e} (<= {PATH_TOL}); first token equal on "
+              f"{int(same[decided].sum())}/{int(decided.sum())} rows with "
+              f"top-2 margin > {F32_MARGIN}; greedy tokens agree "
+              f"{float((res['generated'] == res_ref['generated']).float().mean()):.4f}"
+              f"; prefill s kernel / plain {res['prefill_s']:.4f} / "
+              f"{res_ref['prefill_s']:.4f}; decode tok/s "
+              f"{res['decode_tok_per_s']:.2f} / "
+              f"{res_ref['decode_tok_per_s']:.2f}")
+        check(e <= PATH_TOL, f"{name} f32: prefill logits, kernel path vs "
+              f"plain path, {e} > {PATH_TOL}")
+        check(bool(same[decided].all()), f"{name} f32: first generated "
+              f"tokens differ from the plain path on decided rows")
+        del p32, res, res_ref
+        torch.cuda.empty_cache()
+    for row in lm_rows:
+        row["launches"] = lm_launches[row["name"]]
+    rows += lm_rows
+
+    # 16. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[12 isolation] no jax, no repro module loaded")
+    print("[16 isolation] no jax, no repro module loaded")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

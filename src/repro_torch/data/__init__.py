@@ -1,5 +1,5 @@
-"""Synthetic image data (the port's own copy of the image part of
-``repro.data``).
+"""Synthetic data (the port's own copy of the image part of
+``repro.data`` and of its Markov LM prompts).
 
 Deterministic class-prototype generators: each class has a smooth
 random prototype; samples are ``clip(proto + noise)``. ``mnist_like`` is
@@ -13,7 +13,8 @@ seed)`` is a pure function of its arguments, so a serving-traffic
 generator regenerates its payloads without communication.
 ``PrototypeSource`` is the generator behind ``mnist_like``/``cifar_like``;
 ``ArraySource`` adapts materialized arrays (a task's test split) to the
-same protocol. The LM ``TextSource`` waits for the LM slice.
+same protocol. ``MarkovLM``/``lm_batches`` give the LM serving path's
+prompts. The real-text ``TextSource`` waits for the LM training slice.
 """
 from __future__ import annotations
 
@@ -184,3 +185,41 @@ def mnist_like(seed=0, n_train=6000, n_test=1000):
 def cifar_like(seed=0, n_train=6000, n_test=1000):
     """32x32x3, 10 classes, overlapping prototypes + heavy noise."""
     return cifar_source(seed).task(n_train, n_test)
+
+
+# ---------------------------------------------------------------------------
+# Language modelling (synthetic Markov corpus): the prompts of the LM
+# serving path
+# ---------------------------------------------------------------------------
+
+class MarkovLM:
+    """First-order Markov chain with sparse transitions + Zipf marginal."""
+
+    def __init__(self, vocab, seed=0, branching=32):
+        rng = np.random.default_rng(seed)
+        self.vocab = vocab
+        self.branching = branching
+        # each token can transition to `branching` successors
+        self.succ = rng.integers(0, vocab, size=(vocab, branching))
+        w = rng.pareto(1.2, size=(vocab, branching)) + 0.05
+        self.probs = (w / w.sum(1, keepdims=True)).astype(np.float64)
+
+    def sample(self, batch, seq_len, seed):
+        rng = np.random.default_rng(seed)
+        out = np.empty((batch, seq_len), np.int32)
+        tok = rng.integers(0, self.vocab, size=batch)
+        for t in range(seq_len):
+            out[:, t] = tok
+            choice = np.array(
+                [rng.choice(self.branching, p=self.probs[k]) for k in tok])
+            tok = self.succ[tok, choice]
+        return out
+
+
+def lm_batches(vocab, batch, seq_len, steps, seed=0):
+    """Yields (batch, seq_len + 1) int32 token blocks for `steps` steps
+    (the chain has ``min(vocab, 4096)`` states; tokens are taken
+    ``% vocab``)."""
+    chain = MarkovLM(min(vocab, 4096), seed)
+    for s in range(steps):
+        yield chain.sample(batch, seq_len + 1, seed * 100003 + s) % vocab

@@ -1,24 +1,28 @@
 """Kernel impl registry: named implementations per op with a platform
-predicate, as ``repro.kernels.registry`` has them. Only ``ff_dense`` is
-ported so far.
+predicate, as ``repro.kernels.registry`` has them, for the three ops of
+the port: ``ff_dense``, ``flash_attention`` and ``mamba2_ssd``.
 
-Impl contract: ``fn(x, w, b, *, norm) -> (y, g)``, differentiable with
-respect to x, w and b.
+Impl contracts:
+  ff_dense         ``fn(x, w, b, *, norm) -> (y, g)``, differentiable
+                   with respect to x, w and b;
+  flash_attention  ``fn(q, k, v, *, causal, window) -> out``;
+  mamba2_ssd       ``fn(xbar, dA, b, c, *, chunk) -> (y, hT)``.
 
 ``"auto"`` resolves by the platform of the operands' device
 (``tensor.device.type``): the first registered impl that prefers it,
-else the fallback. On ``"cuda"`` that is the hand-written kernel pair
-(``ff_dense_vjp`` / ``ff_dense_norm_vjp``: the forward kernel, with the
-backward kernel as its gradient); on the CPU the plain oracle, which
-autograd differentiates. Unknown names raise ``ValueError`` listing the
-registered choices.
+else the fallback. On ``"cuda"`` that is the hand-written kernel (for
+``ff_dense`` the kernel pair ``ff_dense_vjp`` / ``ff_dense_norm_vjp``:
+the forward kernel, with the backward kernel as its gradient); on the
+CPU the plain oracle. ``impl="cuda"`` on a CPU tensor raises. Unknown
+names raise ``ValueError`` listing the registered choices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from repro_torch.kernels import ff_dense_vjp, ref
+from repro_torch.kernels import ff_dense_vjp, flash_attention as fa
+from repro_torch.kernels import mamba2_ssd as ssd, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +72,11 @@ class KernelRegistry:
                 return impl
         return self.get(self.fallback)
 
+    def lookup(self, impl, platform) -> KernelImpl:
+        """The impl an ``impl=`` argument names for operands on
+        ``platform``."""
+        return self.resolve(platform) if impl == "auto" else self.get(impl)
+
     def names(self):
         return tuple(sorted(self._entries))
 
@@ -76,17 +85,23 @@ class KernelRegistry:
         return ("auto",) + self.names()
 
 
-ff_dense = KernelRegistry("ff_dense", fallback="ref")
-
-
 def _on_cuda(platform):
     return platform == "cuda"
 
 
+def _needs_cuda(op, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{op} impl 'cuda' needs CUDA tensors, got "
+                         f"{t.device}; use impl='ref' (or 'auto') there")
+
+
+ff_dense = KernelRegistry("ff_dense", fallback="ref")
+flash_attention = KernelRegistry("flash_attention", fallback="ref")
+mamba2_ssd = KernelRegistry("mamba2_ssd", fallback="ref")
+
+
 def _ff_dense_cuda(x, w, b, *, norm):
-    if x.device.type != "cuda":
-        raise ValueError(f"ff_dense impl 'cuda' needs CUDA tensors, got "
-                         f"{x.device}; use impl='ref' (or 'auto') there")
+    _needs_cuda("ff_dense", x)
     fused = (ff_dense_vjp.ff_dense_norm_vjp if norm
              else ff_dense_vjp.ff_dense_vjp)
     return fused(x, w, b)
@@ -98,5 +113,19 @@ def _ff_dense_ref(x, w, b, *, norm):
     return ref.ff_dense_ref(x, w, b)
 
 
+def _flash_attention_cuda(q, k, v, *, causal, window):
+    _needs_cuda("flash_attention", q)
+    return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _mamba2_ssd_cuda(xbar, dA, b, c, *, chunk):
+    _needs_cuda("mamba2_ssd", xbar)
+    return ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk)
+
+
 ff_dense.register("cuda", _ff_dense_cuda, preferred=_on_cuda)
 ff_dense.register("ref", _ff_dense_ref)
+flash_attention.register("cuda", _flash_attention_cuda, preferred=_on_cuda)
+flash_attention.register("ref", ref.flash_attention_ref)
+mamba2_ssd.register("cuda", _mamba2_ssd_cuda, preferred=_on_cuda)
+mamba2_ssd.register("ref", ref.mamba2_ssd_ref)

@@ -1,0 +1,163 @@
+"""Top-level model assembly: embedding -> grouped blocks -> norm -> head
+(own copy of ``repro.models.transformer`` for decoder-only models).
+
+A model is a stack of *groups*; each group is ``(pattern, repeat)`` and
+its parameters are stacked on a leading ``repeat`` axis, as in the
+reference, so that its parameter tree converts one to one. The
+reference scans a group with ``lax.scan``; the port indexes the stacked
+leaves along axis 0 in a Python loop.
+
+Three entry points:
+  ``forward``     — full-sequence -> logits
+  ``prefill``     — full-sequence forward that also fills decode caches
+  ``serve_step``  — one-token decode against the caches, in place
+
+Encoder-decoder and vision configs wait for their block kinds
+(``ROADMAP.md`` §1).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.convert import tree_leaves, tree_map, tree_stack
+from repro_torch.models import blocks, common
+
+
+def group_infos(cfg):
+    """(index, pattern, repeat) for each group (the port runs decoder-only
+    models: no encoder groups)."""
+    return [(gi, pattern, repeat)
+            for gi, (pattern, repeat) in enumerate(cfg.groups)]
+
+
+def _layer(tree, r):
+    """Layer ``r`` of a stacked tree: views, so in-place writes to a
+    layer's cache land in the stacked caches."""
+    return tree_map(lambda a: a[r], tree)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(gen, cfg):
+    """Random parameters drawn from the ``torch.Generator`` ``gen``, on
+    its device, in the reference's tree layout."""
+    dtype = common.dtype_of(cfg)
+    params = {
+        "embed": common.dense_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                   dtype, fan_in=cfg.d_model),
+        "final_norm": torch.zeros((cfg.d_model,), device=gen.device),
+    }
+    groups = []
+    for _, pattern, repeat in group_infos(cfg):
+        def unit(g, pattern=pattern):
+            return tuple(blocks.block_init(g, cfg, kind) for kind in pattern)
+        groups.append(common.stack_init(gen, repeat, unit))
+    params["groups"] = tuple(groups)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = common.dense_init(
+            gen, (cfg.d_model, cfg.padded_vocab), dtype)
+    return params
+
+
+def param_count(params):
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg, tokens):
+    return params["embed"][tokens.long()]
+
+
+def unembed(params, cfg, x):
+    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    logits = common.softcap(logits.float(), cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab:       # mask pad-row logits
+        pad_mask = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(pad_mask, -1e30)
+    return logits
+
+
+def forward(params, cfg, tokens, *, impl="auto"):
+    """tokens: (B, S) integer. Returns (logits (B, S, V) f32, aux_loss)."""
+    x = embed_tokens(params, cfg, tokens)
+    aux_loss = torch.zeros((), device=x.device)
+    ctx = {"causal": True, "impl": impl}
+    for gi, pattern, repeat in group_infos(cfg):
+        for r in range(repeat):
+            for kind, bp in zip(pattern, _layer(params["groups"][gi], r)):
+                x, a = blocks.block_apply(bp, cfg, kind, x, ctx)
+                aux_loss = aux_loss + a
+    return unembed(params, cfg, x), aux_loss
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg, batch, max_len, dtype=None, device="cpu"):
+    """Stacked (repeat-leading) empty caches for every group: zeros, and
+    ``kpos = -1`` for empty slots."""
+    dtype = dtype or common.dtype_of(cfg)
+    caches = []
+    for _, pattern, repeat in group_infos(cfg):
+        unit = tuple(blocks.block_cache_init(cfg, kind, batch, max_len, dtype,
+                                             device) for kind in pattern)
+        caches.append(tree_map(
+            lambda t: t[None].expand(repeat, *t.shape).clone(), unit))
+    return tuple(caches)
+
+
+# ---------------------------------------------------------------------------
+# Prefill (fills caches) and decode
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg, tokens, *, max_len=None, last_only=False,
+            impl="auto"):
+    """Full forward that also returns filled decode caches.
+
+    Returns (logits, caches): logits over all S positions, or only the
+    final position with ``last_only`` (what serving needs). ``max_len``
+    sizes the KV caches (defaults to S; pass S + generation budget for
+    serving). ``impl`` reaches the attention and SSD kernel ops.
+    """
+    B, S = tokens.shape
+    max_len = max_len or S
+    x = embed_tokens(params, cfg, tokens)
+    ctx = {"causal": True, "max_len": max_len, "impl": impl}
+    caches = []
+    for gi, pattern, repeat in group_infos(cfg):
+        layers = []
+        for r in range(repeat):
+            ucaches = []
+            for kind, bp in zip(pattern, _layer(params["groups"][gi], r)):
+                x, c = blocks.block_prefill(bp, cfg, kind, x, ctx)
+                ucaches.append(c)
+            layers.append(tuple(ucaches))
+        caches.append(tree_stack(layers))
+    if last_only:
+        x = x[:, -1]
+    return unembed(params, cfg, x), tuple(caches)
+
+
+def serve_step(params, cfg, caches, tokens, pos):
+    """One decode step. tokens: (B,) integer; pos: the new token's
+    position. Returns (logits (B, V), caches), the caches updated in
+    place."""
+    x = embed_tokens(params, cfg, tokens)
+    ctx = {}
+    for gi, pattern, repeat in group_infos(cfg):
+        for r in range(repeat):
+            unit_p = _layer(params["groups"][gi], r)
+            unit_c = _layer(caches[gi], r)
+            for kind, bp, c in zip(pattern, unit_p, unit_c):
+                x, _ = blocks.block_decode(bp, cfg, kind, c, x, pos, ctx)
+    return unembed(params, cfg, x), caches
