@@ -14,9 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. Kernel against its plain version, on the card: ``ff_dense`` at the
    serving shapes and two ragged ones, norm off/on, f32 and bf16, plus a
    row forced all-dead. Errors are scaled by max |plain|.
-4. Timing (CUDA events, L2 flushed before each call, median of 25) of
-   the kernel, its plain version and ``torch.addmm`` at the serving
-   shapes, beside the least time the card could take (``bound_ms``).
+4. Timing (CUDA events, L2 flushed before each call, median of 25; a
+   spin kernel ahead of each call keeps host enqueue time out) of the
+   kernel, its plain version and ``torch.addmm`` at the serving shapes,
+   beside the least time the card could take (``bound_ms``).
 5. Whole path: the paper's MLP (``PAPER_MLP``, full width and depth,
    random weights from a seed) scores one 64-row batch under three
    classifiers through the kernel and through the plain path.
@@ -24,12 +25,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch count must be 4 per scored batch.
 7. Backward kernel against its plain version: ``ff_dense_bwd`` at the
    four training shapes and two ragged ones (dx, dw, db scaled by
-   max |plain|), plus an all-dead row whose dg is NaN.
+   max |plain|), plus an all-dead row whose dg is NaN; a second call at
+   (128, 2000, 2000) must give bit-identical outputs.
 8. Gradients through ``FFDense``/``FFDenseNorm`` against autograd of the
    plain version, under the reference test's two losses.
-9. Timing of the backward kernel (and the forward at the training M),
-   its plain version and the library yardstick, beside the bound; and
-   one grad step's wall time against its parts' device times.
+9. Timing of the backward kernel, each of its three launches (grad_x,
+   the slice sum, grad_w) at (128, 2000, 2000), and the forward at the
+   training M, beside the plain version, the library yardstick and the
+   bound; and one grad step's wall time against its device time.
 10. Trainer parity: one chapter of ``train_layer_chapter`` (K = 784) and
     of ``train_layer_chapter_perf_opt`` (K = 2000, started off the relu
     boundary) through the kernels and through the plain path, from one
@@ -40,7 +43,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     a fit through the plain path must reach a test accuracy within 0.05.
 12. Attention kernel against its plain version: ``flash_attention`` at
     the qwen2-0.5b prefill shape (bf16, f32), a ragged S with a window,
-    G = 1 at hd 128, Sq != Sk non-causal, and rows that see no key.
+    G = 1 at hd 128, Sq != Sk non-causal, and rows that see no key; a
+    second call must give bit-identical outputs.
 13. SSD kernel against its plain version: ``mamba2_ssd`` at the
     mamba2-780m prefill shape (strong and mild decay), a ragged S and
     chunk 128.
@@ -61,7 +65,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 import statistics
 import subprocess
@@ -87,6 +90,8 @@ SERVING_SHAPES = [(640, 784, 2000), (640, 2000, 2000)]
 CHECK_SHAPES = SERVING_SHAPES + [(100, 333, 257), (16, 64, 64)]
 PATH_TOL = 1e-4                # whole-path scores, scaled
 TIMING_REPS = 25
+SPIN_CYCLES = 1_000_000        # ~0.5 ms: longer than any call's enqueue
+STEP_SPIN_CYCLES = 20_000_000  # ~10 ms: longer than a grad step's enqueue
 SERVE_REQUESTS = 1024
 
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/ff_dense.cu"
@@ -163,12 +168,16 @@ def make_inputs(gen, M, K, N, dtype, *, dead_row=False):
     return [t.to(dtype).cuda() for t in (x, w, b)]
 
 
-def time_ms(fn, flush):
-    """Median device time of one call, L2 flushed before each."""
+def time_ms(fn, flush, spin=None):
+    """Median device time of one call, L2 flushed before each. A spin
+    kernel (``spin`` cycles) ahead of the flush keeps the card busy while
+    the host enqueues the call, so the span between the events holds no
+    host time when the enqueue is shorter than the spin."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(TIMING_REPS):
+        torch.cuda._sleep(spin or SPIN_CYCLES)
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -251,17 +260,21 @@ def fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype):
 
 
 def fa_bound(B, Sq, Sk, H, KV, hd, causal, dtype):
-    """(f32 operations, bytes, bf16 operations) for attention: the two
+    """(f32 operations, bytes, bf16 operations) for attention: the
     products over the visible pairs (half the dense pairs when causal),
-    against q, k, v read once and out written once. Q.K^T runs on bf16
-    operands when the inputs are bf16 and hd^-0.5 is a power of two (q
-    times the scale is still a bf16 value); P.V has f32 operands (P)."""
+    against q, k, v read once and out written once. In f32 both products
+    count at the f32 FMA rate. In bf16 every product counts at the bf16
+    tensor-core rate: Q.K^T on the bf16 inputs at every hd (the scale
+    comes after the product), and P.V as two bf16 products, P split into
+    bf16(p) and bf16(p - bf16(p)) to keep the reference's f32 P; counting
+    P.V at the f32 rate would bound the function by a path the kernel
+    does not take."""
     pairs = B * H * Sq * Sk / (2 if causal else 1)
     nbytes = (torch.finfo(dtype).bits // 8) * hd * (2 * B * Sq * H
                                                     + 2 * B * Sk * KV)
     qk = 2 * pairs * hd
-    if dtype == torch.bfloat16 and math.log2(hd) % 2 == 0:
-        return qk, nbytes, qk
+    if dtype == torch.bfloat16:
+        return 0, nbytes, 3 * qk
     return 2 * qk, nbytes, 0
 
 
@@ -491,6 +504,15 @@ def main():
               f"dw err {e[1]:.3e}, db err {e[2]:.3e} (<= {GRAD_TOL})")
         check(max(e) <= GRAD_TOL, f"ff_dense_bwd disagrees with its plain "
               f"version at {(M, K, N)}")
+    x, w, y, dy_out, dg = bwd_inputs(torch.Generator().manual_seed(7),
+                                     *TRAIN_SHAPES[1])
+    first = vjp.ff_dense_bwd(x, w, y, dy_out, dg)
+    again = vjp.ff_dense_bwd(x, w, y, dy_out, dg)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"ff_dense_bwd: two calls at {TRAIN_SHAPES[1]} differ")
+    print(f"[7 check] ff_dense_bwd {TRAIN_SHAPES[1]}: a second call gives "
+          f"bit-identical dx, dw, db")
     x, w, y, dy_out, dg = bwd_inputs(gen, 64, 784, 2000, dead_row=True)
     dx, dw, db = vjp.ff_dense_bwd(x, w, y, dy_out, dg)
     torch.cuda.synchronize()
@@ -555,6 +577,16 @@ def main():
         print(f"[9 time] ff_dense_bwd {(M, K, N)}: kernel {kernel_ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
+        if (M, K, N) == TRAIN_SHAPES[1]:
+            parts = {name: time_ms(lambda: vjp._launch(x, w, y, dy_out, dg,
+                                                       bit), flush)
+                     for name, bit in (("grad_x", vjp.GRAD_X),
+                                       ("split-sum", vjp.SUM_SLICES),
+                                       ("grad_w", vjp.GRAD_W))}
+            bwd_rows[-1]["parts_ms"] = parts
+            print(f"[9 time] ff_dense_bwd {(M, K, N)} by launch (each alone, "
+                  f"cold L2; {vjp._grad_x_split(M, K, N)[0]} slices): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
     for M, K, N in TRAIN_SHAPES[:2]:
         x, w, b = make_inputs(gen, M, K, N, torch.float32)
         y, g = kernel.ff_dense(x, w, b)
@@ -592,6 +624,7 @@ def main():
     g_step = step()
     adam_ms = time_ms(
         lambda: optim.adam_update(lp, g_step, opt, lr=lr0, step=1), flush)
+    step_dev_ms = time_ms(step, flush, spin=STEP_SPIN_CYCLES)
     for _ in range(5):
         step()
     torch.cuda.synchronize()
@@ -602,8 +635,9 @@ def main():
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 50
     print(f"[9 step] sumsq grad step {(M, K, N)}: {step_ms:.4f} ms wall "
-          f"per step over 50 (host enqueue {enqueue_ms:.4f} ms); Adam "
-          f"update {adam_ms:.4f} ms on the card; kernels: forward "
+          f"per step over 50 (host enqueue {enqueue_ms:.4f} ms); one step's "
+          f"device time {step_dev_ms:.4f} ms (cold L2); Adam update "
+          f"{adam_ms:.4f} ms on the card; kernels: forward "
           f"{fwd_rows[1]['ms']:.4f} ms + backward {bwd_rows[1]['ms']:.4f} "
           f"ms (cold L2)")
     del flush
@@ -713,7 +747,7 @@ def main():
         print(f"[11 fit] PAPER_MLP {label}: test_acc {res.test_acc:.4f} "
               f"(plain path {res_ref.test_acc:.4f}), train_acc "
               f"{res.train_acc:.4f}; {bwd_calls} backward calls "
-              f"({2 * bwd_calls} CUDA launches) for {grad_steps} grad "
+              f"({3 * bwd_calls} CUDA launches) for {grad_steps} grad "
               f"steps, {fwd_calls} forward calls; fit {fit_s:.3f} s "
               f"(plain path {ref_s:.3f} s)")
         print(json.dumps({"fit": label, "task_s": [
@@ -741,7 +775,10 @@ def main():
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
             o = fa.flash_attention(q, k, v, causal=causal, window=window)
+            again = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            check(torch.equal(o, again), f"flash_attention: two calls at "
+                  f"{(B, Sq, Sk, H, KV, hd, causal, window)} {dtype} differ")
             p = fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
             check(o.dtype == dtype and o.shape == q.shape
@@ -763,10 +800,10 @@ def main():
                       f"plain version by more than one bf16 rounding at "
                       f"{shape}")
             print(f"[12 check] flash_attention {shape} {str(dtype)[6:]}: err "
-                  f"{e:.3e} (<= {FA_TOL[dtype]}){msg}")
+                  f"{e:.3e} (<= {FA_TOL[dtype]}){msg}; repeat bit-identical")
             check(e <= FA_TOL[dtype], f"flash_attention disagrees with its "
                   f"plain version at {shape} {dtype}")
-            del q, k, v, o, p
+            del q, k, v, o, again, p
 
     # 13. SSD kernel against its plain version ----------------------------
     ssd_errs = {}

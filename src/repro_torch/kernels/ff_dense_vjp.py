@@ -8,10 +8,14 @@ and g = sum(y^2, -1), the cotangents (dy_out, dg) combine into
 
 and dx = dy @ w^T, dw = x^T @ dy, db = sum_rows(dy). ``ff_dense_bwd``
 computes all three with the hand-written CUDA kernel in
-``csrc/ff_dense_bwd.cu`` (two launches per call, dy rebuilt inside the
-tile loaders and never written to device memory; the source's header
-gives its design and bound); ``LAUNCHES`` counts its calls. CPU tensors
-take ``ff_dense_bwd_plain``, because the kernel cannot run there.
+``csrc/ff_dense_bwd.cu``, whose header gives its design and bound: three
+CUDA launches per call (``grad_x`` over S slices of N into an (S, M, K)
+scratch, ``sum_slices`` adding them in slice order into dx, ``grad_w``
+with db), f32 FMA from a 2-stage ``cp.async`` ring, dy rebuilt in shared
+memory from the raw y and dy_out tiles and never written to device
+memory. ``_grad_x_split`` picks S. ``LAUNCHES`` counts calls. CPU
+tensors take ``ff_dense_bwd_plain``, because the kernel cannot run
+there.
 
 ``ff_dense_vjp(x, w, b)`` and ``ff_dense_norm_vjp(x, w, b)`` are the
 reference's two custom_vjps: the forward is the ``ff_dense`` kernel
@@ -29,10 +33,22 @@ import torch
 from repro_torch.kernels import ff_dense as ff_dense_kernel
 from repro_torch.kernels.ff_dense import NORM_EPS
 
-# Calls that launched the CUDA backward kernel (2 CUDA launches each) in
+# Calls that launched the CUDA backward kernel (3 CUDA launches each) in
 # this process. chip_smoke.py zeroes it before a training run and reads
 # it after, to show every grad step went through the kernel.
 LAUNCHES = 0
+
+# grad_x's block tile (m rows, k columns) and stage depth (n), as in
+# csrc/ff_dense_bwd.cu.
+GRAD_X_BM, GRAD_X_BN, GRAD_X_BK = 128, 64, 16
+# grad_x blocks wanted: two on each of the H100's 132 SMs (its registers
+# hold three at a time, so one wave takes them all).
+GRAD_X_BLOCKS = 2 * 132
+# n columns a slice covers at least: 8 stages, so that a slice's loop is
+# long against the ring's fill.
+GRAD_X_MIN_SLICE = 128
+# The launch bits of ff_dense_bwd_launch: grad_x, sum_slices, grad_w.
+GRAD_X, SUM_SLICES, GRAD_W = 1, 2, 4
 
 _lib = None
 
@@ -49,14 +65,27 @@ def ff_dense_bwd_plain(x, w, y, dy_out, dg):
     return dx, dw, torch.sum(dy, dim=0)
 
 
+def _grad_x_split(M, K, N):
+    """(S, L): grad_x splits dx's reduction over N into S slices of L
+    columns, [s*L, min((s+1)*L, N)), each non-empty and L a multiple of
+    the stage depth, so that its (K/64) * (M/128) * S blocks come near
+    ``GRAD_X_BLOCKS`` without a slice shorter than ``GRAD_X_MIN_SLICE``
+    (when N allows): 256 blocks at (128, 2000, 2000), 208 at K 784."""
+    tiles = -(-K // GRAD_X_BN) * -(-M // GRAD_X_BM)
+    want = max(1, round(GRAD_X_BLOCKS / tiles))
+    slices = max(1, min(want, -(-N // GRAD_X_MIN_SLICE)))
+    L = -(-(-(-N // slices)) // GRAD_X_BK) * GRAD_X_BK
+    return -(-N // L), L
+
+
 def _library():
     """The kernel library with the backward's entry bound (the forward's
     module binds the shared ``ff_dense_error_string``)."""
     global _lib
     if _lib is None:
         lib = ff_dense_kernel._library()
-        lib.ff_dense_bwd_launch.argtypes = ([ctypes.c_void_p] * 8
-                                            + [ctypes.c_int] * 3
+        lib.ff_dense_bwd_launch.argtypes = ([ctypes.c_void_p] * 9
+                                            + [ctypes.c_int] * 6
                                             + [ctypes.c_void_p])
         lib.ff_dense_bwd_launch.restype = ctypes.c_int
         _lib = lib
@@ -87,41 +116,53 @@ def _check(x, w, y, dy_out, dg):
     return M, K, N
 
 
-def ff_dense_bwd(x, w, y, dy_out, dg):
-    """(x (M, K), w (K, N), y (M, N), dL/dy (M, N), dL/dg (M,)) ->
-    (dx (M, K), dw (K, N), db (N,)), all f32.
-
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    ``ff_dense_bwd_plain``.
-    """
-    global LAUNCHES
-    M, K, N = _check(x, w, y, dy_out, dg)
-    if x.device.type == "cpu":
-        return ff_dense_bwd_plain(x, w, y, dy_out, dg)
-    if x.device.type != "cuda":
-        raise ValueError(f"ff_dense_bwd runs on cuda or cpu tensors, got "
-                         f"{x.device}")
+def _launch(x, w, y, dy_out, dg, parts=GRAD_X | SUM_SLICES | GRAD_W):
+    """Launches the kernel's parts named by the bits of ``parts`` on CUDA
+    operands that ``_check`` passed; returns (dx, dw, db). Only all three
+    parts make all three outputs: a single part is launched to time it."""
+    M, K, N = x.shape[0], x.shape[1], w.shape[1]
     if not all(t.is_contiguous() for t in (x, w, y, dy_out, dg)):
         raise ValueError("ff_dense_bwd's kernel takes contiguous "
                          "row-major operands")
     if M == 0 or K == 0 or N == 0:
         raise ValueError(f"ff_dense_bwd's kernel takes no empty dimension, "
                          f"got M={M}, K={K}, N={N}")
+    S, L = _grad_x_split(M, K, N)
     lib = _library()
     dev = x.device
     with torch.cuda.device(dev):
         dx = torch.empty((M, K), dtype=torch.float32, device=dev)
         dw = torch.empty((K, N), dtype=torch.float32, device=dev)
         db = torch.empty((N,), dtype=torch.float32, device=dev)
+        part = torch.empty((S, M, K), dtype=torch.float32, device=dev)
         err = lib.ff_dense_bwd_launch(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), dy_out.data_ptr(),
             dg.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            M, K, N, torch.cuda.current_stream(dev).cuda_stream)
+            part.data_ptr(), M, K, N, S, L, parts,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ff_dense_bwd kernel launch failed: "
                            f"{lib.ff_dense_error_string(err).decode()}")
-    LAUNCHES += 1
     return dx, dw, db
+
+
+def ff_dense_bwd(x, w, y, dy_out, dg):
+    """(x (M, K), w (K, N), y (M, N), dL/dy (M, N), dL/dg (M,)) ->
+    (dx (M, K), dw (K, N), db (N,)), all f32.
+
+    CUDA tensors launch the kernel (three CUDA launches, or raise); CPU
+    tensors take ``ff_dense_bwd_plain``.
+    """
+    global LAUNCHES
+    _check(x, w, y, dy_out, dg)
+    if x.device.type == "cpu":
+        return ff_dense_bwd_plain(x, w, y, dy_out, dg)
+    if x.device.type != "cuda":
+        raise ValueError(f"ff_dense_bwd runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    out = _launch(x, w, y, dy_out, dg)
+    LAUNCHES += 1
+    return out
 
 
 class FFDense(torch.autograd.Function):

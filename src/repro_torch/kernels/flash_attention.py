@@ -3,10 +3,14 @@
 The port of ``repro/kernels/flash_attention.py::flash_attention`` (the
 Pallas ``_kernel``). The kernel itself is CUDA C++ in
 ``csrc/flash_attention.cu``, whose header note gives its design and
-bound: one block per (64-row q tile, batch x head), k and v streamed
-through shared memory in 64-row tiles of the kv head ``h // G``, the
-online softmax in f32 registers, fully masked k tiles skipped. One call
-is one CUDA launch; ``LAUNCHES`` counts calls.
+bound. bf16 runs on the tensor cores (``wgmma``, f32 accumulation):
+Q.K^T on bf16 operands with hd^-0.5 applied to the f32 scores, and P.V
+as two bf16 products, P split into bf16(p) and bf16(p - bf16(p)), which
+keeps the reference's f32 P to about 2^-17; two warpgroups of 64 q rows
+a block; k and v stream through a 2-stage ``cp.async`` ring of 64-key
+tiles. f32 runs the FMA kernel. Both keep the online softmax in f32
+registers and skip fully masked k tiles. One call is one CUDA launch;
+``LAUNCHES`` counts calls.
 
 ``flash_attention`` takes q (B, Sq, H, hd) and k, v (B, Sk, KV, hd), all
 f32 or all bf16, and returns (B, Sq, H, hd) in q's dtype. The kernel
@@ -124,6 +128,11 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if B * H >= 2 ** 16:
         raise ValueError(f"flash_attention's kernel takes B*H < 65536, got "
                          f"{B * H}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention's bf16 kernel takes q, k, v "
+                         "starting on 16-byte boundaries (it copies rows in "
+                         "16-byte chunks)")
     lib = _library()
     dev = q.device
     with torch.cuda.device(dev):

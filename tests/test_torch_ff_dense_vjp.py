@@ -206,3 +206,61 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(case, exc,
     }[case]
     with pytest.raises(exc, match=match):
         ff_dense_vjp.ff_dense_bwd(*args)
+
+
+# grad_x's split of dx's reduction over N (csrc/ff_dense_bwd.cu): the
+# training shapes of chip_smoke.py, its ragged checks, and edge sizes.
+TRAIN_SHAPES = [(128, 784, 2000), (128, 2000, 2000), (64, 784, 2000),
+                (64, 2000, 2000)]
+SPLIT_SHAPES = TRAIN_SHAPES + [(100, 333, 257), (16, 64, 64), (1, 1, 1),
+                               (640, 2000, 2000), (128, 2000, 17),
+                               (7, 5, 3000)]
+
+
+def _slices(M, K, N):
+    S, L = ff_dense_vjp._grad_x_split(M, K, N)
+    return [(s * L, min((s + 1) * L, N)) for s in range(S)], L
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
+def test_grad_x_split_slices_cover_n_exactly_and_are_non_empty(M, K, N):
+    slices, L = _slices(M, K, N)
+    assert L % ff_dense_vjp.GRAD_X_BK == 0
+    assert slices[0][0] == 0 and slices[-1][1] == N
+    assert all(lo < hi for lo, hi in slices)
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+
+
+@pytest.mark.parametrize("M,K,N", TRAIN_SHAPES)
+def test_grad_x_split_fills_the_card_at_training_shapes(M, K, N):
+    S, _ = ff_dense_vjp._grad_x_split(M, K, N)
+    blocks = (-(-K // ff_dense_vjp.GRAD_X_BN) * -(-M // ff_dense_vjp.GRAD_X_BM)
+              * S)
+    assert blocks >= 132   # the H100's SMs
+
+
+def test_grad_x_split_is_deterministic():
+    first = [ff_dense_vjp._grad_x_split(*s) for s in SPLIT_SHAPES]
+    assert first == [ff_dense_vjp._grad_x_split(*s) for s in SPLIT_SHAPES]
+    assert first[1] == (8, 256)   # (128, 2000, 2000): 32 x 8 = 256 blocks
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 784, 2000), (100, 333, 257),
+                                   (16, 64, 64), (64, 200, 1000)])
+def test_split_n_fixed_order_sum_matches_plain(M, K, N):
+    """dx as the kernel forms it: one partial per slice of N, summed in
+    slice order, against ff_dense_bwd_plain."""
+    rng, x, w, b = _operands(M, K, N, seed=M + 2 * K + N)
+    y = np.maximum(x @ w + b, 0).astype(np.float32)
+    dy_out = rng.standard_normal((M, N)).astype(np.float32)
+    dg = rng.standard_normal(M).astype(np.float32)
+    tx, tw, ty, tdo, tdg = (torch.tensor(a) for a in (x, w, y, dy_out, dg))
+    dy = torch.where(ty > 0, tdo + 2.0 * ty * tdg[:, None],
+                     torch.zeros(()))
+    slices, _ = _slices(M, K, N)
+    parts = [dy[:, lo:hi] @ tw[:, lo:hi].T for lo, hi in slices]
+    dx = parts[0]
+    for part in parts[1:]:
+        dx = dx + part
+    want = ff_dense_vjp.ff_dense_bwd_plain(tx, tw, ty, tdo, tdg)[0]
+    assert _scaled_err(dx.numpy(), want.numpy()) <= 1e-6

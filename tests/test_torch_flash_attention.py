@@ -172,3 +172,91 @@ def test_decode_attention_matches_reference(window):
                                      torch.tensor(vn), torch.tensor(kpos), 8,
                                      window=window)
     _assert_close(got, want, TOL["float32"])
+
+
+# The bf16 kernel's arithmetic (csrc/flash_attention.cu, flash_fwd_tc),
+# emulated in torch: Q.K^T from the bf16 operands in f32 with hd^-0.5
+# applied after the product; p = exp(s - m) in f32; P.V as two products
+# of bf16 operands summed in f32, P split into bf16(p) and bf16(p -
+# bf16(p)); l summed from the f32 p. Held at the card's bf16 gates
+# (chip_smoke.py): 5e-2 scaled, and elementwise |o - ref| <= 2^-7 |ref| +
+# 1e-4 max|ref|, one bf16 rounding apart.
+BF16_REL, BF16_ABS = 2.0 ** -7, 1e-4
+
+
+def _bf16_tensor_core_emulation(q, k, v, causal, window, split=True):
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    qf = q.float().reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bikgd,bjkd->bkgij", qf, k.float()) * hd ** -0.5
+    qpos = torch.arange(Sq)[:, None]
+    kpos = torch.arange(Sk)[None, :]
+    vis = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        vis &= qpos >= kpos
+    if window is not None:
+        vis &= (qpos - kpos) < window
+    # masked scores take no weight; a row that sees no key averages v
+    s = torch.where(vis, s, torch.full((), -torch.inf))
+    s = torch.where(vis.any(1, keepdim=True), s, torch.zeros(()))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p_hi = p.bfloat16().float()
+    parts = [p_hi, (p - p_hi).bfloat16().float()] if split else [p_hi]
+    o = sum(torch.einsum("bkgij,bjkd->bkgid", pp, v.float()) for pp in parts)
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).bfloat16()
+
+
+def _bf16_gate_readings(got, want):
+    """(scaled error, worst elementwise error over its limit)."""
+    got = got.float()
+    want = torch.tensor(np.asarray(want.astype(jnp.float32)))
+    diff = (got - want).abs()
+    lim = BF16_REL * want.abs() + BF16_ABS * want.abs().max()
+    return (float(diff.max() / want.abs().max()), float((diff / lim).max()))
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window", [
+    (2, 256, 4, 2, 64, True, None),
+    (1, 128, 4, 4, 128, True, 64),
+    (1, 128, 8, 2, 64, False, None),
+])
+def test_bf16_tensor_core_arithmetic_meets_gates_against_pallas(
+        B, S, H, KV, hd, causal, window):
+    (jq, jk, jv), (q, k, v) = _inputs(B, S, S, H, KV, hd, "bfloat16", seed=5)
+    want = pallas_fa(jq, jk, jv, causal=causal, window=window, bq=64, bk=64)
+    got = _bf16_tensor_core_emulation(q, k, v, causal, window)
+    scaled, elem = _bf16_gate_readings(got, want)
+    assert scaled <= TOL["bfloat16"] and elem <= 1.0, (scaled, elem)
+
+
+# chip_smoke.py's FA_CHECKS, the qwen2-0.5b prefill cut to B 1, S 512
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,window", [
+    (1, 512, 512, 14, 2, 64, True, None),
+    (2, 333, 333, 14, 2, 64, True, 128),
+    (2, 512, 512, 4, 4, 128, True, None),
+    (2, 300, 700, 8, 2, 64, False, None),
+    (1, 90, 40, 2, 1, 128, False, 16),
+])
+def test_bf16_tensor_core_arithmetic_meets_gates_against_oracle(
+        B, Sq, Sk, H, KV, hd, causal, window):
+    (jq, jk, jv), (q, k, v) = _inputs(B, Sq, Sk, H, KV, hd, "bfloat16")
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    got = _bf16_tensor_core_emulation(q, k, v, causal, window)
+    scaled, elem = _bf16_gate_readings(got, want)
+    assert scaled <= TOL["bfloat16"] and elem <= 1.0, (scaled, elem)
+
+
+def test_bf16_p_alone_misses_the_elementwise_gate():
+    """Why the kernel splits P: with P rounded to bf16 alone (SDPA's
+    choice) the same arithmetic stays inside the scaled gate but misses
+    the elementwise one several-fold (3.7 of the limit with these
+    inputs), while the split reads under 1."""
+    (jq, jk, jv), (q, k, v) = _inputs(2, 512, 512, 4, 4, 64, "bfloat16")
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True)
+    scaled, elem = _bf16_gate_readings(
+        _bf16_tensor_core_emulation(q, k, v, True, None, split=False), want)
+    assert scaled <= TOL["bfloat16"] and elem > 2.0, (scaled, elem)
+    _, elem_split = _bf16_gate_readings(
+        _bf16_tensor_core_emulation(q, k, v, True, None), want)
+    assert elem_split <= 1.0, elem_split
