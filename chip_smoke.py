@@ -10,14 +10,19 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
-2. Build: ``nvcc`` builds the kernel library from ``kernels/csrc``.
+2. Build: ``nvcc`` builds the kernel library from ``kernels/csrc``;
+   each kernel's registers, shared memory and spills (``ptxas -v``), and
+   the tensor-core instructions in the 3xTF32 kernels' SASS.
 3. Kernel against its plain version, on the card: ``ff_dense`` at the
    serving shapes and two ragged ones, norm off/on, f32 and bf16, plus a
-   row forced all-dead. Errors are scaled by max |plain|.
+   row forced all-dead. Errors are scaled by max |plain|. A second call
+   at (128, 2000, 2000) and (640, 2000, 2000) must give bit-identical
+   outputs, and is held against a float64 truth beside the plain version.
 4. Timing (CUDA events, L2 flushed before each call, median of 25; a
    spin kernel ahead of each call keeps host enqueue time out) of the
    kernel, its plain version and ``torch.addmm`` at the serving shapes,
-   beside the least time the card could take (``bound_ms``).
+   beside the least time the card could take (``bound_ms``); the kernel
+   at each block width it is built for.
 5. Whole path: the paper's MLP (``PAPER_MLP``, full width and depth,
    random weights from a seed) scores one 64-row batch under three
    classifiers through the kernel and through the plain path.
@@ -31,7 +36,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    plain version, under the reference test's two losses.
 9. Timing of the backward kernel, each of its three launches (grad_x,
    the slice sum, grad_w) at (128, 2000, 2000), and the forward at the
-   training M, beside the plain version, the library yardstick and the
+   four training shapes, norm off and on (y and g gated as in phase 3),
+   each of its two launches (gemm_split, finish_rows) alone and each
+   block width, beside the plain version, the library yardstick and the
    bound; and one grad step's wall time against its device time.
 10. Trainer parity: one chapter of ``train_layer_chapter`` (K = 784) and
     of ``train_layer_chapter_perf_opt`` (K = 2000, started off the relu
@@ -47,9 +54,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
     second call must give bit-identical outputs.
 13. SSD kernel against its plain version: ``mamba2_ssd`` at the
     mamba2-780m prefill shape (strong and mild decay), a ragged S and
-    chunk 128.
+    chunk 128; a second call at the prefill shape must give
+    bit-identical outputs.
 14. Timing of both (CUDA events, L2 flushed) beside the plain versions,
-    the bound and, for attention, ``F.scaled_dot_product_attention``.
+    the bound and, for attention, ``F.scaled_dot_product_attention``;
+    each of the SSD's four launches alone.
 15. LM serving, the main path: ``launch.serve.lm_decode`` of qwen2-0.5b
     and mamba2-780m at full width and depth (random weights from seed 0,
     batch 4, prompt 2048, 32 tokens) in bf16 through the kernels and
@@ -77,10 +86,11 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM published peaks: f32 outside the tensor cores, bf16 dense on
-# the tensor cores, and HBM bandwidth.
+# H100 SXM published peaks: f32 outside the tensor cores, bf16 and TF32
+# dense on the tensor cores, and HBM bandwidth.
 F32_PEAK_FLOPS = 67e12
 BF16_PEAK_FLOPS = 989e12
+TF32_PEAK_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 # (y, g) limits on max|kernel - plain| / max|plain|: the reference's own
@@ -152,6 +162,65 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def ptxas_summary(log):
+    """One line per kernel of the build log: its source, registers,
+    static shared memory and spills as ``ptxas -v`` reported them, the
+    name demangled by ``c++filt`` where the machine has it."""
+    rows, src, name, spills = [], None, None, None
+    for line in log.splitlines():
+        if line.startswith("/") and " -c " in line:
+            src = os.path.basename(line.split(" -c ")[1].split()[0])
+        elif "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line:
+            spills = line.strip()
+        elif line.startswith("ptxas info    : Used"):
+            rows.append((src, name, line.split(": ", 1)[1], spills))
+    names = [r[1] for r in rows]
+    return [f"{src} {nm}: {used}; {spills}"
+            for (src, _, used, spills), nm in zip(rows,
+                                                  demangle(names) or names)]
+
+
+def demangle(names):
+    """``c++filt`` of each name, without the anonymous namespace and the
+    parameter list; None where the machine has no ``c++filt``."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    return [n.replace("(anonymous namespace)::", "").split("(")[0]
+            for n in out[:len(names)]]
+
+
+def sass_mma_counts(lib, sources):
+    """{kernel: tensor-core instructions in its SASS} for the kernels of
+    ``sources`` (file names, matched in the mangled names), from
+    ``cuobjdump -sass`` of the built library; None where the toolkit has
+    no cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    counts, name = {}, None
+    tags = [src.replace(".", "_") for src in sources]
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            name = name if any(t in name for t in tags) else None
+            if name:
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return dict(zip(demangle(list(counts)) or list(counts),
+                    counts.values()))
+
+
 def scaled_err(a, ref):
     a, ref = a.float(), ref.float()
     return float((a - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
@@ -189,13 +258,42 @@ def time_ms(fn, flush, spin=None):
     return statistics.median(times)
 
 
+def fwd_work(M, K, N, norm):
+    """(product operations, elementwise operations, bytes) of ff_dense in
+    f32: 2*M*K*N for x @ w, the epilogue's bias, relu, square and sum
+    (and the divide with norm), each input read once and each output
+    written once."""
+    return (2 * M * K * N, 4 * M * N + (M * N if norm else 0),
+            4 * (M * K + K * N + N) + 4 * (M * N + M))
+
+
 def bound(M, K, N, norm):
-    """(ms, what bounds it): the larger of the operations over the f32
-    peak and the bytes (each input read once, each output written once)
-    over the memory rate."""
-    flops = 2 * M * K * N + 4 * M * N + (M * N if norm else 0)
-    nbytes = 4 * (M * K + K * N + N) + 4 * (M * N + M)
-    return roofline(flops, nbytes)
+    """(ms, what bounds it) for ff_dense in f32 on the kernel's route: the
+    larger of the operations (the product as 3xTF32, three TF32 products
+    for each f32 one, at the TF32 tensor-core rate; the epilogue at the
+    f32 rate) and the bytes over the memory rate."""
+    mm, elementwise, nbytes = fwd_work(M, K, N, norm)
+    return roofline(elementwise, nbytes, tf32_flops=3 * mm)
+
+
+def fma_ms(M, K, N, norm):
+    """The same function's bound with the product at the f32 FMA rate, the
+    route before the tensor cores: printed beside the bound."""
+    mm, elementwise, nbytes = fwd_work(M, K, N, norm)
+    return roofline(mm + elementwise, nbytes)[0]
+
+
+def tile_times(kernel, x, w, b, flush):
+    """The whole call (norm off) at each block width gemm_split is built
+    for, and which one ``_fwd_tile`` picks, as a printable string."""
+    M, N = x.shape[0], w.shape[1]
+    times = {bn: time_ms(lambda: kernel._launch(x, w, b, False, bn=bn), flush)
+             for bn in kernel.FWD_BNS}
+    K = x.shape[1]
+    return (", ".join(f"{bn} columns {ms:.4f} ms "
+                      f"({kernel._fwd_split(M, K, N, bn)[0]} slices of K)"
+                      for bn, ms in times.items())
+            + f"; the wrapper picks {kernel._fwd_tile(M, N)}")
 
 
 def bwd_bound(M, K, N):
@@ -297,8 +395,10 @@ def ssd_inputs(gen, B, S, H, hd, N, decay):
 def ssd_bound(B, S, H, hd, N, chunk):
     """(operations, bytes) for the SSD scan: scores 2·B·nc·N·L(L+1)/2,
     intra-chunk 2·B·H·nc·hd·L(L+1)/2, inter-chunk and state 2·2·B·S·H·hd·N
-    operations at the f32 peak, against xbar, dA, b, c read once and y,
-    hT written once."""
+    operations, against xbar, dA, b, c read once and y, hT written once.
+    The kernel's route runs them on the tensor cores as 3xTF32:
+    ``roofline(0, nbytes, tf32_flops=3 * ops)``; ``roofline(ops,
+    nbytes)`` is the f32 FMA figure."""
     L = min(chunk, S)
     nc = -(-S // L)
     tri = L * (L + 1) / 2
@@ -309,11 +409,13 @@ def ssd_bound(B, S, H, hd, N, chunk):
     return flops, nbytes
 
 
-def roofline(flops, nbytes, bf16_flops=0):
+def roofline(flops, nbytes, bf16_flops=0, tf32_flops=0):
     """(ms, what bounds it): the larger of the operations (f32 ones over
-    the f32 peak plus bf16 ones over the bf16 tensor-core peak) and the
-    bytes over the memory rate."""
-    t_ops = flops / F32_PEAK_FLOPS + bf16_flops / BF16_PEAK_FLOPS
+    the f32 peak, bf16 ones over the bf16 tensor-core peak and TF32 ones
+    over the TF32 tensor-core peak, summed) and the bytes over the memory
+    rate."""
+    t_ops = (flops / F32_PEAK_FLOPS + bf16_flops / BF16_PEAK_FLOPS
+             + tf32_flops / TF32_PEAK_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -349,7 +451,19 @@ def main():
     _build.load()
     print(f"[2 build] kernel library ready in "
           f"{time.perf_counter() - t0:.2f} s: {_build.library_path().name}")
-    print(_build.build_log().strip())
+    for line in ptxas_summary(_build.build_log()):
+        print(f"[2 ptxas] {line}")
+    # the 3xTF32 kernels' products run on the tensor cores: HMMA in SASS
+    mma = sass_mma_counts(_build.library_path(),
+                          ("ff_dense.cu", "mamba2_ssd.cu"))
+    check(mma is not None, "cuobjdump (CUDA toolkit) not found beside nvcc "
+          "or failed: the 3xTF32 kernels' SASS cannot be checked")
+    for name, n in mma.items():
+        print(f"[2 sass] {name}: {n} HMMA instructions")
+    # each 3xTF32 kernel (plain or mangled names) issues some
+    for name in ("gemm_split", "ssd_scores", "ssd_states", "ssd_output"):
+        check(any(name in k and n > 0 for k, n in mma.items()),
+              f"{name} has no tensor-core instruction in its SASS")
 
     # 3. kernel against its plain version ----------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -393,6 +507,33 @@ def main():
             check(bool((g[1:] > 0).any()), "dead-row case killed every row")
     print("[3 check] dead row: g == 0 and y == 0, no NaN (f32, bf16, "
           "norm off/on)")
+    for M, K, N in [TRAIN_SHAPES[1], SERVING_SHAPES[1]]:
+        x, w, b = make_inputs(gen, M, K, N, torch.float32)
+        for norm in (False, True):
+            first = kernel.ff_dense(x, w, b, norm=norm)
+            again = kernel.ff_dense(x, w, b, norm=norm)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"ff_dense: two calls at {(M, K, N)} norm={norm} differ")
+        print(f"[3 check] ff_dense {(M, K, N)}: a second call gives "
+              f"bit-identical y and g (norm off/on; "
+              f"{kernel._fwd_split(M, K, N)[0]} slices of K)")
+        # against a float64 truth: the tensor cores truncate each mma's
+        # sum toward zero, which a mean signed error on y > 0 shows as a
+        # negative bias
+        y, g = kernel.ff_dense(x, w, b)
+        y64 = torch.relu(x.double() @ w.double() + b.double())
+        g64 = (y64 * y64).sum(1)
+        yp, gp = kernel.ff_dense_plain(x, w, b)
+        live = y64 > 0
+        bias = float((y.double() - y64)[live].mean() / y64[live].mean())
+        ey, eg = scaled_err(y, y64), scaled_err(g, g64)
+        print(f"[3 f64] ff_dense {(M, K, N)} against float64: kernel y err "
+              f"{ey:.3e}, g err {eg:.3e}, mean signed y error {bias:.3e} of "
+              f"mean y; plain y err {scaled_err(yp, y64):.3e}, g err "
+              f"{scaled_err(gp, g64):.3e}")
+        check(ey <= TOL[torch.float32][0] and eg <= TOL[torch.float32][1],
+              f"ff_dense at {(M, K, N)} disagrees with float64")
 
     # 4. timing ------------------------------------------------------------
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
@@ -420,7 +561,10 @@ def main():
             print(f"[4 time] ff_dense {(M, K, N)} norm={norm}: kernel "
                   f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, addmm "
                   f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+                  f"({bound_by}; 3xTF32; f32 FMA "
+                  f"{fma_ms(M, K, N, norm):.4f} ms)")
+        print(f"[4 time] ff_dense {(M, K, N)} by block width: "
+              + tile_times(kernel, x, w, b, flush))
     del flush
 
     # 5. whole path at full width ------------------------------------------
@@ -587,27 +731,53 @@ def main():
             print(f"[9 time] ff_dense_bwd {(M, K, N)} by launch (each alone, "
                   f"cold L2; {vjp._grad_x_split(M, K, N)[0]} slices): "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
-    for M, K, N in TRAIN_SHAPES[:2]:
+    for M, K, N in TRAIN_SHAPES:
         x, w, b = make_inputs(gen, M, K, N, torch.float32)
-        y, g = kernel.ff_dense(x, w, b)
-        yp, gp = kernel.ff_dense_plain(x, w, b)
-        max_abs_err = float(max((y - yp).abs().max(), (g - gp).abs().max()))
-        kernel_ms = time_ms(lambda: kernel.ff_dense(x, w, b), flush)
-        plain_ms = time_ms(lambda: kernel.ff_dense_plain(x, w, b), flush)
         library_ms = time_ms(lambda: torch.addmm(b, x, w), flush)
-        bound_ms, bound_by = bound(M, K, N, False)
-        fwd_rows.append({
-            "name": "ff_dense", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": KERNEL_REPLACES, "shape": [M, K, N], "norm": False,
-            "dtype": "float32", "launches": None,
-            "max_abs_err": max_abs_err, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "library": "torch.addmm(b, x, w), TF32 off: matmul only"})
-        print(f"[9 time] ff_dense {(M, K, N)} (training M): kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, addmm "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        for norm in (False, True):
+            y, g = kernel.ff_dense(x, w, b, norm=norm)
+            yp, gp = kernel.ff_dense_plain(x, w, b, norm=norm)
+            max_abs_err = float(max((y - yp).abs().max(),
+                                    (g - gp).abs().max()))
+            ey, eg = scaled_err(y, yp), scaled_err(g, gp)
+            tol_y, tol_g = TOL[torch.float32]
+            print(f"[9 check] ff_dense {(M, K, N)} norm={norm}: y err "
+                  f"{ey:.3e} (<= {tol_y}), g err {eg:.3e} (<= {tol_g})")
+            check(ey <= tol_y and eg <= tol_g, f"ff_dense disagrees with "
+                  f"its plain version at {(M, K, N)} norm={norm}")
+            kernel_ms = time_ms(lambda: kernel.ff_dense(x, w, b, norm=norm),
+                                flush)
+            plain_ms = time_ms(
+                lambda: kernel.ff_dense_plain(x, w, b, norm=norm), flush)
+            bound_ms, bound_by = bound(M, K, N, norm)
+            # each launch alone, cold L2 (the finish alone reads the
+            # scratch of a fresh allocation: timing only)
+            parts = {name: time_ms(lambda: kernel._launch(x, w, b, norm, bit),
+                                   flush)
+                     for name, bit in (("gemm_split", kernel.GEMM),
+                                       ("finish_rows", kernel.FINISH))}
+            fwd_rows.append({
+                "name": "ff_dense", "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": KERNEL_REPLACES, "shape": [M, K, N],
+                "norm": norm, "dtype": "float32", "launches": None,
+                "max_abs_err": max_abs_err, "ms": kernel_ms,
+                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,
+                "library": "torch.addmm(b, x, w), TF32 off: matmul only",
+                "parts_ms": parts})
+            print(f"[9 time] ff_dense {(M, K, N)} norm={norm} (training M; "
+                  f"{kernel._fwd_split(M, K, N)[0]} slices of K): kernel "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, addmm "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}; 3xTF32; f32 FMA "
+                  f"{fma_ms(M, K, N, norm):.4f} ms); each launch alone (cold "
+                  f"L2): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+        print(f"[9 time] ff_dense {(M, K, N)} by block width: "
+              + tile_times(kernel, x, w, b, flush))
+    fwd_step_ms = next(r["ms"] for r in fwd_rows
+                       if r["shape"] == list(TRAIN_SHAPES[1]) and not r["norm"])
     # One sumsq grad step at (128, 2000, 2000), the training shape of
     # layers 1-3: device time of Adam's update (the kernels' are above),
     # and the wall time of 50 steps run back to back.
@@ -638,7 +808,7 @@ def main():
           f"per step over 50 (host enqueue {enqueue_ms:.4f} ms); one step's "
           f"device time {step_dev_ms:.4f} ms (cold L2); Adam update "
           f"{adam_ms:.4f} ms on the card; kernels: forward "
-          f"{fwd_rows[1]['ms']:.4f} ms + backward {bwd_rows[1]['ms']:.4f} "
+          f"{fwd_step_ms:.4f} ms + backward {bwd_rows[1]['ms']:.4f} "
           f"ms (cold L2)")
     del flush
 
@@ -823,6 +993,14 @@ def main():
               f"hT err {eh:.3e} (<= {SSD_TOL})")
         check(max(ey, eh) <= SSD_TOL, f"mamba2_ssd disagrees with its plain "
               f"version at {shape} ({decay} decay)")
+        if (shape, decay) == (MAMBA_SSD, "mild"):
+            again = ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk)
+            torch.cuda.synchronize()
+            check(torch.equal(y, again[0]) and torch.equal(hT, again[1]),
+                  f"mamba2_ssd: two calls at {shape} differ")
+            print(f"[13 check] mamba2_ssd {shape}: a second call gives "
+                  f"bit-identical y and hT")
+            del again
         del xbar, dA, b, c, y, hT, yp, hp
 
     # 14. timing of both beside their bounds -----------------------------
@@ -858,7 +1036,16 @@ def main():
                         flush)
     plain_ms = time_ms(
         lambda: ssd.mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk), flush)
-    bound_ms, bound_by = roofline(*ssd_bound(B, S, H, hd, N, chunk))
+    ops, nbytes = ssd_bound(B, S, H, hd, N, chunk)
+    bound_ms, bound_by = roofline(0, nbytes, tf32_flops=3 * ops)
+    ssd_fma_ms, _ = roofline(ops, nbytes)
+    # each launch alone, cold L2 (a later launch alone reads the scratch
+    # of a fresh allocation: timing only)
+    parts = {name: time_ms(lambda: ssd._launch(xbar, dA, b, c, chunk, bit),
+                           flush)
+             for name, bit in (("scores", ssd.SCORES), ("states", ssd.STATES),
+                               ("state_pass", ssd.STATE_PASS),
+                               ("output", ssd.OUTPUT))}
     lm_rows.append({
         "name": "mamba2_ssd", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES, "shape": [B, S, H, hd, N, chunk],
@@ -866,10 +1053,13 @@ def main():
         "max_abs_err": ssd_errs[MAMBA_SSD + ("mild",)], "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
-        "library": "none: no single PyTorch call computes the SSD scan"})
+        "library": "none: no single PyTorch call computes the SSD scan",
+        "parts_ms": parts})
     print(f"[14 time] mamba2_ssd {MAMBA_SSD}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-          f"no library call computes the scan")
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"3xTF32; f32 FMA {ssd_fma_ms:.4f} ms); no library call computes "
+          f"the scan; each launch alone (cold L2): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
     del xbar, dA, b, c, flush
 
     # 15. LM serving at full width and depth: the main path ---------------

@@ -67,34 +67,23 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "tc_common.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;   // 16 row groups x 8 column groups
 constexpr int NS = 2;          // cp.async ring depth
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // VEC floats global -> shared, zero-filled when !in (src is then unread).
 template <int VEC>
 __device__ __forceinline__ void cp_async(float* dst, const float* src,
                                          bool in) {
   if constexpr (VEC == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(in ? 16 : 0));
+    cp_async16(dst, src, in);
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                      smem_u32(dst)),
                  "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // A ROWS x COLS tile at (row0, col0) of src (ld floats a row) into shared

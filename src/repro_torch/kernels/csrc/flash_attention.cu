@@ -91,6 +91,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "tc_common.cuh"
+
 namespace {
 
 constexpr int BQ = 64;        // q rows per block
@@ -334,22 +336,12 @@ __device__ __forceinline__ int sw(int r, int c) {
          ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !in (src is then unread).
+// 16 bytes global -> shared (a shared-space address: the panels are
+// swizzled), zero-filled when !in (src is then unread).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 // Makes this thread's landed copies visible to wgmma (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {

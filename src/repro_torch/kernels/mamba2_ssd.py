@@ -8,11 +8,14 @@ The port of ``repro/kernels/mamba2_ssd.py::mamba2_ssd`` (the Pallas
   h    <- h exp(cums_L) + sum_j exp(cums_L - cums_j) b_j xbar_j
 
 The kernel is CUDA C++ in ``csrc/mamba2_ssd.cu``, whose header note
-gives its design and bound: launch 1 forms the chunks' ``c_i . b_j``
-scores (shared by every head), launch 2 runs one block per (batch, head,
-16-wide slice of hd) that carries its slice of the state across the
-chunks in order. One call is two CUDA launches; ``LAUNCHES`` counts
-calls.
+gives its design and bound: the chunk-parallel SSD decomposition in four
+launches, every product on the tensor cores as 3xTF32 (``mma.sync``):
+(1) the chunks' ``c_i . b_j`` scores, shared by every head; (2) each
+(sequence, chunk, head)'s own state into an (B, nc, H, hd, N) scratch;
+(3) the state recurrence over the chunks in order, elementwise, leaving
+the state that enters each chunk and hT; (4) y per 64-row tile of each
+(sequence, chunk, head). One call is four CUDA launches; ``LAUNCHES``
+counts calls.
 
 ``mamba2_ssd`` takes xbar (B, S, H, hd), dA (B, S, H), b and c
 (B, S, N), all f32 (the model forms dA and xbar in f32 and widens b and
@@ -31,13 +34,16 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-# What the kernel is compiled for: chunk lengths, state sizes, and the
-# hd slice one block carries.
+# What the kernel is compiled for: chunk lengths, state sizes and head
+# dims (one block covers a whole head's hd).
 KERNEL_CHUNKS = (128, 256)
 KERNEL_STATE_DIMS = (128,)
-HD_SLICE = 16
+KERNEL_HEAD_DIMS = (64,)
+# The launch bits of mamba2_ssd_launch: scores, chunk states, state pass,
+# output.
+SCORES, STATES, STATE_PASS, OUTPUT = 1, 2, 4, 8
 
-# Calls that launched the CUDA kernel (2 CUDA launches each) in this
+# Calls that launched the CUDA kernel (4 CUDA launches each) in this
 # process. chip_smoke.py zeroes it before an LM prefill and reads it
 # after, to show the prefill went through the kernel.
 LAUNCHES = 0
@@ -96,7 +102,7 @@ def _library():
     if _lib is None:
         lib = _build.load()
         lib.mamba2_ssd_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.mamba2_ssd_launch.restype = ctypes.c_int
         lib.mamba2_ssd_error_string.argtypes = [ctypes.c_int]
         lib.mamba2_ssd_error_string.restype = ctypes.c_char_p
@@ -128,29 +134,25 @@ def _check(xbar, dA, b, c):
     return B, S, H, hd, N
 
 
-def mamba2_ssd(xbar, dA, b, c, *, chunk=128):
-    """xbar (B, S, H, hd), dA (B, S, H), b, c (B, S, N), all f32 ->
-    (y (B, S, H, hd) f32, hT (B, H, hd, N) f32). CUDA tensors launch the
-    kernel (or raise); CPU tensors take ``mamba2_ssd_plain``."""
-    global LAUNCHES
-    B, S, H, hd, N = _check(xbar, dA, b, c)
-    if xbar.device.type == "cpu":
-        return mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk)
-    if xbar.device.type != "cuda":
-        raise ValueError(f"mamba2_ssd runs on cuda or cpu tensors, got "
-                         f"{xbar.device}")
+def _launch(xbar, dA, b, c, chunk, parts=SCORES | STATES | STATE_PASS
+            | OUTPUT):
+    """Launches the kernel's parts named by the bits of ``parts`` on CUDA
+    operands that ``_check`` passed; returns (y, hT). Only all four parts
+    make the outputs: a single part is launched to time it."""
+    B, S, H, hd = xbar.shape
+    N = b.shape[-1]
     if chunk not in KERNEL_CHUNKS:
         raise ValueError(f"mamba2_ssd's kernel takes chunk in "
                          f"{KERNEL_CHUNKS}, got {chunk}")
-    if N not in KERNEL_STATE_DIMS or hd % HD_SLICE:
+    if N not in KERNEL_STATE_DIMS or hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"mamba2_ssd's kernel takes N in "
-                         f"{KERNEL_STATE_DIMS} and hd a multiple of "
-                         f"{HD_SLICE}; got N={N}, hd={hd}")
+                         f"{KERNEL_STATE_DIMS} and hd in {KERNEL_HEAD_DIMS}; "
+                         f"got N={N}, hd={hd}")
     if not all(t.is_contiguous() for t in (xbar, dA, b, c)):
         raise ValueError("mamba2_ssd's kernel takes contiguous operands")
-    if B * S * H * hd == 0:
+    if B * S * H == 0:
         raise ValueError(f"mamba2_ssd's kernel takes no empty dimension, got "
-                         f"B={B}, S={S}, H={H}, hd={hd}")
+                         f"B={B}, S={S}, H={H}")
     nc = -(-S // chunk)
     if B * nc >= 2 ** 16 or H >= 2 ** 16:
         raise ValueError(f"mamba2_ssd's kernel takes B*ceil(S/chunk) and H "
@@ -160,16 +162,38 @@ def mamba2_ssd(xbar, dA, b, c, *, chunk=128):
     with torch.cuda.device(dev):
         y = torch.empty((B, S, H, hd), dtype=torch.float32, device=dev)
         hT = torch.empty((B, H, hd, N), dtype=torch.float32, device=dev)
-        # the chunks' c_i . b_j scores, written by launch 1 (lower
-        # triangle only) and read by launch 2
+        # launch 1 writes the chunks' c_i . b_j scores (tiles on or below
+        # the diagonal), launch 4 reads them
         cb = torch.empty((B * nc, chunk, chunk), dtype=torch.float32,
                          device=dev)
+        # launch 2 writes each chunk's own state and its cums_L, launch 3
+        # turns the states into those entering each chunk, launch 4 reads
+        # them
+        states = torch.empty((B, nc, H, hd, N), dtype=torch.float32,
+                             device=dev)
+        dlast = torch.empty((B, nc, H), dtype=torch.float32, device=dev)
         err = lib.mamba2_ssd_launch(
             xbar.data_ptr(), dA.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), hT.data_ptr(), cb.data_ptr(), B, S, H, hd, N,
-            chunk, torch.cuda.current_stream(dev).cuda_stream)
+            y.data_ptr(), hT.data_ptr(), cb.data_ptr(), states.data_ptr(),
+            dlast.data_ptr(), B, S, H, hd, N, chunk, parts,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mamba2_ssd kernel launch failed: "
                            f"{lib.mamba2_ssd_error_string(err).decode()}")
-    LAUNCHES += 1
     return y, hT
+
+
+def mamba2_ssd(xbar, dA, b, c, *, chunk=128):
+    """xbar (B, S, H, hd), dA (B, S, H), b, c (B, S, N), all f32 ->
+    (y (B, S, H, hd) f32, hT (B, H, hd, N) f32). CUDA tensors launch the
+    kernel (or raise); CPU tensors take ``mamba2_ssd_plain``."""
+    global LAUNCHES
+    _check(xbar, dA, b, c)
+    if xbar.device.type == "cpu":
+        return mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk)
+    if xbar.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd runs on cuda or cpu tensors, got "
+                         f"{xbar.device}")
+    out = _launch(xbar, dA, b, c, chunk)
+    LAUNCHES += 1
+    return out

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.convert import tree_leaves, tree_map, tree_stack
+from repro_torch.device import resolve_device
 from repro_torch.models import blocks, common
 
 
@@ -103,10 +104,12 @@ def forward(params, cfg, tokens, *, impl="auto"):
 # Decode caches
 # ---------------------------------------------------------------------------
 
-def init_caches(cfg, batch, max_len, dtype=None, device="cpu"):
+def init_caches(cfg, batch, max_len, dtype=None, device=None):
     """Stacked (repeat-leading) empty caches for every group: zeros, and
-    ``kpos = -1`` for empty slots."""
+    ``kpos = -1`` for empty slots. On the card unless ``device`` says
+    otherwise (``device="cpu"``)."""
     dtype = dtype or common.dtype_of(cfg)
+    device = resolve_device(device)
     caches = []
     for _, pattern, repeat in group_infos(cfg):
         unit = tuple(blocks.block_cache_init(cfg, kind, batch, max_len, dtype,

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import api, data
 from repro_torch.configs.ff_mlp import FFMLPConfig
+from repro_torch.convert import tree_leaves
 from repro_torch.core import ff_mlp
 from repro_torch.device import resolve_device
 
@@ -83,3 +84,14 @@ def test_entry_points_do_not_carry_on_on_the_cpu(monkeypatch):
     assert params["layers"][0]["w"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.serve(cfg, data.mnist_like(n_train=8, n_test=8), params=params)
+
+
+def test_init_caches_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    _no_cuda(monkeypatch)
+    cfg = get_config("qwen2-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_caches(cfg, 1, 8)
+    caches = transformer.init_caches(cfg, 1, 8, device="cpu")
+    assert {t.device.type for t in tree_leaves(caches)} == {"cpu"}

@@ -158,7 +158,8 @@ def test_init_caches_match_reference():
     for name in NAMES:
         jc, tc = jget(name).reduced(), tget(name).reduced()
         want = _np_tree(jtr.init_caches(jc, 3, 20))
-        _assert_trees_close(transformer.init_caches(tc, 3, 20), want)
+        _assert_trees_close(transformer.init_caches(tc, 3, 20, device="cpu"),
+                            want)
 
 
 def test_ring_window_cache_prefill_and_decode():
