@@ -65,7 +65,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
     through the plain path; 24 attention / 48 SSD kernel calls per
     prefill, none in decode; last-position prefill logits gated against
     the plain path; then once in f32, first tokens equal where decided.
-16. Isolation: no ``jax`` and no ``repro`` module was loaded.
+16. The SSD kernel at the reduced mamba2-780m sizes (chunk 32, hd 32,
+    N 16, ragged S) against its plain version, a bit-identical repeat,
+    its time; ``lm_decode`` of the reduced config on the card, its SSD
+    calls counted, prefill logits and first tokens against the plain path.
+17. The PFF executor, the paper's claim: ``api.fit(backend="executor")``
+    of ``PAPER_MLP`` (full width, 4 epochs in 4 chapters, the phase-11
+    task) on 4 nodes, 4 CUDA streams of the card: all_layers with the
+    double-buffered hand-off on and off, single_layer, and federated
+    against the federated backend, each bit-identical to its sequential
+    counterpart, with kernel calls counted against it; the makespan
+    beside the sequential fit and the simulator's prediction; one traced
+    run through ``obs.analyze.check_invariants``.
+18. Resilience at the same config: a crash retried, a dead node
+    reassigned, chapter checkpoints written and resumed from, all
+    bit-identical; a kill-then-resume pair through
+    ``python -m repro_torch.core.pff_exec --device cuda``.
+19. Isolation: no ``jax`` and no ``repro`` module was loaded.
+
+Phases 17-18 run under ``torch.use_deterministic_algorithms(True)`` with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before CUDA starts.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +94,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -145,6 +165,23 @@ MAMBA_SSD = (4, 2048, 48, 64, 128, 256)
 SSD_CHECKS = [MAMBA_SSD + ("strong",), MAMBA_SSD + ("mild",),
               (2, 1000, 48, 64, 128, 256, "mild"),
               (2, 1024, 48, 64, 128, 128, "mild")]
+# The reduced mamba2-780m config's SSD sizes (chunk 32, hd 32, N 16; its
+# H 16), with a ragged S; and its LM serving: batch, prompt, tokens
+REDUCED_SSD = (2, 200, 16, 32, 16, 32)
+REDUCED_LM = (4, 200, 8)
+# The executor at full width: PAPER_MLP cut to 4 epochs in 4 chapters
+# (one mini-epoch each: 4 x 4 x 64 = 1024 grad steps at M = 128) on the
+# phase-11 task, on 4 nodes (4 CUDA streams of one card)
+EXEC_EPOCHS = EXEC_SPLITS = 4
+EXEC_NODES = 4
+# the kill-then-resume pair through the executor's CLI
+EXEC_CLI = ["-m", "repro_torch.core.pff_exec", "--device", "cuda",
+            "--schedule", "all_layers", "--nodes", "4", "--splits", "4",
+            "--n-train", "1000"]
+# the trace gate's slack (obs.analyze's selftest): the card runs the four
+# streams as one host thread feeds them, so the makespan sits near serial
+TRACE_SLACK = 1.5
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # LM serving: batch, prompt and generated tokens; kernel calls per prefill
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 LM_CALLS = {"qwen2-0.5b": ("flash_attention", 24),
@@ -421,11 +458,295 @@ def roofline(flops, nbytes, bf16_flops=0, tf32_flops=0):
                                        else "bytes")
 
 
+def phase_reduced_ssd(gen, data):
+    """16. The SSD kernel at the reduced mamba2-780m sizes against its
+    plain version (ragged S), a repeat, its time, and ``lm_decode`` of
+    the reduced config on the card with the kernel's calls counted.
+    Returns the kernels-line row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import lm_decode
+    from repro_torch.models import transformer
+
+    B, S, H, hd, N, chunk = REDUCED_SSD
+    xbar, dA, b, c = ssd_inputs(gen, B, S, H, hd, N, "mild")
+    y, hT = ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk)
+    again = ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    yp, hp = ssd.mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk)
+    check(y.shape == yp.shape and hT.shape == hp.shape
+          and bool(torch.isfinite(y).all() and torch.isfinite(hT).all()),
+          f"mamba2_ssd output shape/finite at {REDUCED_SSD}")
+    ey, eh = scaled_err(y, yp), scaled_err(hT, hp)
+    check(torch.equal(y, again[0]) and torch.equal(hT, again[1]),
+          f"mamba2_ssd: two calls at {REDUCED_SSD} differ")
+    print(f"[16 reduced ssd] mamba2_ssd {REDUCED_SSD} mild decay: y err "
+          f"{ey:.3e}, hT err {eh:.3e} (<= {SSD_TOL}); repeat bit-identical")
+    check(max(ey, eh) <= SSD_TOL, f"mamba2_ssd disagrees with its plain "
+          f"version at {REDUCED_SSD}")
+    max_abs = float(max((y - yp).abs().max(), (hT - hp).abs().max()))
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    kernel_ms = time_ms(lambda: ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk),
+                        flush)
+    plain_ms = time_ms(
+        lambda: ssd.mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk), flush)
+    ops, nbytes = ssd_bound(B, S, H, hd, N, chunk)
+    bound_ms, bound_by = roofline(0, nbytes, tf32_flops=3 * ops)
+    print(f"[16 reduced ssd] mamba2_ssd {REDUCED_SSD}: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; 3xTF32)")
+    del xbar, dA, b, c, y, hT, yp, hp, again, flush
+
+    cfg = get_config("mamba2-780m").reduced()
+    calls = sum(r * p.count("mamba2") for p, r in cfg.groups)
+    batch, prompt, n_gen = REDUCED_LM
+    params = transformer.init(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    fa.LAUNCHES = ssd.LAUNCHES = 0
+    res = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen, seed=0,
+                    params=params)
+    launches = ssd.LAUNCHES
+    check(launches == calls and fa.LAUNCHES == 0,
+          f"reduced mamba2 lm_decode made {launches} SSD kernel calls, "
+          f"expected {calls}")
+    res_ref = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen,
+                        seed=0, params=params, impl="ref")
+    check(ssd.LAUNCHES == launches, "impl='ref' launched the SSD kernel")
+    gk = res["generated"]
+    check(gk.shape == (batch, n_gen) and bool(
+        ((gk >= 0) & (gk < cfg.vocab)).all()),
+          "reduced mamba2: generated tokens of the wrong shape or range")
+    prompts = torch.as_tensor(next(iter(data.lm_batches(
+        cfg.vocab, batch, prompt - 1, 1, 0))), device="cuda")
+    with torch.no_grad():
+        lk, _ = transformer.prefill(params, cfg, prompts, last_only=True)
+        lr, _ = transformer.prefill(params, cfg, prompts, last_only=True,
+                                    impl="ref")
+    lk, lr = lk[:, :cfg.vocab], lr[:, :cfg.vocab]
+    e = scaled_err(lk, lr)
+    decided = top2_margin(lr) > F32_MARGIN
+    same = gk[:, 0] == res_ref["generated"][:, 0]
+    print(f"[16 reduced lm] {cfg.name} (B {batch}, prompt {prompt}, gen "
+          f"{n_gen}, {cfg.dtype}): {launches} mamba2_ssd calls in prefill; "
+          f"last-position prefill logits kernel vs plain err {e:.3e} "
+          f"(<= {PATH_TOL}); first token equal on "
+          f"{int(same[decided].sum())}/{int(decided.sum())} decided rows; "
+          f"prefill s kernel / plain {res['prefill_s']:.4f} / "
+          f"{res_ref['prefill_s']:.4f}")
+    check(bool(torch.isfinite(lk).all()) and e <= PATH_TOL,
+          f"reduced mamba2: prefill logits, kernel vs plain, {e}")
+    check(bool(same[decided].all()), "reduced mamba2: first generated "
+          "tokens differ from the plain path on decided rows")
+    return {
+        "name": "mamba2_ssd", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES, "shape": list(REDUCED_SSD),
+        "dtype": "float32", "launches": launches, "max_abs_err": max_abs,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan",
+        "path": "lm_decode of the reduced mamba2-780m config"}
+
+
+def phase_executor(api, data, base_cfg, kernel, vjp):
+    """17. The PFF executor at full width, on 4 CUDA streams of the card,
+    against the sequential and federated trainers bit for bit; 18. its
+    resilience. Returns the executor's main run's (ff_dense,
+    ff_dense_bwd) calls. Runs under torch.use_deterministic_algorithms."""
+    from repro_torch.core import faults, pff, pff_exec
+    from repro_torch.obs import analyze, trace as obs_trace
+
+    cfg = dataclasses.replace(base_cfg, epochs=EXEC_EPOCHS,
+                              splits=EXEC_SPLITS)
+    task = data.mnist_like(seed=0, n_train=FIT_TRAIN, n_test=FIT_TEST)
+    n_layers = len(cfg.layer_sizes) - 1
+    grad_steps = (cfg.splits * n_layers * (cfg.epochs // cfg.splits)
+                  * -(-FIT_TRAIN // cfg.batch_size))
+
+    def counted(**kw):
+        kernel.LAUNCHES = vjp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = api.fit(cfg, task, **kw)
+        wall = time.perf_counter() - t0
+        return res, wall, (kernel.LAUNCHES, vjp.LAUNCHES)
+
+    def same(a, b, what):
+        check(pff_exec.params_bit_equal(a.params, b.params),
+              f"{what}: params differ from the reference run's")
+        check(a.test_acc == b.test_acc,
+              f"{what}: test_acc {a.test_acc} != {b.test_acc}")
+
+    seq, seq_s, seq_calls = counted(backend="sequential")
+    check(seq_calls[1] == grad_steps and seq_calls[0] > 0,
+          f"sequential fit: {seq_calls} kernel calls for {grad_steps} grad "
+          f"steps")
+    out = {"sequential": {"fit_s": seq_s, "calls": seq_calls,
+                          "test_acc": seq.test_acc}}
+    # the trainers score train accuracy on 2000 train rows after the fit
+    # (one ff_dense call per layer a 2000-row chunk); the executor does
+    # not. single_layer re-runs layers < k over the train set for both
+    # acts (Algorithm 1) in place of the n_layers - 1 forwards between
+    # train tasks
+    train_acc_calls = -(-min(2000, FIT_TRAIN) // 2000) * n_layers
+    recompute = cfg.splits * (sum(range(n_layers)) - (n_layers - 1)) * 2
+    runs = (("all_layers", dict(schedule="all_layers"), 0),
+            ("all_layers overlap off",
+             dict(schedule="all_layers", overlap=False), 0),
+            ("single_layer", dict(schedule="single_layer"), recompute))
+    for label, kw, extra_fwd in runs:
+        res, wall, calls = counted(backend="executor",
+                                   num_nodes=EXEC_NODES, **kw)
+        same(seq, res, f"executor {label}")
+        check(calls == (seq_calls[0] - train_acc_calls + extra_fwd,
+                        seq_calls[1]),
+              f"executor {label}: kernel calls {calls}, sequential "
+              f"{seq_calls} (-{train_acc_calls} train accuracy, "
+              f"+{extra_fwd} forward recompute)")
+        out[label] = {"fit_s": wall, "makespan_s": res.makespan,
+                      "calls": calls, "handoff": res.raw.handoff}
+        print(f"[17 executor] {label} on {EXEC_NODES} streams: bit-identical "
+              f"to the sequential fit; makespan {res.makespan:.4f} s (fit "
+              f"{wall:.4f} s), kernel calls {calls}; hand-off "
+              f"{res.raw.handoff}")
+    check(out["all_layers"]["handoff"]["prefetch_hits"] > 0,
+          "executor overlap on: no prefetch hit")
+    check(out["all_layers overlap off"]["handoff"]["prefetch_issued"] == 0,
+          "executor overlap off: prefetches issued")
+    fed, fed_s, fed_calls = counted(backend="federated",
+                                    num_nodes=EXEC_NODES)
+    fex, fex_s, fex_calls = counted(backend="executor", schedule="federated",
+                                    num_nodes=EXEC_NODES)
+    same(fed, fex, "executor federated")
+    check(fex_calls == (fed_calls[0] - train_acc_calls, fed_calls[1])
+          and fed_calls[1] > 0,
+          f"executor federated: kernel calls {fex_calls}, federated "
+          f"{fed_calls} (-{train_acc_calls} train accuracy)")
+    out["federated"] = {"fit_s": fed_s, "calls": fed_calls}
+    out["executor federated"] = {"fit_s": fex_s,
+                                 "makespan_s": fex.makespan,
+                                 "calls": fex_calls}
+    print(f"[17 executor] federated on {EXEC_NODES} streams: bit-identical "
+          f"to the federated fit; makespan {fex.makespan:.4f} s (federated "
+          f"fit {fed_s:.4f} s); kernel calls {fex_calls}")
+    sim = api.simulate(seq, "all_layers", EXEC_NODES)
+    main = out["all_layers"]
+    print(f"[17 executor] all_layers makespan {main['makespan_s']:.4f} s vs "
+          f"sequential fit {seq_s:.4f} s (measured speedup "
+          f"{seq_s / main['makespan_s']:.4f}); the simulator on the "
+          f"sequential fit's task times predicts {sim.makespan:.4f} s "
+          f"(speedup {sim.speedup:.4f}, utilization {sim.utilization:.4f})")
+
+    # one traced run through obs.analyze, on an executor built by hand to
+    # show its four streams; the serial bound is a measured 1-node run
+    ex = pff_exec.PFFExecutor(cfg, task, "all_layers", EXEC_NODES)
+    check(len({id(s) for s in ex.streams}) == EXEC_NODES
+          and all(s is not None and d.type == "cuda"
+                  for s, d in zip(ex.streams, ex.devices)),
+          f"the executor's nodes are not {EXEC_NODES} CUDA streams")
+    tr = obs_trace.Tracer()
+    traced = ex.run(trace=tr)
+    same(seq, traced, "executor all_layers traced")
+    serial = pff_exec.PFFExecutor(cfg, task, "sequential", 1).run()
+    a = analyze.analyze(tr, measured_makespan=main["makespan_s"])
+    fails = analyze.check_invariants(a, main["makespan_s"],
+                                     serial_makespan=serial.makespan,
+                                     slack=TRACE_SLACK)
+    sim_traced = pff.simulate_schedule(traced.records, "all_layers",
+                                       EXEC_NODES)
+    print(f"[17 trace] critical path {a.critical_path_s:.4f} s, sum of task "
+          f"spans {a.sum_task_s:.4f} s, measured makespan "
+          f"{main['makespan_s']:.4f} s, serial 1-node run "
+          f"{serial.makespan:.4f} s, node busy "
+          f"{ {n: round(v, 4) for n, v in a.node_busy.items()} }; the "
+          f"simulator on the traced run's records predicts "
+          f"{sim_traced.makespan:.4f} s (speedup {sim_traced.speedup:.4f}); "
+          f"invariants (slack {TRACE_SLACK}): {fails or 'hold'}")
+    check(not fails, f"trace invariants: {fails}")
+    check(a.handoff["prefetch_hits"] == traced.handoff["prefetch_hits"],
+          "trace prefetch-hit events disagree with the executor's counter")
+    out["trace"] = {"critical_path_s": a.critical_path_s,
+                    "sum_task_s": a.sum_task_s,
+                    "serial_makespan_s": serial.makespan,
+                    "sim_makespan_s": sim.makespan,
+                    "sim_traced_makespan_s": sim_traced.makespan}
+
+    # 18. resilience at the same config --------------------------------
+    shape = dict(splits=cfg.splits, n_layers=n_layers, num_nodes=EXEC_NODES)
+    ex_kw = dict(backend="executor", num_nodes=EXEC_NODES)
+    res = api.fit(cfg, task, resilience=faults.ResilienceConfig(
+        fault_plan=faults.named_plan("crash_once", **shape),
+        backoff_base_s=0.001), **ex_kw)
+    same(seq, res, "crash_once retry")
+    check(res.resilience["retries"] == 1, "crash_once: not one retry")
+    print(f"[18 resilience] crash_once: {res.resilience['retries']} retry, "
+          f"bit-identical to the sequential fit")
+    res = api.fit(cfg, task, resilience=faults.ResilienceConfig(
+        fault_plan=faults.named_plan("dead_node", **shape), max_retries=1,
+        backoff_base_s=0.001), **ex_kw)
+    same(seq, res, "dead_node reassignment")
+    st = res.resilience
+    check(st["dead_nodes"] == [EXEC_NODES - 1] and st["reassignments"] == 1,
+          f"dead_node: {st['dead_nodes']}, {st['reassignments']}")
+    print(f"[18 resilience] dead_node: node {st['dead_nodes']} dead after "
+          f"{st['retries']} retries, {st['reassignments']} reassignment, "
+          f"bit-identical to the sequential fit")
+    ck = os.path.join(ROOT, "build", "chip_smoke", "checkpoints")
+    shutil.rmtree(ck, ignore_errors=True)
+    full = api.fit(cfg, task, resilience=faults.ResilienceConfig(
+        checkpoint_dir=ck, keep_last=cfg.splits), **ex_kw)
+    same(seq, full, "checkpointed run")
+    written = full.resilience["checkpoints_written"]
+    check(written == cfg.splits and sorted(os.listdir(ck)) == [
+        f"pff_chapter_{c:04d}.npz" for c in range(cfg.splits)],
+          f"checkpoints written: {written}, {sorted(os.listdir(ck))}")
+    resumed = api.fit(cfg, task, resume_from=os.path.join(
+        ck, "pff_chapter_0001.npz"), **ex_kw)
+    same(seq, resumed, "resume from chapter 1")
+    ck_s = full.resilience["checkpoint_time_s"] / written
+    rs_s = resumed.resilience["restore_time_s"]
+    size = os.path.getsize(os.path.join(ck, "pff_chapter_0001.npz"))
+    print(f"[18 resilience] {written} chapter checkpoints ({size} bytes "
+          f"each), {ck_s:.4f} s per chapter to write; resume from chapter "
+          f"1: restore {rs_s:.4f} s, bit-identical to the sequential fit; "
+          f"makespans checkpointed {full.makespan:.4f} s, resumed "
+          f"{resumed.makespan:.4f} s")
+    out["resilience"] = {"checkpoint_s_per_chapter": ck_s,
+                         "restore_s": rs_s, "manifest_bytes": size}
+    kill_dir = os.path.join(ROOT, "build", "chip_smoke", "kill")
+    shutil.rmtree(kill_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")
+               + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    killed = subprocess.run(
+        [sys.executable, *EXEC_CLI, "--fault-plan", "kill_mid",
+         "--checkpoint-dir", kill_dir], capture_output=True, text=True,
+        env=env, timeout=300)
+    check(killed.returncode == faults.KILL_EXIT,
+          f"kill_mid exited {killed.returncode}, not {faults.KILL_EXIT}:\n"
+          f"{killed.stdout}\n{killed.stderr[-2000:]}")
+    resumed = subprocess.run(
+        [sys.executable, *EXEC_CLI, "--resume-from", kill_dir],
+        capture_output=True, text=True, env=env, timeout=300)
+    check(resumed.returncode == 0 and "bit-exact vs fault-free reference"
+          in resumed.stdout, f"resume after kill_mid exited "
+          f"{resumed.returncode}:\n{resumed.stdout}\n"
+          f"{resumed.stderr[-2000:]}")
+    print(f"[18 resilience] kill-then-resume through the CLI: "
+          f"{killed.stdout.strip().splitlines()[-1]} (exit "
+          f"{killed.returncode}); resumed: "
+          + " | ".join(resumed.stdout.strip().splitlines()))
+    print(json.dumps({"executor": out}))
+    return out["all_layers"]["calls"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    # phases 17-18 run under torch.use_deterministic_algorithms, where
+    # cuBLAS needs a pinned workspace, set before CUDA starts (inherited
+    # by the executor's CLI in phase 18)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1186,11 +1507,23 @@ def main():
         row["launches"] = lm_launches[row["name"]]
     rows += lm_rows
 
-    # 16. isolation --------------------------------------------------------
+    # 16. the SSD kernel at the reduced mamba2 sizes, and its LM path -------
+    rows.append(phase_reduced_ssd(gen, data))
+
+    # 17-18. the PFF executor at full width, and its resilience ------------
+    torch.use_deterministic_algorithms(True)
+    exec_calls = phase_executor(api, data, PAPER_MLP, kernel, vjp)
+    torch.use_deterministic_algorithms(False)
+    for row in fwd_rows:
+        row["launches"] += exec_calls[0]
+    for row in bwd_rows:
+        row["launches"] += exec_calls[1]
+
+    # 19. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[16 isolation] no jax, no repro module loaded")
+    print("[19 isolation] no jax, no repro module loaded")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

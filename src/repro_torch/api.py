@@ -8,9 +8,18 @@ Training (``fit``) drives the paper's chapter schedule on the card:
     task = data.mnist_like(n_train=4096, n_test=1000)
     res = api.fit(PAPER_MLP, task)                          # sequential
     res = api.fit(PAPER_MLP, task, backend="federated", num_nodes=4)
+    res = api.fit(PAPER_MLP, task, backend="executor",      # real nodes
+                  schedule="all_layers", num_nodes=4)
     res = api.fit(PAPER_MLP, task, backend="simulate",      # event sim
                   schedule="all_layers", num_nodes=4)
     api.simulate(res, "single_layer", 4).speedup
+
+The ``executor`` backend runs the schedule on ``num_nodes`` nodes, each a
+CUDA stream of its own on the card (N x ``cuda:0``) or, with
+``device="cpu"``, N x ``cpu`` in order, bit-exact against
+``sequential`` (``federated`` for its schedule); ``resilience=`` adds
+chapter checkpoints, fault injection, retries and dead-node recovery,
+``resume_from=`` resumes from a chapter manifest.
 
 Serving (``serve``) answers requests from a fixed parameter snapshot:
 
@@ -20,9 +29,9 @@ Serving (``serve``) answers requests from a fixed parameter snapshot:
 
 Both run on ``cuda`` unless ``device="cpu"`` is passed. Strategy
 variation (negatives, goodness objective, classifier) is config-driven
-through the registries re-exported here. The ``executor`` and ``pod``
-backends and train-while-serve come with later slices; they raise
-``NotImplementedError`` until then.
+through the registries re-exported here. The ``pod`` backend and
+train-while-serve (``fit(serve=...)``, ``serve`` without ``params=``)
+come with later slices; they raise ``NotImplementedError`` until then.
 """
 from __future__ import annotations
 
@@ -31,7 +40,10 @@ from typing import List, Optional
 
 from repro_torch import data as data_lib
 from repro_torch.convert import tree_map
-from repro_torch.core import ff_mlp, pff, strategies
+from repro_torch.core import ff_mlp, pff, pff_exec, strategies
+from repro_torch.core.faults import (        # noqa: F401  re-exported
+    FaultPlan, ResilienceConfig,
+)
 from repro_torch.core.strategies import (    # noqa: F401  re-exported
     classifier, goodness, negatives,
     register_classifier, register_goodness, register_negatives,
@@ -47,13 +59,13 @@ __all__ = ["fit", "simulate", "serve", "FitResult", "ServeResult",
            "ServeConfig", "BACKENDS",
            "negatives", "goodness", "classifier", "traffic",
            "register_negatives", "register_goodness",
-           "register_classifier", "register_traffic"]
+           "register_classifier", "register_traffic",
+           "FaultPlan", "ResilienceConfig"]
 
 BACKENDS = ("sequential", "simulate", "executor", "federated", "pod")
 
 # the slice of the port each backend not ported yet comes with
 _PENDING_BACKENDS = {
-    "executor": "the executor slice (core/pff_exec.py's PFFExecutor)",
     "pod": "the pod slice (core/pff_pod.py on torch.distributed)",
 }
 
@@ -63,7 +75,7 @@ class FitResult:
     """What every backend returns, as the reference's ``FitResult``
     has it for the ported backends. Fields a backend cannot measure stay
     None (``makespan`` for plain sequential training). ``raw`` keeps the
-    backend's own result (``pff.TrainResult``)."""
+    backend's own result (``pff.TrainResult``, ``pff_exec.ExecResult``)."""
     backend: str
     cfg: object
     params: Optional[dict] = None
@@ -77,6 +89,8 @@ class FitResult:
     speedup: Optional[float] = None
     utilization: Optional[float] = None
     sim: Optional[pff.SimResult] = None
+    profile: Optional[dict] = None          # executor: {"node_busy"}
+    resilience: Optional[dict] = None       # executor: retry/checkpoint stats
     device: Optional[str] = None
     trace: Optional[object] = None          # obs.trace.Tracer (trace=...)
     raw: object = None
@@ -120,14 +134,22 @@ def _validate_strategies(cfg):
 
 
 def fit(cfg, task=None, *, backend="sequential", schedule=None,
-        num_nodes=1, probe_every=0, verbose=False, trace=None,
-        comm_time=0.0, device=None, key=None) -> FitResult:
+        num_nodes=1, probe_every=0, verbose=False, profile=False,
+        devices=None, overlap=True, resilience=None, resume_from=None,
+        serve=None, trace=None, comm_time=0.0, device=None,
+        key=None) -> FitResult:
     """Train ``cfg`` on ``task`` with the chosen backend.
 
     sequential  the canonical chapter-schedule trainer (times every
                 task; its records feed the simulator).
     federated   the same trainer on ``num_nodes`` node-local shards
                 (Federated PFF §4.3).
+    executor    ``core.pff_exec.PFFExecutor``: ``schedule`` (default
+                ``"all_layers"``, or ``"sequential"`` when
+                ``num_nodes == 1``) run on ``num_nodes`` nodes, each a
+                CUDA stream of its own (``devices=`` names their devices;
+                a repeated device is allowed), bit-exact against
+                ``sequential`` (``federated`` for its schedule).
     simulate    trains sequentially once, then replays the measured task
                 timings under ``schedule`` (default ``"all_layers"``, or
                 ``"sequential"`` when ``num_nodes == 1``) on
@@ -135,6 +157,16 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
                 per-DAG-edge cross-node hand-off cost.
 
     probe_every/verbose: chapter-level accuracy probes.
+    profile: executor: synchronize after every task and return per-task
+    records and node busy times (run again without it for makespan).
+    overlap: executor: the double-buffered hand-off (default); False
+    pulls on demand (the weight stream is bit-identical either way).
+    resilience: executor: a ``ResilienceConfig`` (chapter checkpoints,
+    retry/backoff, dead-node recovery, fault injection, elastic
+    federated membership); stats on ``FitResult.resilience``.
+    resume_from: executor: a chapter manifest (or its directory) written
+    by a previous resilient run; training replays from the next chapter.
+    serve: train-while-serve, which comes with the next slice.
     trace: ``True`` or an ``obs.trace.Tracer``: one span around the
     backend's run, in ``FitResult.trace``.
     device: ``None`` = ``cuda`` (raises without a GPU); ``"cpu"`` runs
@@ -149,10 +181,39 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet: it comes with "
             f"{_PENDING_BACKENDS[backend]}")
+    if (resilience is not None or resume_from is not None) \
+            and backend != "executor":
+        raise ValueError(
+            f"resilience/resume_from are executor-backend features "
+            f"(chapter checkpoints, fault injection, elastic "
+            f"membership); got backend={backend!r}")
+    if serve is not None:
+        raise NotImplementedError(
+            "fit(serve=...) is not ported yet: it comes with the "
+            "train-while-serve slice (serve/engine.py's train_while_serve)")
     _validate_strategies(cfg)
-    dev = resolve_device(device)
+    # an executor given its nodes' devices needs no default device
+    dev = (None if backend == "executor" and devices is not None
+           else resolve_device(device))
     tracer = obs_trace.as_tracer(trace)
     out_trace = tracer if tracer.enabled else None
+    if backend == "executor":
+        schedule = schedule or ("sequential" if num_nodes == 1
+                                else "all_layers")
+        ex = pff_exec.PFFExecutor(cfg, task, schedule, num_nodes,
+                                  devices=devices, overlap=overlap,
+                                  resilience=resilience, device=dev,
+                                  key=key)
+        res = ex.run(profile=profile, resume_from=resume_from,
+                     trace=out_trace)
+        return FitResult(
+            backend=backend, cfg=cfg, params=res.params, schedule=schedule,
+            num_nodes=num_nodes, records=res.records, test_acc=res.test_acc,
+            makespan=res.makespan,
+            profile=({"node_busy": res.node_busy}
+                     if res.node_busy is not None else None),
+            resilience=res.resilience, device=str(ex.devices[0]),
+            trace=res.trace, raw=res)
     kw = dict(probe_every=probe_every, verbose=verbose, device=dev,
               key=key)
     sim = None
@@ -236,8 +297,9 @@ def serve(cfg, task=None, *, traffic=None, source=None, params=None,
     good = _validate_strategies(cfg)
     if params is None:
         raise NotImplementedError(
-            "train-while-serve needs the PFF executor, which the port has "
-            "not reached yet; pass params= to serve a fixed snapshot")
+            "train-while-serve (the executor publishing into a serving "
+            "replica) is not ported yet: it comes with the next slice; "
+            "pass params= to serve a fixed snapshot")
     dev = resolve_device(device)
     tracer = obs_trace.as_tracer(trace)
     if source is None:

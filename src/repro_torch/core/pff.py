@@ -15,8 +15,10 @@ the same weight stream and differ only in wall-clock. This module:
     distributed training time, utilization and bubble fraction.
 
 Federated PFF trains chapter c on node (c mod N)'s shard
-(``federated_shards``). The real multi-device executor and the elastic
-federated rounds come with the executor slice.
+(``federated_shards``). Elastic Federated PFF (``run_elastic_federated``)
+is the sequential reference of the executor's membership-aware rounds
+(``core.pff_exec``): both go through ``elastic_node_round`` and
+``weighted_average_trees``.
 
 Every random draw comes from one key (``core.rng``), folded exactly as
 the reference folds its jax key: ``fold_in(key, 999)`` for negatives,
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import data as data_lib, optim
+from repro_torch.convert import tree_map
 from repro_torch.core import ff, ff_mlp, pff_dag, strategies
 from repro_torch.core.rng import TorchKey
 from repro_torch.device import resolve_device
@@ -343,3 +346,189 @@ def run_federated_schedule(cfg, task: data_lib.ImageTask, num_nodes: int,
                                 node_data=federated_shards(cfg, task,
                                                            num_nodes),
                                 num_nodes=num_nodes, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Elastic Federated PFF: membership-aware rounds + weighted aggregation
+# ---------------------------------------------------------------------------
+
+def _map_trees(fn, *trees):
+    """``fn`` over the matching leaves of trees of one structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map_trees(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_map_trees(fn, *(t[i] for t in trees))
+                           for i in range(len(first)))
+    return fn(*trees)
+
+
+def weighted_average_trees(trees, weights):
+    """Leaf-wise weighted average of trees: the federated round
+    aggregator. ``weights`` are Python floats (normalized live-shard
+    fractions); accumulation walks ``trees`` in the given order, in f32,
+    so two callers passing the same trees in the same order get
+    BIT-IDENTICAL results (the elastic executor is checked against the
+    sequential reference this way). Non-float leaves must agree across
+    trees and are taken from the first."""
+    if len(trees) != len(weights) or not trees:
+        raise ValueError(f"{len(trees)} trees vs {len(weights)} weights")
+
+    def avg(*leaves):
+        if not leaves[0].is_floating_point():
+            return leaves[0]
+        acc = leaves[0] * weights[0]
+        for leaf, w in zip(leaves[1:], weights[1:]):
+            acc = acc + leaf * w
+        return acc
+    return _map_trees(avg, *trees)
+
+
+def elastic_node_round(good, cfg, states, head_state, acts, extras, lrs,
+                       lrs_head, key_node, *, epochs, impl, y=None,
+                       x_neutral=None, train_head=False):
+    """One node's shard-local work for one elastic round, starting from
+    (already copied) round-start ``states``/``head_state``.
+
+    This is THE round math: the sequential reference
+    (``run_elastic_federated``) and the executor's elastic driver both
+    call exactly this function, which is what makes the multi-node
+    aggregate bit-checkable against the single-device one. The chapter
+    trainers update their inputs in place: callers pass per-node copies,
+    never the round-start globals themselves.
+    """
+    out_states = []
+    for k, st in enumerate(states):
+        st = good.train_chapter(st, acts, extras, lrs, key_node.fold_in(k),
+                                cfg=cfg, epochs=epochs)
+        out_states.append(st)
+        if k + 1 < len(states):
+            with torch.no_grad():
+                acts = tuple(ff_mlp.fwd_norm(st[0], a, impl=impl)
+                             for a in acts)
+    if train_head:
+        with torch.no_grad():
+            feats = ff_mlp.softmax_feats([s[0] for s in out_states],
+                                         x_neutral, impl=impl)
+        head, oph = ff_mlp.train_head_chapter(
+            head_state[0], head_state[1], feats, y, lrs_head,
+            key_node.fold_in(77), batch=cfg.batch_size, epochs=epochs)
+        head_state = (head, oph)
+    return out_states, head_state
+
+
+def _check_membership(live, num_nodes, r):
+    live = sorted(set(int(n) for n in live))
+    if not live:
+        raise ValueError(f"membership callback returned no live nodes "
+                         f"for round {r}")
+    bad = [n for n in live if not 0 <= n < num_nodes]
+    if bad:
+        raise ValueError(f"membership round {r}: node ids {bad} outside "
+                         f"[0, {num_nodes})")
+    return live
+
+
+def _copy_tree(tree):
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def run_elastic_federated(cfg, task: data_lib.ImageTask, num_nodes: int,
+                          membership, *, device=None,
+                          key=None) -> TrainResult:
+    """Sequential reference for ELASTIC Federated PFF (the executor's
+    ``resilience.membership`` mode is bit-checked against this).
+
+    Per round r (= one chapter's worth of work, cfg.splits rounds):
+    ``membership(r)`` names the live nodes; each live node trains a COPY
+    of the round-start model on ITS OWN shard for C mini-epochs, and the
+    aggregator replaces the global model with the live results averaged
+    by live shard sizes (``weighted_average_trees``), the nodes in
+    sorted order. Nodes joining or leaving between rounds change only
+    which shards contribute and their weights.
+
+    Key-only negative strategies only: score-needing (AdaptiveNEG)
+    regeneration reads the full global model, which does not exist
+    mid-round on any single node.
+    device / key: as ``run_chapter_schedule`` takes them.
+    """
+    good = strategies.goodness.get(cfg.goodness_fn)
+    neg = strategies.negatives.get(cfg.neg_mode)
+    cls = strategies.classifier.get(cfg.classifier)
+    if good.uses_negatives and neg.regenerates and neg.needs_scores:
+        raise ValueError(
+            f"elastic federated membership supports key-only negative "
+            f"strategies; {cfg.neg_mode!r} needs full-model scores")
+    dev = resolve_device(device)
+    key = TorchKey(cfg.seed) if key is None else key
+    kneg = key.fold_in(999)
+    params = ff_mlp.init(cfg, key, dev)
+    opt = ff_mlp.opt_init(params)
+    S = cfg.splits
+    C = max(cfg.epochs // cfg.splits, 1)
+    n_layers = len(params["layers"])
+    impl = ff_mlp.kernel_impl(cfg)
+    x_all = torch.as_tensor(task.x_train, device=dev)
+    y_all = torch.as_tensor(task.y_train, device=dev)
+    shards = [torch.as_tensor(s, device=dev)
+              for s in federated_shards(cfg, task, num_nodes)]
+    train_head = cls.trains_head
+
+    with torch.no_grad():
+        if good.uses_negatives:
+            xp0 = ff_mlp._norm(ff.overlay_label(x_all, y_all,
+                                                cfg.num_classes))
+            xn0 = ff_mlp._norm(neg.fn(kneg, cfg, None, x_all, y_all, None))
+        else:
+            xk0 = ff_mlp._norm(ff.overlay_neutral(x_all, cfg.num_classes))
+        if train_head or not good.uses_negatives:
+            x_neutral = ff.overlay_neutral(x_all, cfg.num_classes)
+
+    states = [good.get_state(params, opt, k) for k in range(n_layers)]
+    head_state = (params["head"], opt["head"])
+    history = []
+    for r in range(S):
+        live = _check_membership(membership(r), num_nodes, r)
+        history.append((r, len(live)))
+        lrs = torch.stack([
+            optim.cooldown_lr(cfg.lr_ff, r * C + e, cfg.epochs,
+                              cfg.cooldown_after) for e in range(C)])
+        lrs_head = lrs * (cfg.lr_softmax / cfg.lr_ff)
+        kr = key.fold_in(r)
+        if good.uses_negatives and neg.regenerates and r > 0:
+            with torch.no_grad():
+                xn0 = ff_mlp._norm(neg.fn(kneg.fold_in(r - 1), cfg, None,
+                                          x_all, y_all, None))
+        per_node = {}
+        for node in live:
+            idx = shards[node]
+            if good.uses_negatives:
+                acts, extras = (xp0[idx], xn0[idx]), ()
+            else:
+                acts, extras = (xk0[idx],), (y_all[idx],)
+            per_node[node] = elastic_node_round(
+                good, cfg, [_copy_tree(st) for st in states],
+                _copy_tree(head_state), acts, extras, lrs, lrs_head,
+                kr.fold_in(node), epochs=C, impl=impl,
+                y=y_all[idx] if train_head else None,
+                x_neutral=x_neutral[idx] if train_head else None,
+                train_head=train_head)
+        total = float(sum(len(shards[n]) for n in live))
+        w = [len(shards[n]) / total for n in live]
+        with torch.no_grad():
+            states = [weighted_average_trees(
+                [per_node[n][0][k] for n in live], w)
+                for k in range(n_layers)]
+            if train_head:
+                head_state = weighted_average_trees(
+                    [per_node[n][1] for n in live], w)
+
+    final = {**good.export(states), "head": head_state[0]}
+    mode = good.eval_mode(cfg)
+    with torch.no_grad():
+        test_acc = ff_mlp.accuracy(final, task.x_test, task.y_test,
+                                   cfg.num_classes, mode, impl=impl)
+        train_acc = ff_mlp.accuracy(final, task.x_train[:2000],
+                                    task.y_train[:2000], cfg.num_classes,
+                                    mode, impl=impl)
+    return TrainResult(final, [], test_acc, train_acc, cfg, history)

@@ -6,8 +6,11 @@
 //           + (c_i . h) exp(cums_i)                  (carried state h)
 //   h    <- h exp(cums_{L-1}) + sum_j exp(cums_{L-1} - cums_j) b_j xbar_j
 //
-// xbar (B, S, H, 64), dA (B, S, H), b and c (B, S, 128): contiguous f32.
-// Outputs y (B, S, H, 64) and the final state hT (B, H, 64, 128), f32.
+// xbar (B, S, H, HD), dA (B, S, H), b and c (B, S, NST): contiguous f32.
+// Outputs y (B, S, H, HD) and the final state hT (B, H, HD, NST), f32.
+// (L, HD, NST) are template parameters of all four launches, compiled for
+// (256, 64, 128) and (128, 64, 128), mamba2-780m's sizes, and (32, 32, 16),
+// its reduced config's.
 //
 // Replaces repro/kernels/mamba2_ssd.py::mamba2_ssd (the Pallas
 // `_kernel`). That TPU kernel runs a sequential (B, nc) grid and keeps
@@ -21,26 +24,32 @@
 // launches, the same algebra as the reference model's ssd_chunked:
 //
 //   1. ssd_scores: cb[i, j] = c_i . b_j once per (sequence, chunk), the
-//      same for every head (n_groups = 1): 64 x 64 tiles on or below the
-//      diagonal into a (B * nc, L, L) scratch (8 MB at B 4, S 2048,
-//      L 256; read back from L2).
+//      same for every head (n_groups = 1): TI x TI tiles (TI = min(L, 64))
+//      on or below the diagonal into a (B * nc, L, L) scratch (8 MB at
+//      B 4, S 2048, L 256; read back from L2).
 //   2. ssd_states: one block per (head, chunk, sequence), 1536 at the
 //      mamba2-780m prefill: the chunk's own state
-//      S_c = (exp(cums_L - cums_j) xbar_j)^T . b_j, a (64 x L).(L x 128)
+//      S_c = (exp(cums_L - cums_j) xbar_j)^T . b_j, an (HD x L).(L x NST)
 //      product over 32-step stages of a 2-stage cp.async ring, into a
-//      (B, nc, H, 64, 128) scratch (50 MB), plus cums_L.
+//      (B, nc, H, HD, NST) scratch (50 MB), plus cums_L.
 //   3. ssd_state_pass: for each (sequence, head, four state elements),
 //      h <- h exp(cums_L(c)) + S_c over the chunks in order, storing in
 //      place the state that ENTERS each chunk, and hT. Elementwise: the
 //      scratch is read and written once.
-//   4. ssd_output: one block per (head, 64-row tile, chunk, sequence),
-//      6144 at the prefill, four warps of 32 x 32: y_i = sum_{j<=i}
-//      W_ij xbar_j + exp(cums_i) (c_i . h_in), W = cb * exp(cums_i -
-//      cums_j) formed once per 64 x 64 tile in shared memory for all 64
-//      columns of hd, the cb and xbar tiles through a 2-stage cp.async
-//      ring; tiles wholly above the diagonal are neither formed nor
-//      multiplied, and on the diagonal each warp stops at its own last
-//      row.
+//   4. ssd_output: one block per (head, TI-row tile, chunk, sequence),
+//      6144 at the prefill, four warps of TI/2 x HD/2 (32 x 32 there,
+//      16 x 16 at the reduced sizes): y_i = sum_{j<=i} W_ij xbar_j +
+//      exp(cums_i) (c_i . h_in), W = cb * exp(cums_i - cums_j) formed once
+//      per TI x TI tile in shared memory for all HD columns, the cb and
+//      xbar tiles through a 2-stage cp.async ring; tiles wholly above the
+//      diagonal are neither formed nor multiplied, and on the diagonal
+//      each warp stops at its own last row.
+//
+// At chunk 32 a 64-row tile would be larger than the chunk, so TI is the
+// chunk there, and every warp tile is cut from 16-row mma.sync fragments
+// down to N 16. The tiles of each launch are picked from (L, HD, NST) by
+// the traits below; at the two mamba2-780m sizes they are the ones the
+// kernel had before it took other sizes.
 //
 // Every product runs on the tensor cores, mma.sync.m16n8k8 with TF32
 // operands and f32 accumulation, as 3xTF32 (tc_common.cuh: each f32
@@ -75,14 +84,51 @@
 
 namespace {
 
-constexpr int THREADS = 256;   // eight warps
-constexpr int HD = 64;         // head dim: one block covers all of it
-constexpr int NST = 128;       // state size N
-constexpr int TI = 64;         // row (i) and column (j) tile of launches 1, 4
+constexpr int THREADS = 256;   // launches 1 and 3: eight warps
 constexpr int JS = 32;         // j stage of launch 2
 constexpr int PASS_BATCH = 8;  // chunks launch 3 loads at a time
 constexpr int FRESH_NJ = 2;    // n8 fragments a 3xTF32 step spans at once
 constexpr unsigned FULL = 0xffffffffu;
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// The tiles of each launch for one compiled (L, HD, NST).
+template <int L, int HD, int NST>
+struct Tiles {
+  static constexpr int TI = cmin(L, 64);   // row (i) and column (j) tile of
+                                           // launches 1 and 4
+  // launch 1: eight warps of 16 i x SC_WJ j over a TI x TI tile
+  static constexpr int SC_WARPS_I = TI / 16;
+  static constexpr int SC_WJ = TI / (8 / SC_WARPS_I);
+  // launch 2: warps of ST_WD d x ST_WN n over the HD x NST state
+  static constexpr int ST_WD = HD / 2;
+  static constexpr int ST_WN = cmin(32, NST / 2);
+  static constexpr int ST_WARPS_D = HD / ST_WD;
+  static constexpr int ST_NT = 32 * ST_WARPS_D * (NST / ST_WN);
+  // launch 4: four warps of Y_WI i x Y_WD d over a TI x HD tile of y
+  static constexpr int Y_WI = TI / 2;
+  static constexpr int Y_WD = HD / 2;
+  static constexpr int Y_NT = 128;
+  static_assert(L % 32 == 0 && L % TI == 0, "chunk: a multiple of 32 and TI");
+  static_assert(TI % 16 == 0 && 8 % SC_WARPS_I == 0 && SC_WJ % 8 == 0,
+                "launch 1's warp tiles");
+  static_assert(ST_WD % 16 == 0 && ST_WN % 8 == 0 && NST % ST_WN == 0,
+                "launch 2's warp tiles");
+  static_assert(Y_WI % 16 == 0 && Y_WD % 8 == 0, "launch 4's warp tiles");
+  static_assert(HD % 4 == 0 && NST % 8 == 0, "16-byte rows, 8-deep steps");
+};
+
+// Calls f(row, col) for every 16-byte piece (4 floats) of a ROWS x COLS
+// tile, spread over the NT threads of a block.
+template <int ROWS, int COLS, int NT, typename F>
+__device__ __forceinline__ void for_each_vec4(int tid, F&& f) {
+  constexpr int V = ROWS * COLS / 4;
+#pragma unroll
+  for (int k = 0; k < (V + NT - 1) / NT; ++k) {
+    const int e = tid + k * NT;
+    if (V % NT == 0 || e < V) f(e / (COLS / 4), (e % (COLS / 4)) * 4);
+  }
+}
 
 // A(m, k) = p[m * SM + k * SK], p at the fragment's (row g, depth q):
 // a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4).
@@ -133,18 +179,23 @@ __device__ void chunk_cumsum(float* cums, const float* __restrict__ dA,
 }
 
 // ---------------------------------------------------------------------
-// 1. cb[bc, i, j] = c[b, t0 + i] . b[b, t0 + j] for the 64 x 64 tiles with
+// 1. cb[bc, i, j] = c[b, t0 + i] . b[b, t0 + j] for the TI x TI tiles with
 //    j-tile <= i-tile (bc = b * nc + chunk, t0 = chunk * L).
-namespace sc {
-constexpr int LD = NST + 4;   // 132 = 4 mod 32: c and b rows read as [m][k]
-constexpr size_t SMEM = (size_t)2 * TI * LD * sizeof(float);
-}  // namespace sc
+template <int L, int HD, int NST>
+struct Scores {
+  using T = Tiles<L, HD, NST>;
+  static constexpr int LD = NST + 4;   // = 4 mod 32 (132, 20): c and b rows
+                                       // read as [m][k]
+  static constexpr size_t SMEM = (size_t)2 * T::TI * LD * sizeof(float);
+};
 
-template <int L>
+template <int L, int HD, int NST>
 __global__ void __launch_bounds__(THREADS)
 ssd_scores(const float* __restrict__ bm, const float* __restrict__ cm,
            float* __restrict__ cb, int S, int nc) {
-  using namespace sc;
+  using T = Tiles<L, HD, NST>;
+  constexpr int TI = T::TI, LD = Scores<L, HD, NST>::LD;
+  constexpr int NI = T::SC_WJ / 8;
   const int jt = blockIdx.x, it = blockIdx.y;
   if (jt > it) return;
   extern __shared__ __align__(16) float smem[];
@@ -152,66 +203,69 @@ ssd_scores(const float* __restrict__ bm, const float* __restrict__ cm,
   float* Bs = smem + TI * LD;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, q = lane % 4;
-  const int wi = warp % 4, wj = warp / 4;   // warp tile: 16 i x 32 j
+  // warp tile: 16 i x SC_WJ j
+  const int wi = warp % T::SC_WARPS_I, wj = warp / T::SC_WARPS_I;
   const int bc = blockIdx.z, bb = bc / nc, t0 = (bc % nc) * L;
   const int i0 = it * TI, j0 = jt * TI;
   const size_t row0 = (size_t)bb * S;
 
-#pragma unroll
-  for (int k = 0; k < TI * NST / 4 / THREADS; ++k) {
-    const int e = tid + k * THREADS;
-    const int r = e / (NST / 4), col = (e % (NST / 4)) * 4;
+  for_each_vec4<TI, NST, THREADS>(tid, [&](int r, int col) {
     const int ti = t0 + i0 + r, tj = t0 + j0 + r;
     cp_async16(Cs + r * LD + col, ti < S ? cm + (row0 + ti) * NST + col : cm,
                ti < S);
     cp_async16(Bs + r * LD + col, tj < S ? bm + (row0 + tj) * NST + col : bm,
                tj < S);
-  }
+  });
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  float acc[1][4][4] = {};
+  float acc[1][NI][4] = {};
 #pragma unroll 4
   for (int kk = 0; kk < NST; kk += 8) {
     FragA a[1];
     load_a<LD, 1>(a[0], Cs + (wi * 16 + g) * LD + kk + q);
-    FragB f[4];   // B(k = n, column j) = b[j][n]
+    FragB f[NI];   // B(k = n, column j) = b[j][n]
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      load_b<1>(f[ni], Bs + (wj * 32 + ni * 8 + g) * LD + kk + q);
-    mma3_tile<1, 4, 4>(acc, a, f, 0);
+    for (int ni = 0; ni < NI; ++ni)
+      load_b<1>(f[ni], Bs + (wj * T::SC_WJ + ni * 8 + g) * LD + kk + q);
+    mma3_tile<1, NI, NI>(acc, a, f, 0);
   }
   float* out = cb + (size_t)bc * L * L;
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
     const int i = i0 + wi * 16 + g + 8 * h2;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-      *reinterpret_cast<float2*>(out + (size_t)i * L + j0 + wj * 32 + ni * 8 +
-                                 2 * q) =
+    for (int ni = 0; ni < NI; ++ni)
+      *reinterpret_cast<float2*>(out + (size_t)i * L + j0 + wj * T::SC_WJ +
+                                 ni * 8 + 2 * q) =
           make_float2(acc[0][ni][2 * h2], acc[0][ni][2 * h2 + 1]);
   }
 }
 
 // ---------------------------------------------------------------------
-// 2. states[b, chunk, h] (64 x 128) = sum_j (exp(cums_L - cums_j) xbar_j)
+// 2. states[b, chunk, h] (HD x NST) = sum_j (exp(cums_L - cums_j) xbar_j)
 //    b_j^T, and dlast[b, chunk, h] = cums_L.
-namespace st {
-constexpr int LDX = HD + 8;    // 72 = 8 mod 32: xbar read as [k][m]
-constexpr int LDB = NST + 8;   // 136 = 8 mod 32: b read as [k][n]
-constexpr int STAGE = JS * (LDX + LDB);
-constexpr int NS = 2;          // cp.async ring depth
-template <int L>
-constexpr size_t smem() { return (size_t)(2 * L + NS * STAGE) * sizeof(float); }
-}  // namespace st
+template <int L, int HD, int NST>
+struct States {
+  static constexpr int LDX = HD + 8;    // = 8 mod 32 (72, 40): xbar read as
+                                        // [k][m]
+  static constexpr int LDB = NST + 8;   // = 8 mod 32 (136, 24): b read as
+                                        // [k][n]
+  static constexpr int STAGE = JS * (LDX + LDB);
+  static constexpr int NS = 2;          // cp.async ring depth
+  static constexpr size_t SMEM = (size_t)(2 * L + NS * STAGE) * sizeof(float);
+};
 
-template <int L>
-__global__ void __launch_bounds__(THREADS)
+template <int L, int HD, int NST>
+__global__ void __launch_bounds__(Tiles<L, HD, NST>::ST_NT)
 ssd_states(const float* __restrict__ xbar, const float* __restrict__ dA,
            const float* __restrict__ bm, float* __restrict__ states,
            float* __restrict__ dlast, int S, int H, int nc) {
-  using namespace st;
+  using T = Tiles<L, HD, NST>;
+  using P = States<L, HD, NST>;
+  constexpr int NT = T::ST_NT, LDX = P::LDX, LDB = P::LDB;
+  constexpr int MI = T::ST_WD / 16, NI = T::ST_WN / 8, NJ = cmin(FRESH_NJ, NI);
   extern __shared__ __align__(16) float smem[];
   float* cums = smem;
   float* dec = smem + L;   // exp(cums_L - cums_j)
@@ -219,80 +273,76 @@ ssd_states(const float* __restrict__ xbar, const float* __restrict__ dA,
   const int h = blockIdx.x, ci = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, q = lane % 4;
-  const int wd = warp % 2, wn = warp / 2;   // warp tile: 32 d x 32 n
+  // warp tile: ST_WD d x ST_WN n
+  const int wd = warp % T::ST_WARPS_D, wn = warp / T::ST_WARPS_D;
   const size_t row0 = (size_t)bb * S;
   const int t0 = ci * L;
   constexpr int n_tiles = L / JS;
 
   auto load = [&](int t) {
-    float* Xs = ring + (t % NS) * STAGE;
+    float* Xs = ring + (t % P::NS) * P::STAGE;
     float* Bs = Xs + JS * LDX;
     const int j0 = t0 + t * JS;
-#pragma unroll
-    for (int k = 0; k < JS * HD / 4 / THREADS; ++k) {
-      const int e = tid + k * THREADS;
-      const int r = e / (HD / 4), col = (e % (HD / 4)) * 4;
+    for_each_vec4<JS, HD, NT>(tid, [&](int r, int col) {
       const bool in = j0 + r < S;
       cp_async16(Xs + r * LDX + col,
                  in ? xbar + ((row0 + j0 + r) * H + h) * HD + col : xbar, in);
-    }
-#pragma unroll
-    for (int k = 0; k < JS * NST / 4 / THREADS; ++k) {
-      const int e = tid + k * THREADS;
-      const int r = e / (NST / 4), col = (e % (NST / 4)) * 4;
+    });
+    for_each_vec4<JS, NST, NT>(tid, [&](int r, int col) {
       const bool in = j0 + r < S;
       cp_async16(Bs + r * LDB + col,
                  in ? bm + (row0 + j0 + r) * NST + col : bm, in);
-    }
+    });
   };
   load(0);
   cp_async_commit();
-  chunk_cumsum<L, THREADS>(cums, dA, row0, t0, S, H, h);   // under tile 0's
-                                                          // copies
+  chunk_cumsum<L, NT>(cums, dA, row0, t0, S, H, h);   // under tile 0's
+                                                      // copies
   const float last = cums[L - 1];
-  for (int i = tid; i < L; i += THREADS) dec[i] = expf(last - cums[i]);
+  for (int i = tid; i < L; i += NT) dec[i] = expf(last - cums[i]);
 
-  float acc[2][4][4] = {};
+  float acc[MI][NI][4] = {};
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();   // tile t has landed ...
     __syncthreads();       // ... for every thread; tile t - 1 is consumed
     if (t + 1 < n_tiles) load(t + 1);
     cp_async_commit();
-    const float* Xs = ring + (t % NS) * STAGE;
+    const float* Xs = ring + (t % P::NS) * P::STAGE;
     const float* Bs = Xs + JS * LDX;
     // unrolled by two, not four: at four the fresh fragments took 141
     // registers, one block an SM
 #pragma unroll 2
     for (int kk = 0; kk < JS; kk += 8) {
       const float d0 = dec[t * JS + kk + q], d1 = dec[t * JS + kk + q + 4];
-      FragA a[2];   // A(m = d, k = j) = dec_j xbar[j][d]
+      FragA a[MI];   // A(m = d, k = j) = dec_j xbar[j][d]
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* p = Xs + (kk + q) * LDX + wd * 32 + mi * 16 + g;
+      for (int mi = 0; mi < MI; ++mi) {
+        const float* p = Xs + (kk + q) * LDX + wd * T::ST_WD + mi * 16 + g;
         const float v[4] = {p[0] * d0, p[8] * d0, p[4 * LDX] * d1,
                             p[4 * LDX + 8] * d1};
         split(v, a[mi].hi, a[mi].lo);
       }
-      FragB f[4];
+      FragB f[NI];
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        load_b<LDB>(f[ni], Bs + (kk + q) * LDB + wn * 32 + ni * 8 + g);
+      for (int ni = 0; ni < NI; ++ni)
+        load_b<LDB>(f[ni], Bs + (kk + q) * LDB + wn * T::ST_WN + ni * 8 + g);
 #pragma unroll
-      for (int n0 = 0; n0 < 4; n0 += FRESH_NJ)
-        mma3_tile<2, 4, FRESH_NJ>(acc, a, f, n0);
+      for (int n0 = 0; n0 < NI; n0 += NJ)
+        mma3_tile<MI, NI, NJ>(acc, a, f, n0);
     }
   }
 
   const size_t slot = ((size_t)bb * nc + ci) * H + h;
   float* out = states + slot * HD * NST;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
-      const int d = wd * 32 + mi * 16 + g + 8 * h2;
+      const int d = wd * T::ST_WD + mi * 16 + g + 8 * h2;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        *reinterpret_cast<float2*>(out + d * NST + wn * 32 + ni * 8 + 2 * q) =
+      for (int ni = 0; ni < NI; ++ni)
+        *reinterpret_cast<float2*>(out + d * NST + wn * T::ST_WN + ni * 8 +
+                                   2 * q) =
             make_float2(acc[mi][ni][2 * h2], acc[mi][ni][2 * h2 + 1]);
     }
   if (tid == 0) dlast[slot] = last;
@@ -301,10 +351,11 @@ ssd_states(const float* __restrict__ xbar, const float* __restrict__ dA,
 // ---------------------------------------------------------------------
 // 3. h <- h exp(dlast) + S_c over the chunks in order; states[b, chunk, h]
 //    becomes the state entering the chunk; hT gets the last h.
+template <int HD, int NST>
 __global__ void __launch_bounds__(THREADS)
 ssd_state_pass(float* __restrict__ states, const float* __restrict__ dlast,
                float* __restrict__ hT, int H, int nc) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;   // float4 of (64, 128)
+  const int e = blockIdx.x * THREADS + threadIdx.x;   // float4 of (HD, NST)
   const int h = blockIdx.y, bb = blockIdx.z;
   if (e >= HD * NST / 4) return;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -336,35 +387,36 @@ ssd_state_pass(float* __restrict__ states, const float* __restrict__ dlast,
 }
 
 // ---------------------------------------------------------------------
-// 4. y for 64 rows of one (sequence, chunk, head): W . xbar over the
+// 4. y for TI rows of one (sequence, chunk, head): W . xbar over the
 //    j-tiles up to the diagonal, plus exp(cums_i) (c_i . h_in).
-namespace ys {
-constexpr int LDW = TI + 4;    // 68 = 4 mod 32: W read as [m][k]
-constexpr int LDX = HD + 8;    // 72 = 8 mod 32: xbar read as [k][n]
-constexpr int STAGE = TI * (LDW + LDX);
-constexpr int LDC = NST + 4;   // 132 = 4 mod 32: c as [m][k], h_in as [n][k]
-constexpr int RING = 2 * STAGE;
-static_assert(2 * TI * LDC <= RING, "c and h_in fit in the ring");
-static_assert(HD == TI, "one loop loads the TI rows of c and the HD rows "
-                        "of h_in");
-constexpr int WI = 32;   // rows (i) of a warp's tile
-constexpr int WD = 32;   // columns (d) of a warp's tile
-constexpr int WARPS_I = TI / WI;
-constexpr int NT = 32 * WARPS_I * (HD / WD);   // threads a block
-constexpr int MI = WI / 16, NI = WD / 8;
-static_assert(TI * TI / 4 % NT == 0 && TI * NST / 4 % NT == 0,
-              "16-byte tile copies must divide evenly among the threads");
-template <int L>
-constexpr size_t smem() { return (size_t)(L + RING) * sizeof(float); }
-}  // namespace ys
+template <int L, int HD, int NST>
+struct Output {
+  static constexpr int TI = Tiles<L, HD, NST>::TI;
+  static constexpr int LDW = TI + 4;    // = 4 mod 32 (68, 36): W read as
+                                        // [m][k]
+  static constexpr int LDX = HD + 8;    // = 8 mod 32 (72, 40): xbar read as
+                                        // [k][n]
+  static constexpr int STAGE = TI * (LDW + LDX);
+  static constexpr int LDC = NST + 4;   // = 4 mod 32 (132, 20): c as [m][k],
+                                        // h_in as [n][k]
+  static constexpr int RING = 2 * STAGE;
+  static_assert((TI + HD) * LDC <= RING, "c and h_in fit in the ring");
+  static constexpr size_t SMEM = (size_t)(L + RING) * sizeof(float);
+};
 
-template <int L>
-__global__ void __launch_bounds__(ys::NT)
+template <int L, int HD, int NST>
+__global__ void __launch_bounds__(Tiles<L, HD, NST>::Y_NT)
 ssd_output(const float* __restrict__ xbar, const float* __restrict__ dA,
            const float* __restrict__ cm, const float* __restrict__ cb,
            const float* __restrict__ states, float* __restrict__ y, int S,
            int H, int nc) {
-  using namespace ys;
+  using T = Tiles<L, HD, NST>;
+  using P = Output<L, HD, NST>;
+  constexpr int TI = T::TI, NT = T::Y_NT, WI = T::Y_WI, WD = T::Y_WD;
+  constexpr int LDW = P::LDW, LDX = P::LDX, LDC = P::LDC;
+  constexpr int WARPS_I = TI / WI;
+  constexpr int MI = WI / 16, NI = WD / 8, NJ = cmin(FRESH_NJ, NI);
+  static_assert(NT == 32 * WARPS_I * (HD / WD), "four warps tile TI x HD");
   extern __shared__ __align__(16) float smem[];
   float* cums = smem;
   float* ring = smem + L;
@@ -381,20 +433,19 @@ ssd_output(const float* __restrict__ xbar, const float* __restrict__ dA,
   const int n_tiles = it + 1;
 
   auto load = [&](int t) {
-    float* Ws = ring + (t % 2) * STAGE;
+    float* Ws = ring + (t % 2) * P::STAGE;
     float* Xs = Ws + TI * LDW;
     const int j0 = t * TI;
-#pragma unroll
-    for (int k = 0; k < TI * TI / 4 / NT; ++k) {
-      const int e = tid + k * NT;
-      const int r = e / (TI / 4), col = (e % (TI / 4)) * 4;
+    for_each_vec4<TI, TI, NT>(tid, [&](int r, int col) {
       cp_async16(Ws + r * LDW + col, cbc + (size_t)(i0 + r) * L + j0 + col,
                  true);
+    });
+    for_each_vec4<TI, HD, NT>(tid, [&](int r, int col) {
       const bool in = t0 + j0 + r < S;
       cp_async16(Xs + r * LDX + col,
                  in ? xbar + ((row0 + t0 + j0 + r) * H + h) * HD + col : xbar,
                  in);
-    }
+    });
   };
   load(0);
   cp_async_commit();
@@ -406,7 +457,7 @@ ssd_output(const float* __restrict__ xbar, const float* __restrict__ dA,
     __syncthreads();
     if (t + 1 < n_tiles) load(t + 1);
     cp_async_commit();
-    float* Ws = ring + (t % 2) * STAGE;
+    float* Ws = ring + (t % 2) * P::STAGE;
     const float* Xs = Ws + TI * LDW;
     const int j0 = t * TI;
     // W = cb * exp(cums_i - cums_j) for j <= i, else 0, in place
@@ -429,8 +480,8 @@ ssd_output(const float* __restrict__ xbar, const float* __restrict__ dA,
       for (int ni = 0; ni < NI; ++ni)
         load_b<LDX>(f[ni], Xs + (kk + q) * LDX + wd * WD + ni * 8 + g);
 #pragma unroll
-      for (int n0 = 0; n0 < NI; n0 += FRESH_NJ)
-        mma3_tile<MI, NI, FRESH_NJ>(acc, a, f, n0);
+      for (int n0 = 0; n0 < NI; n0 += NJ)
+        mma3_tile<MI, NI, NJ>(acc, a, f, n0);
     }
   }
 
@@ -441,15 +492,14 @@ ssd_output(const float* __restrict__ xbar, const float* __restrict__ dA,
     float* Cs = ring;
     float* Hs = ring + TI * LDC;
     const float* hin = states + (((size_t)bb * nc + ci) * H + h) * HD * NST;
-#pragma unroll
-    for (int k = 0; k < TI * NST / 4 / NT; ++k) {
-      const int e = tid + k * NT;
-      const int r = e / (NST / 4), col = (e % (NST / 4)) * 4;
+    for_each_vec4<TI, NST, NT>(tid, [&](int r, int col) {
       const bool in = t0 + i0 + r < S;
       cp_async16(Cs + r * LDC + col,
                  in ? cm + (row0 + t0 + i0 + r) * NST + col : cm, in);
+    });
+    for_each_vec4<HD, NST, NT>(tid, [&](int r, int col) {
       cp_async16(Hs + r * LDC + col, hin + r * NST + col, true);
-    }
+    });
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -464,8 +514,8 @@ ssd_output(const float* __restrict__ xbar, const float* __restrict__ dA,
       for (int ni = 0; ni < NI; ++ni)
         load_b<1>(f[ni], Hs + (wd * WD + ni * 8 + g) * LDC + kk + q);
 #pragma unroll
-      for (int n0 = 0; n0 < NI; n0 += FRESH_NJ)
-        mma3_tile<MI, NI, FRESH_NJ>(acc2, a, f, n0);
+      for (int n0 = 0; n0 < NI; n0 += NJ)
+        mma3_tile<MI, NI, NJ>(acc2, a, f, n0);
     }
   }
 
@@ -495,36 +545,44 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int L>
+template <int L, int HD, int NST>
 cudaError_t launch(const float* xbar, const float* dA, const float* b,
                    const float* c, float* y, float* hT, float* cb,
                    float* states, float* dlast, int B, int S, int H,
                    int parts, cudaStream_t s) {
+  using T = Tiles<L, HD, NST>;
+  constexpr size_t sc_smem = Scores<L, HD, NST>::SMEM;
+  constexpr size_t st_smem = States<L, HD, NST>::SMEM;
+  constexpr size_t y_smem = Output<L, HD, NST>::SMEM;
   const int nc = (S + L - 1) / L;
   cudaError_t err;
   if (parts & 1) {
-    if ((err = allow_smem(ssd_scores<L>, sc::SMEM)) != cudaSuccess) return err;
-    ssd_scores<L><<<dim3(L / TI, L / TI, B * nc), THREADS, sc::SMEM, s>>>(
-        b, c, cb, S, nc);
+    if ((err = allow_smem(ssd_scores<L, HD, NST>, sc_smem)) != cudaSuccess)
+      return err;
+    ssd_scores<L, HD, NST>
+        <<<dim3(L / T::TI, L / T::TI, B * nc), THREADS, sc_smem, s>>>(
+            b, c, cb, S, nc);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (parts & 2) {
-    if ((err = allow_smem(ssd_states<L>, st::smem<L>())) != cudaSuccess)
+    if ((err = allow_smem(ssd_states<L, HD, NST>, st_smem)) != cudaSuccess)
       return err;
-    ssd_states<L><<<dim3(H, nc, B), THREADS, st::smem<L>(), s>>>(
+    ssd_states<L, HD, NST><<<dim3(H, nc, B), T::ST_NT, st_smem, s>>>(
         xbar, dA, b, states, dlast, S, H, nc);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (parts & 4) {
-    ssd_state_pass<<<dim3(HD * NST / 4 / THREADS, H, B), THREADS, 0, s>>>(
+    constexpr int blocks = (HD * NST / 4 + THREADS - 1) / THREADS;
+    ssd_state_pass<HD, NST><<<dim3(blocks, H, B), THREADS, 0, s>>>(
         states, dlast, hT, H, nc);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (parts & 8) {
-    if ((err = allow_smem(ssd_output<L>, ys::smem<L>())) != cudaSuccess)
+    if ((err = allow_smem(ssd_output<L, HD, NST>, y_smem)) != cudaSuccess)
       return err;
-    ssd_output<L><<<dim3(H, L / TI, B * nc), ys::NT, ys::smem<L>(), s>>>(
-        xbar, dA, c, cb, states, y, S, H, nc);
+    ssd_output<L, HD, NST>
+        <<<dim3(H, L / T::TI, B * nc), T::Y_NT, y_smem, s>>>(
+            xbar, dA, c, cb, states, y, S, H, nc);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -534,28 +592,31 @@ cudaError_t launch(const float* xbar, const float* dA, const float* b,
 
 extern "C" {
 
-// chunk: 128 or 256; hd: 64; N: 128. Scratch: cb B * ceil(S / chunk) *
-// chunk^2 floats, states B * ceil(S / chunk) * H * hd * N floats, dlast
-// B * ceil(S / chunk) * H floats. Launches the parts whose bit is set (1
-// scores, 2 chunk states, 4 state pass, 8 output; the wrapper passes 15)
-// on `stream` and returns cudaGetLastError() after them (0 = success).
-// Does not synchronise.
+// (chunk, hd, N): (256, 64, 128), (128, 64, 128) or (32, 32, 16). Scratch:
+// cb B * ceil(S / chunk) * chunk^2 floats, states B * ceil(S / chunk) * H *
+// hd * N floats, dlast B * ceil(S / chunk) * H floats. Launches the parts
+// whose bit is set (1 scores, 2 chunk states, 4 state pass, 8 output; the
+// wrapper passes 15) on `stream` and returns cudaGetLastError() after them
+// (0 = success). Does not synchronise.
 int mamba2_ssd_launch(const void* xbar, const void* dA, const void* b,
                       const void* c, void* y, void* hT, void* cb,
                       void* states, void* dlast, int B, int S, int H, int hd,
                       int N, int chunk, int parts, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || H > 65535 || hd != HD || N != NST)
+  if (B <= 0 || S <= 0 || H <= 0 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (chunk == 256)
-    err = launch<256>(f(xbar), f(dA), f(b), f(c), o(y), o(hT), o(cb),
-                      o(states), o(dlast), B, S, H, parts, s);
-  if (chunk == 128)
-    err = launch<128>(f(xbar), f(dA), f(b), f(c), o(y), o(hT), o(cb),
-                      o(states), o(dlast), B, S, H, parts, s);
+  if (chunk == 256 && hd == 64 && N == 128)
+    err = launch<256, 64, 128>(f(xbar), f(dA), f(b), f(c), o(y), o(hT), o(cb),
+                               o(states), o(dlast), B, S, H, parts, s);
+  if (chunk == 128 && hd == 64 && N == 128)
+    err = launch<128, 64, 128>(f(xbar), f(dA), f(b), f(c), o(y), o(hT), o(cb),
+                               o(states), o(dlast), B, S, H, parts, s);
+  if (chunk == 32 && hd == 32 && N == 16)
+    err = launch<32, 32, 16>(f(xbar), f(dA), f(b), f(c), o(y), o(hT), o(cb),
+                             o(states), o(dlast), B, S, H, parts, s);
   return static_cast<int>(err);
 }
 

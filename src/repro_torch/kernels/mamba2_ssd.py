@@ -13,9 +13,11 @@ launches, every product on the tensor cores as 3xTF32 (``mma.sync``):
 (1) the chunks' ``c_i . b_j`` scores, shared by every head; (2) each
 (sequence, chunk, head)'s own state into an (B, nc, H, hd, N) scratch;
 (3) the state recurrence over the chunks in order, elementwise, leaving
-the state that enters each chunk and hT; (4) y per 64-row tile of each
+the state that enters each chunk and hT; (4) y per row tile of each
 (sequence, chunk, head). One call is four CUDA launches; ``LAUNCHES``
-counts calls.
+counts calls. The kernel is compiled for the (chunk, hd, N) of
+``KERNEL_CONFIGS``: mamba2-780m's (256 and 128, 64, 128) and its reduced
+config's (32, 32, 16); any other combination raises on the card.
 
 ``mamba2_ssd`` takes xbar (B, S, H, hd), dA (B, S, H), b and c
 (B, S, N), all f32 (the model forms dA and xbar in f32 and widens b and
@@ -34,11 +36,12 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-# What the kernel is compiled for: chunk lengths, state sizes and head
-# dims (one block covers a whole head's hd).
-KERNEL_CHUNKS = (128, 256)
-KERNEL_STATE_DIMS = (128,)
-KERNEL_HEAD_DIMS = (64,)
+# What the kernel is compiled for: (chunk, hd, N) combinations (one block
+# covers a whole head's hd), and the values each dimension takes in them.
+KERNEL_CONFIGS = ((256, 64, 128), (128, 64, 128), (32, 32, 16))
+KERNEL_CHUNKS = tuple(sorted({c for c, _, _ in KERNEL_CONFIGS}))
+KERNEL_HEAD_DIMS = tuple(sorted({hd for _, hd, _ in KERNEL_CONFIGS}))
+KERNEL_STATE_DIMS = tuple(sorted({n for _, _, n in KERNEL_CONFIGS}))
 # The launch bits of mamba2_ssd_launch: scores, chunk states, state pass,
 # output.
 SCORES, STATES, STATE_PASS, OUTPUT = 1, 2, 4, 8
@@ -134,6 +137,21 @@ def _check(xbar, dA, b, c):
     return B, S, H, hd, N
 
 
+def _check_compiled(chunk, hd, N):
+    """Raises unless the kernel is compiled for this (chunk, hd, N): the
+    combination is checked, not each dimension on its own."""
+    if (chunk, hd, N) in KERNEL_CONFIGS:
+        return
+    by_size = {}
+    for c, h, n in KERNEL_CONFIGS:
+        by_size.setdefault((h, n), []).append(c)
+    takes = "; or ".join(f"chunk in {tuple(sorted(cs))} with hd in {(h,)} "
+                         f"and N in {(n,)}"
+                         for (h, n), cs in by_size.items())
+    raise ValueError(f"mamba2_ssd's kernel takes {takes}; got chunk={chunk}, "
+                     f"hd={hd}, N={N}")
+
+
 def _launch(xbar, dA, b, c, chunk, parts=SCORES | STATES | STATE_PASS
             | OUTPUT):
     """Launches the kernel's parts named by the bits of ``parts`` on CUDA
@@ -141,13 +159,7 @@ def _launch(xbar, dA, b, c, chunk, parts=SCORES | STATES | STATE_PASS
     make the outputs: a single part is launched to time it."""
     B, S, H, hd = xbar.shape
     N = b.shape[-1]
-    if chunk not in KERNEL_CHUNKS:
-        raise ValueError(f"mamba2_ssd's kernel takes chunk in "
-                         f"{KERNEL_CHUNKS}, got {chunk}")
-    if N not in KERNEL_STATE_DIMS or hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"mamba2_ssd's kernel takes N in "
-                         f"{KERNEL_STATE_DIMS} and hd in {KERNEL_HEAD_DIMS}; "
-                         f"got N={N}, hd={hd}")
+    _check_compiled(chunk, hd, N)
     if not all(t.is_contiguous() for t in (xbar, dA, b, c)):
         raise ValueError("mamba2_ssd's kernel takes contiguous operands")
     if B * S * H == 0:

@@ -8,10 +8,10 @@ runs the reduced config on the card (``--full`` for the published
 widths and depth, ``--device cpu`` for the plain path on the CPU). The
 prefill goes through the hand-written attention and SSD kernels
 (``kernels/csrc/flash_attention.cu``, ``kernels/csrc/mamba2_ssd.cu``);
-decode is plain torch. The reduced mamba2 config (N 16, chunk 32) is
-outside the sizes the SSD kernel is compiled for and raises on the
-card: run it with ``--full`` there, or on the CPU. ``--mode ff`` (train-while-serve through
-``api.serve``) waits for the CLI slice (``ROADMAP.md`` §1 item 9).
+decode is plain torch. The SSD kernel is compiled for both the reduced
+mamba2 config (N 16, hd 32, chunk 32) and the full one. ``--mode ff``
+(train-while-serve through ``api.serve``) waits for the train-while-serve
+slice (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 
@@ -116,7 +116,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mode == "ff":
         ap.error("--mode ff (train-while-serve) is not ported yet; it "
-                 "waits for the CLI slice (ROADMAP.md §1 item 9)")
+                 "waits for the train-while-serve slice (ROADMAP.md §1)")
     if args.arch is None:
         ap.error("--mode lm requires --arch")
     return _main_lm(args)

@@ -136,11 +136,14 @@ def test_simulate_backend_and_facade(task):
                       2)
 
 
-@pytest.mark.parametrize("backend,slice_name", [("executor", "executor"),
-                                                ("pod", "pod")])
-def test_unported_backends_name_their_slice(backend, slice_name, task):
+# The executor backend is ported; what it still lacks, train-while-serve
+# (fit(serve=...)), names its slice under the executor's id.
+@pytest.mark.parametrize("backend,kw,slice_name", [
+    ("executor", {"serve": tapi.ServeConfig()}, "train-while-serve"),
+    ("pod", {}, "pod")], ids=["executor-executor", "pod-pod"])
+def test_unported_backends_name_their_slice(backend, kw, slice_name, task):
     with pytest.raises(NotImplementedError, match=f"the {slice_name} slice"):
-        tapi.fit(TConfig(**BASE), task, backend=backend, device="cpu")
+        tapi.fit(TConfig(**BASE), task, backend=backend, device="cpu", **kw)
 
 
 def test_fit_validates_its_config(task):

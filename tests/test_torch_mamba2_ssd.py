@@ -284,8 +284,10 @@ def test_chunk_cumsum_order_matches_a_sequential_sum():
 ])
 def test_kernel_launch_refuses_what_the_kernel_does_not_take(case, match):
     """The launch's own checks run before the library is built, so they
-    hold on any device: the kernel is compiled for chunk 128/256, hd 64
-    and N 128 only."""
+    hold on any device: the kernel is compiled for (chunk, hd, N) in
+    ``KERNEL_CONFIGS`` only, each combination as a whole (hd 32 at chunk
+    128, or N 16 at chunk 128, is refused though both appear at chunk
+    32)."""
     x, dA = torch.ones(1, 8, 2, 64), torch.ones(1, 8, 2)
     b = torch.ones(1, 8, 128)
     args, chunk = {
@@ -296,3 +298,34 @@ def test_kernel_launch_refuses_what_the_kernel_does_not_take(case, match):
     }[case]
     with pytest.raises(ValueError, match=match):
         kernel._launch(*args, chunk)
+
+
+# the reduced mamba2-780m config's sizes (chunk 32, hd 32, N 16), ragged S
+@pytest.mark.parametrize("B,S,H", [(2, 200, 16), (1, 45, 3), (1, 96, 4)])
+def test_chunk_parallel_3xtf32_arithmetic_at_the_reduced_sizes(B, S, H,
+                                                               request):
+    """The kernel's arithmetic at the (32, 32, 16) instantiation, against
+    the sequential oracle and, where S is a whole number of chunks (the
+    Pallas kernel takes no other), the Pallas kernel: the same algebra at
+    32-row tiles, which the kernel takes for a chunk of 32."""
+    jx, tx = _mild_inputs(B, S, H, 32, 16, seed=8)
+    ye, he = _ssd_chunk_parallel_emulation(*tx, 32)
+    wants = [jref.mamba2_ssd_ref(*jx)]
+    if S % 32 == 0:
+        wants.append(pallas_ssd(*jx, chunk=32))
+    for y, hT in wants:
+        _assert_scaled(ye, y)
+        _assert_scaled(he, hT)
+    y1, _ = _ssd_chunk_parallel_emulation(*tx, 32, products=1)
+    _record(request, "y", ye, jref.mamba2_ssd_ref(*jx)[0], y1)
+
+
+@pytest.mark.parametrize("chunk,hd,N", kernel.KERNEL_CONFIGS)
+def test_kernel_takes_each_compiled_combination(chunk, hd, N):
+    """Every compiled (chunk, hd, N) passes the launch's size check, and
+    the reduced mamba2-780m config is one of them."""
+    kernel._check_compiled(chunk, hd, N)
+    from repro_torch.configs import get_config
+    ssm_cfg = get_config("mamba2-780m").reduced().ssm
+    assert (ssm_cfg.chunk, ssm_cfg.head_dim, ssm_cfg.state_dim) in \
+        kernel.KERNEL_CONFIGS
