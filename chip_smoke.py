@@ -50,11 +50,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
     a fit through the plain path must reach a test accuracy within 0.05.
 12. Attention kernel against its plain version: ``flash_attention`` at
     the qwen2-0.5b prefill shape (bf16, f32), a ragged S with a window,
-    G = 1 at hd 128, Sq != Sk non-causal, and rows that see no key; a
-    second call must give bit-identical outputs.
+    G = 1 at hd 128, Sq != Sk non-causal, rows that see no key, and the
+    LM-training shapes (4, 8 and 16 rows of 256); a second call must give
+    bit-identical outputs.
 13. SSD kernel against its plain version: ``mamba2_ssd`` at the
-    mamba2-780m prefill shape (strong and mild decay), a ragged S and
-    chunk 128; a second call at the prefill shape must give
+    mamba2-780m prefill shape (strong and mild decay), a ragged S,
+    chunk 128, and the LM-training shapes (4, 8 and 16 rows of S = chunk
+    = 256: one chunk); a second call at the prefill shape must give
     bit-identical outputs.
 14. Timing of both (CUDA events, L2 flushed) beside the plain versions,
     the bound and, for attention, ``F.scaled_dot_product_attention``;
@@ -81,9 +83,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
     reassigned, chapter checkpoints written and resumed from, all
     bit-identical; a kill-then-resume pair through
     ``python -m repro_torch.core.pff_exec --device cuda``.
-19. Isolation: no ``jax`` and no ``repro`` module was loaded.
+19. Train-while-serve: ``api.serve`` without ``params=`` trains the
+    phase-17 cell (all_layers, 4 streams) on a ``pff-train`` thread and
+    serves uniform traffic at 2000 req/s from its bus on a stream of its
+    own meanwhile: 0 consistency violations, swap versions [-1, 0, 1, 2,
+    3], >= 128 requests at the final version, params bit-identical to
+    phase 17's all_layers run; the final version's served predictions
+    equal to a replica's re-scoring and to the plain path's argmax where
+    the top-2 margin exceeds twice the kernel-vs-plain score error; the
+    served model's test accuracy above the untrained model's (the
+    served windows' accuracy by version printed); kernel calls counted
+    per thread.
+20. Repair: the attention and SSD kernels refuse inputs that need a
+    gradient and launch under no_grad; ``impl="ref"`` gives the grads of
+    wq/wk/wv and A_log/dt_bias/in_proj.
+21. LM chapter training of qwen2-0.5b at full width and depth (bf16, 2
+    chapters x 2 steps, batch 4, seq 256 of the BPE text source):
+    sequential, the executor's all_layers and single_layer on 4 streams
+    (bit-identical, equal eval CE), the plain route; 1224 attention
+    kernel calls per kernel-routed fit, 0 plain; eval CE below the
+    untrained model's and within 5e-2 of the plain-routed fit's; the
+    sequential fit's params scored through the kernels and the plain
+    route within 1e-3, below a control (the last block's mixer
+    dropped). Two joint-FF
+    steps and one AdaptiveNEG step (24 kernel calls in its no-grad
+    forward).
+22. The same for mamba2-780m (1 chapter, sequential and plain): 2400
+    SSD kernel calls, and the same eval CE gates.
+23. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
-Phases 17-18 run under ``torch.use_deterministic_algorithms(True)`` with
+Phases 17-19 and 21's fits run under
+``torch.use_deterministic_algorithms(True)`` with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before CUDA starts.
 
 The second-to-last line is the kernels JSON; the last line is
@@ -156,15 +186,23 @@ FA_BF16_REL, FA_BF16_ABS = 2.0 ** -7, 1e-4
 SSD_TOL = 2e-4
 # (B, Sq, Sk, H, KV, hd, causal, window): the qwen2-0.5b prefill first
 QWEN_ATTN = (4, 2048, 2048, 14, 2, 64, True, None)
+# LM chapter training (phases 21-22) at seq 256 calls the kernels on the
+# head task's 4 rows, the frozen prefixes' 8 (positives and negatives)
+# and eval's 16
+LM_TRAIN_ROWS = (4, 8, 16)
 FA_CHECKS = [QWEN_ATTN, (2, 333, 333, 14, 2, 64, True, 128),
              (2, 512, 512, 4, 4, 128, True, None),
              (2, 300, 700, 8, 2, 64, False, None),
-             (1, 90, 40, 2, 1, 128, False, 16)]
+             (1, 90, 40, 2, 1, 128, False, 16)] + [
+    (B, 256, 256, 14, 2, 64, True, None) for B in LM_TRAIN_ROWS]
 # (B, S, H, hd, N, chunk, decay): the mamba2-780m prefill first
 MAMBA_SSD = (4, 2048, 48, 64, 128, 256)
 SSD_CHECKS = [MAMBA_SSD + ("strong",), MAMBA_SSD + ("mild",),
               (2, 1000, 48, 64, 128, 256, "mild"),
-              (2, 1024, 48, 64, 128, 128, "mild")]
+              (2, 1024, 48, 64, 128, 128, "mild")] + [
+    # LM training: S = chunk = 256, one chunk
+    (B, 256, 48, 64, 128, 256, decay) for B in LM_TRAIN_ROWS
+    for decay in ("strong", "mild")]
 # The reduced mamba2-780m config's SSD sizes (chunk 32, hd 32, N 16; its
 # H 16), with a ragged S; and its LM serving: batch, prompt, tokens
 REDUCED_SSD = (2, 200, 16, 32, 16, 32)
@@ -192,6 +230,32 @@ LM_CALLS = {"qwen2-0.5b": ("flash_attention", 24),
 # where the plain path's top-2 margin exceeds F32_MARGIN
 LM_BF16_TOL = 5e-2
 F32_MARGIN = 1e-3
+# Train-while-serve (phase 19): the phase-17 cell served meanwhile at the
+# phase-6 traffic (uniform, 2000 req/s, batches of 64), final_probe
+# requests at the final weights
+TWS_RATE, TWS_PROBE = 2000.0, 128
+# LM chapter training (phases 21-22): batch, sequence and steps per
+# chapter; qwen2-0.5b runs 2 chapters (sequential, the executor's
+# all_layers and single_layer on 4 streams, the plain route), mamba2-780m
+# 1 (sequential, plain route)
+LM_TRAIN_BATCH, LM_SEQ, LM_STEPS = 4, 256, 2
+LM_CHAPTERS = {"qwen2-0.5b": 2, "mamba2-780m": 1}
+# eval CE (mean over 16 x 256 val positions) of the kernel-routed fit
+# against the plain-routed fit: two different trained models (the bf16
+# forwards differ by ~1 bf16 step per element, phase 15, and training
+# inherits that through the frozen prefixes), held to 5e-2 absolute
+LM_CE_TOL = 5e-2
+# The kernels' gate on this path: the sequential fit's params scored both
+# ways, |eval CE through the kernels - through the plain route|. The
+# limit sits between that reading and a control: the plain route's CE of
+# the same params with the last block's mixer dropped (its output
+# projection, attention wo or SSD out_proj, zeroed), as if one kernel
+# call had returned zeros. A second control, every mixer output scaled
+# by 1 + 2^-6, is printed, not gated: the mamba2 stack is nearly
+# invariant to it (its RMSNorms absorb the scale). PERF.md gives the
+# readings.
+LM_SAME_CE_TOL = 1e-3
+LM_CE_SCALE = 1 + 2.0 ** -6
 
 
 def check(cond, msg):
@@ -464,7 +528,7 @@ def phase_reduced_ssd(gen, data):
     the reduced config on the card with the kernel's calls counted.
     Returns the kernels-line row."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import counts, flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.launch.serve import lm_decode
     from repro_torch.models import transformer
@@ -503,16 +567,17 @@ def phase_reduced_ssd(gen, data):
     batch, prompt, n_gen = REDUCED_LM
     params = transformer.init(
         torch.Generator(device="cuda").manual_seed(0), cfg)
-    fa.LAUNCHES = ssd.LAUNCHES = 0
+    counts.reset(fa, ssd)
     res = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen, seed=0,
                     params=params)
-    launches = ssd.LAUNCHES
-    check(launches == calls and fa.LAUNCHES == 0,
+    launches = ssd.LAUNCHES.total
+    check(launches == calls and fa.LAUNCHES.total == 0,
           f"reduced mamba2 lm_decode made {launches} SSD kernel calls, "
           f"expected {calls}")
     res_ref = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen,
                         seed=0, params=params, impl="ref")
-    check(ssd.LAUNCHES == launches, "impl='ref' launched the SSD kernel")
+    check(ssd.LAUNCHES.total == launches,
+          "impl='ref' launched the SSD kernel")
     gk = res["generated"]
     check(gk.shape == (batch, n_gen) and bool(
         ((gk >= 0) & (gk < cfg.vocab)).all()),
@@ -552,8 +617,10 @@ def phase_executor(api, data, base_cfg, kernel, vjp):
     """17. The PFF executor at full width, on 4 CUDA streams of the card,
     against the sequential and federated trainers bit for bit; 18. its
     resilience. Returns the executor's main run's (ff_dense,
-    ff_dense_bwd) calls. Runs under torch.use_deterministic_algorithms."""
+    ff_dense_bwd) calls and its all_layers ``FitResult``. Runs under
+    torch.use_deterministic_algorithms."""
     from repro_torch.core import faults, pff, pff_exec
+    from repro_torch.kernels import counts
     from repro_torch.obs import analyze, trace as obs_trace
 
     cfg = dataclasses.replace(base_cfg, epochs=EXEC_EPOCHS,
@@ -564,11 +631,11 @@ def phase_executor(api, data, base_cfg, kernel, vjp):
                   * -(-FIT_TRAIN // cfg.batch_size))
 
     def counted(**kw):
-        kernel.LAUNCHES = vjp.LAUNCHES = 0
+        counts.reset(kernel, vjp)
         t0 = time.perf_counter()
         res = api.fit(cfg, task, **kw)
         wall = time.perf_counter() - t0
-        return res, wall, (kernel.LAUNCHES, vjp.LAUNCHES)
+        return res, wall, (kernel.LAUNCHES.total, vjp.LAUNCHES.total)
 
     def same(a, b, what):
         check(pff_exec.params_bit_equal(a.params, b.params),
@@ -604,6 +671,8 @@ def phase_executor(api, data, base_cfg, kernel, vjp):
               f"+{extra_fwd} forward recompute)")
         out[label] = {"fit_s": wall, "makespan_s": res.makespan,
                       "calls": calls, "handoff": res.raw.handoff}
+        if label == "all_layers":
+            exec_main = res
         print(f"[17 executor] {label} on {EXEC_NODES} streams: bit-identical "
               f"to the sequential fit; makespan {res.makespan:.4f} s (fit "
               f"{wall:.4f} s), kernel calls {calls}; hand-off "
@@ -735,7 +804,384 @@ def phase_executor(api, data, base_cfg, kernel, vjp):
           f"{killed.returncode}); resumed: "
           + " | ".join(resumed.stdout.strip().splitlines()))
     print(json.dumps({"executor": out}))
-    return out["all_layers"]["calls"]
+    return out["all_layers"]["calls"], exec_main
+
+
+def phase_repair(dev="cuda"):
+    """20. The attention and SSD kernels refuse inputs that need a
+    gradient (their results have no grad_fn), launch under no_grad, and
+    the plain route (impl="ref") gives the block's grads."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 64, *hk, 64, generator=gen).to(
+        dev, torch.bfloat16) for hk in ((4,), (2,), (2,)))
+    xs = [torch.randn(2, 64, 16, 32, generator=gen),
+          -torch.rand(2, 64, 16, generator=gen),
+          torch.randn(2, 64, 16, generator=gen),
+          torch.randn(2, 64, 16, generator=gen)]
+    xs = [t.to(dev) for t in xs]
+    for name, call, operands in (
+            ("flash_attention", lambda: ops.flash_attention(q, k, v),
+             (q, k, v)),
+            ("mamba2_ssd", lambda: ops.mamba2_ssd(*xs, chunk=32), xs)):
+        operands[0].requires_grad_()
+        try:
+            call()
+        except RuntimeError as e:
+            check('impl="ref"' in str(e), f"{name}: refusal does not name "
+                  f"the plain route: {e}")
+        else:
+            raise RuntimeError(f"chip_smoke: {name} launched on an input "
+                               f"that requires grad")
+        with torch.no_grad():
+            out = call()
+        check(all(not t.requires_grad
+                  for t in (out if isinstance(out, tuple) else (out,))),
+              f"{name} under no_grad")
+        operands[0].requires_grad_(False)
+    found = {}
+    for name, sub, leaves in (("qwen2-0.5b", "attn", ("wq", "wk", "wv")),
+                              ("mamba2-780m", "ssm", ("A_log", "dt_bias",
+                                                      "in_proj"))):
+        cfg = get_config(name).reduced()
+        kind = cfg.groups[0][0][0]
+        p = blocks.block_init(torch.Generator(device=dev).manual_seed(0),
+                              cfg, kind)
+        for n in leaves:
+            p[sub][n].requires_grad_()
+        x = torch.randn(2, 64, cfg.d_model, device=dev)
+        try:
+            blocks.block_apply(p, cfg, kind, x, {"impl": "auto"})
+        except RuntimeError as e:
+            check('impl="ref"' in str(e), f"{name}: {e}")
+        else:
+            raise RuntimeError(f"chip_smoke: {name} block_apply through the "
+                               f"kernel under autograd did not refuse")
+        y, _ = blocks.block_apply(p, cfg, kind, x, {"impl": "ref"})
+        gs = torch.autograd.grad(torch.sum(torch.square(y - x)),
+                                 [p[sub][n] for n in leaves])
+        for n, g in zip(leaves, gs):
+            found[f"{name}.{n}"] = float(g.abs().max())
+            check(bool(torch.isfinite(g).all()) and found[f"{name}.{n}"] > 0,
+                  f"{name}: no gradient for {n} through impl='ref'")
+    print(f"[20 repair] flash_attention and mamba2_ssd refuse inputs that "
+          f"require grad (naming impl=\"ref\"), launch under no_grad; "
+          f"block_apply through the kernel under autograd refuses; "
+          f"impl='ref' gives max|grad| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in found.items()))
+
+
+def phase_train_while_serve(api, data, base_cfg, kernel, vjp, exec_main,
+                            exec_calls, dev="cuda"):
+    """19. Train-while-serve at full width: the phase-17 executor cell
+    (all_layers on 4 streams) on a ``pff-train`` thread, publishing each
+    trained layer into the replica this thread serves from. Returns the
+    (ff_dense, ff_dense_bwd) calls of its run, both threads."""
+    from repro_torch.core import ff_mlp, pff_exec, strategies
+    from repro_torch.core.rng import TorchKey
+    from repro_torch.kernels import counts
+    from repro_torch.serve.replica import Replica
+
+    cfg = dataclasses.replace(base_cfg, epochs=EXEC_EPOCHS,
+                              splits=EXEC_SPLITS)
+    task = data.mnist_like(seed=0, n_train=FIT_TRAIN, n_test=FIT_TEST)
+    n_layers = len(cfg.layer_sizes) - 1
+    counts.reset(kernel, vjp)
+    t0 = time.perf_counter()
+    res = api.serve(cfg, task, schedule="all_layers", num_nodes=EXEC_NODES,
+                    traffic="uniform", rate=TWS_RATE, max_batch=64,
+                    final_probe=TWS_PROBE, device=dev)
+    wall = time.perf_counter() - t0
+    launches = (kernel.LAUNCHES.total, vjp.LAUNCHES.total)
+    fwd = kernel.LAUNCHES.by_thread
+    bwd = vjp.LAUNCHES.by_thread
+    slo = res.slo
+    versions = [s["version"] for s in res.swaps]
+    final = [r for r in res.raw.requests if r.version == cfg.splits - 1]
+    batches = res.raw.batches_scored
+    print(f"[19 train-while-serve] all_layers on {EXEC_NODES} streams + the "
+          f"serving stream: {slo['requests']} requests at "
+          f"{slo['throughput_rps']:.2f} req/s ({TWS_RATE} offered), p50 "
+          f"{slo['latency_p50_ms']:.4f} ms, p99 {slo['latency_p99_ms']:.4f} "
+          f"ms, shed rate {slo['shed_rate']:.4f}, staleness mean "
+          f"{slo['staleness_mean_s']:.6f} s max {slo['staleness_max_s']:.6f}"
+          f" s, {batches} batches; swaps {versions}, violations "
+          f"{slo['consistency_violations']}; train_s "
+          f"{res.timings['train_s']:.4f} (makespan {res.fit.makespan:.4f} s"
+          f") vs phase 17's all_layers makespan {exec_main.makespan:.4f} s;"
+          f" wall {wall:.4f} s; ff_dense calls by thread {fwd}, "
+          f"ff_dense_bwd {bwd}")
+    check(slo["consistency_violations"] == 0,
+          f"train-while-serve: {slo['consistency_violations']} violations")
+    check(versions == list(range(-1, cfg.splits)),
+          f"train-while-serve: swap versions {versions}")
+    check(len(final) >= TWS_PROBE, f"train-while-serve: {len(final)} "
+          f"requests served at the final version, < {TWS_PROBE}")
+    check(pff_exec.params_bit_equal(exec_main.params, res.fit.params)
+          and res.fit.test_acc == exec_main.test_acc,
+          "train-while-serve: the trained params differ from phase 17's "
+          "all_layers run (publication must be read-only)")
+    # the final version's served predictions: re-scored through a
+    # replica on those params (batches padded to max_batch, as served, so
+    # each row meets the same kernel shapes) they come out the same; and
+    # against the plain path's class scores, on the rows whose top-2
+    # margin exceeds twice the largest kernel-vs-plain score difference
+    # (where the two cannot disagree)
+    good = strategies.goodness.get(cfg.goodness_fn)
+    replica = Replica(cfg.num_classes, max_batch=64,
+                      eval_mode=good.eval_mode(cfg))
+    replica.install(0, res.fit.params, [0], time.perf_counter())
+    xs = np.stack([r.x for r in final])
+    served = torch.as_tensor(np.concatenate(
+        [replica.score(xs[i:i + 64]) for i in range(0, len(xs), 64)]))
+    with torch.no_grad():
+        scores = ff_mlp.class_scores(
+            res.fit.params, torch.as_tensor(xs, device=dev),
+            cfg.num_classes, good.eval_mode(cfg), impl="ref").cpu()
+    pred = torch.tensor([r.pred for r in final])
+    err = float((served - scores).abs().max())
+    margin = top2_margin(scores)
+    decided = margin > 2 * err
+    same = pred == scores.argmax(1)
+    q = torch.quantile(margin, torch.tensor([0.0, 0.5, 1.0])).tolist()
+    print(f"[19 train-while-serve] final version ({len(final)} requests): "
+          f"re-scored through the replica, predictions equal the served "
+          f"ones: {bool(torch.equal(served.argmax(1).int(), pred.int()))};"
+          f" scores kernel vs plain max|diff| {err:.3e} (max|score| "
+          f"{float(scores.abs().max()):.4f}); served equal the plain "
+          f"path's argmax on {int(same[decided].sum())}/"
+          f"{int(decided.sum())} rows with top-2 margin > 2 x that, on "
+          f"{int(same.sum())}/{len(final)} in all; margins min/median/max "
+          f"{q}, {int((margin > F32_MARGIN).sum())} above {F32_MARGIN}")
+    check(torch.equal(served.argmax(1).int(), pred.int()),
+          "train-while-serve: re-scored predictions differ from the served")
+    check(int(decided.sum()) > 0 and bool(same[decided].all()),
+          "train-while-serve: no decided row, or served predictions differ "
+          "from the plain path on decided rows")
+    # serving accuracy across the swaps: the served windows by version
+    # (a few hundred requests each, so printed, not gated), and the
+    # served model's test accuracy against the untrained model's (the
+    # version -1 snapshot) on the same 1000 test rows, gated
+    untrained = ff_mlp.init(cfg, TorchKey(cfg.seed), dev)
+    acc0 = ff_mlp.accuracy(untrained, task.x_test, task.y_test,
+                           cfg.num_classes, good.eval_mode(cfg),
+                           impl=ff_mlp.kernel_impl(cfg))
+    curve = res.accuracy_by_version
+    print(f"[19 train-while-serve] served accuracy by version (requests): "
+          + ", ".join(f"{v}: {r['accuracy']:.4f} ({r['n']})"
+                      for v, r in curve.items())
+          + f"; test accuracy final {res.fit.test_acc:.4f} vs untrained "
+          f"{acc0:.4f}")
+    check(res.fit.test_acc > acc0, f"train-while-serve: the served model's "
+          f"test accuracy {res.fit.test_acc} is not above the untrained "
+          f"model's {acc0}")
+    # the backward kernel launches on autograd's device thread, which
+    # runs the training thread's backward passes
+    check(fwd.get("pff-train") == exec_calls[0]
+          and sum(bwd.values()) == exec_calls[1],
+          f"training: calls ({fwd.get('pff-train')}, {bwd}), phase 17's "
+          f"all_layers run {exec_calls}")
+    print(json.dumps({"train_while_serve": {
+        "slo": slo, "train_s": res.timings["train_s"],
+        "serve_s": res.timings["serve_s"], "makespan_s": res.fit.makespan,
+        "exec_makespan_s": exec_main.makespan, "batches": batches,
+        "accuracy_by_version": curve, "test_acc": res.fit.test_acc,
+        "untrained_test_acc": acc0,
+        "ff_dense_calls": fwd, "ff_dense_bwd_calls": bwd}}))
+    return launches
+
+
+def mixer_out(params, factor, block=None):
+    """``params`` with the mixer output projection (attention ``wo``, SSD
+    ``out_proj``) of every block, or of ``block`` alone, scaled by
+    ``factor``; the rest shared."""
+    (blk,), = params["groups"]
+    key, leaf = ("attn", "wo") if "attn" in blk else ("ssm", "out_proj")
+    w = blk[key][leaf]
+    if block is None:
+        w = w * factor
+    else:
+        w = w.clone()
+        w[block] *= factor
+    blk = {**blk, key: {**blk[key], leaf: w}}
+    return {**params, "groups": ((blk,),)}
+
+
+def lm_fit(api, cfg, source, counter, **kw):
+    """One counted LM fit: (FitResult, kernel calls, wall s)."""
+    from repro_torch.kernels import counts
+
+    counts.reset(counter)
+    t0 = time.perf_counter()
+    res = api.fit(cfg, source, **kw)
+    torch.cuda.synchronize()
+    return res, counter.LAUNCHES.total, time.perf_counter() - t0
+
+
+def phase_lm_train(api, data, name, *, chapters, executor, dev="cuda"):
+    """21-22. LM chapter training at full width and depth (bf16): the
+    sequential fit through the kernels (no-grad forwards) and through the
+    plain route; for qwen2-0.5b also the executor (all_layers,
+    single_layer on 4 streams, bit-identical to the sequential fit).
+    Returns the main run's (the sequential fit's) kernel calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import pff_lm, train
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+
+    cfg = get_config(name)
+    counter = fa if cfg.groups[0][0][0] == "attn" else ssd
+    n_blocks = cfg.groups[0][1]
+    C, s = chapters, LM_STEPS
+    calls = C * s * (sum(range(n_blocks)) + n_blocks) + n_blocks
+    phase = 21 if counter is fa else 22
+    tag = f"[{phase} lm-train] {name}"
+    source = data.text_source(vocab=cfg.vocab, seq_len=LM_SEQ, seed=0)
+    kw = dict(chapters=C, steps_per_chapter=s, batch=LM_TRAIN_BATCH,
+              device=dev)
+    ev = torch.as_tensor(source.blocks("val", 16, seed=321), device=dev)
+    init_ce = float(train.eval_ce(pff_lm.init_params(cfg, 0, dev), cfg, ev))
+    seq, seq_calls, seq_s = lm_fit(api, cfg, source, counter, **kw)
+    check(seq_calls == calls, f"{name}: sequential fit made {seq_calls} "
+          f"{counter.__name__.split('.')[-1]} kernel calls, expected {calls}")
+    check(np.isfinite(seq.eval_ce) and seq.eval_ce < init_ce,
+          f"{name}: eval CE {seq.eval_ce} not finite or not below the "
+          f"untrained model's {init_ce}")
+    out = {"sequential": {"wall_s": seq_s, "makespan_s": seq.makespan,
+                          "calls": seq_calls, "eval_ce": seq.eval_ce},
+           "init_eval_ce": init_ce}
+    print(f"{tag} bf16, {C} chapters x {s} steps, batch {LM_TRAIN_BATCH}, "
+          f"seq {LM_SEQ}: sequential fit {seq_s:.4f} s (makespan "
+          f"{seq.makespan:.4f} s), {seq_calls} kernel calls (expected "
+          f"{calls}); eval CE {seq.eval_ce:.6f} vs untrained {init_ce:.6f}")
+    # the same params both ways, and the controls
+    ce_kernel = float(train.eval_ce(seq.params, cfg, ev))
+    ce_plain = float(train.eval_ce(seq.params, cfg, ev, impl="ref"))
+    ce_drop = float(train.eval_ce(mixer_out(seq.params, 0.0, n_blocks - 1),
+                                  cfg, ev, impl="ref"))
+    ce_scale = float(train.eval_ce(mixer_out(seq.params, LM_CE_SCALE), cfg,
+                                   ev, impl="ref"))
+    sound, control = abs(ce_kernel - ce_plain), abs(ce_drop - ce_plain)
+    out["same_params"] = {"eval_ce_kernel": ce_kernel,
+                          "eval_ce_plain": ce_plain,
+                          "eval_ce_last_mixer_dropped": ce_drop,
+                          "eval_ce_mixers_scaled": ce_scale,
+                          "kernel_vs_plain": sound,
+                          "control_vs_plain": control,
+                          "limit": LM_SAME_CE_TOL}
+    print(f"{tag} the fit's params scored both ways: eval CE through the "
+          f"kernels {ce_kernel:.6f}, plain route {ce_plain:.6f}, |diff| "
+          f"{sound:.3e} (<= {LM_SAME_CE_TOL}); control, the last block's "
+          f"mixer dropped: {ce_drop:.6f}, |diff| {control:.3e} (> "
+          f"{LM_SAME_CE_TOL}); every mixer output x {LM_CE_SCALE}: "
+          f"{ce_scale:.6f}, |diff| {abs(ce_scale - ce_plain):.3e}")
+    check(ce_kernel == seq.eval_ce, f"{name}: eval CE of the fit's params "
+          f"{ce_kernel} differs from the fit's own {seq.eval_ce}")
+    check(sound <= LM_SAME_CE_TOL < control, f"{name}: eval CE through the "
+          f"kernels vs the plain route on the same params {sound}, the "
+          f"control {control}, limit {LM_SAME_CE_TOL}")
+    if executor:
+        sim = api.simulate(seq, "all_layers", EXEC_NODES)
+        sim_sl = api.simulate(seq, "single_layer", EXEC_NODES)
+        for sched in ("all_layers", "single_layer"):
+            res, n, wall = lm_fit(api, cfg, source, counter,
+                                  backend="executor", schedule=sched,
+                                  num_nodes=EXEC_NODES, **kw)
+            check(pff_lm.lm_params_bit_equal(seq.params, res.params)
+                  and res.eval_ce == seq.eval_ce,
+                  f"{name} executor {sched}: params or eval CE differ from "
+                  f"the sequential fit's")
+            check(n == calls, f"{name} executor {sched}: {n} kernel calls, "
+                  f"expected {calls}")
+            out[sched] = {"wall_s": wall, "makespan_s": res.makespan,
+                          "calls": n, "handoff": res.raw.handoff}
+            print(f"{tag} executor {sched} on {EXEC_NODES} streams: "
+                  f"bit-identical to the sequential fit (eval CE equal); "
+                  f"makespan {res.makespan:.4f} s (fit {wall:.4f} s), "
+                  f"{n} kernel calls; hand-off {res.raw.handoff}")
+            del res
+        out["sim"] = {"all_layers_s": sim.makespan,
+                      "all_layers_speedup": sim.speedup,
+                      "single_layer_s": sim_sl.makespan,
+                      "single_layer_speedup": sim_sl.speedup}
+        print(f"{tag} the simulator on the sequential fit's task times "
+              f"predicts all_layers {sim.makespan:.4f} s (speedup "
+              f"{sim.speedup:.4f}), single_layer {sim_sl.makespan:.4f} s "
+              f"(speedup {sim_sl.speedup:.4f}) on {EXEC_NODES} nodes")
+    plain, plain_calls, plain_s = lm_fit(api, cfg, source, counter,
+                                         impl="ref", **kw)
+    diff = abs(plain.eval_ce - seq.eval_ce)
+    out["plain"] = {"wall_s": plain_s, "makespan_s": plain.makespan,
+                    "calls": plain_calls, "eval_ce": plain.eval_ce}
+    print(f"{tag} plain route throughout: fit {plain_s:.4f} s (makespan "
+          f"{plain.makespan:.4f} s), {plain_calls} kernel calls; eval CE "
+          f"{plain.eval_ce:.6f}, |kernel - plain| {diff:.3e} "
+          f"(<= {LM_CE_TOL})")
+    check(plain_calls == 0, f"{name}: the plain route launched a kernel")
+    check(np.isfinite(plain.eval_ce) and plain.eval_ce < init_ce,
+          f"{name}: plain-route eval CE {plain.eval_ce}")
+    check(diff <= LM_CE_TOL, f"{name}: eval CE kernel route vs plain route "
+          f"{diff} > {LM_CE_TOL}")
+    del plain
+    print(json.dumps({"lm_train": name, **out}))
+    return seq_calls
+
+
+def joint_ff_steps(data, name, dev="cuda"):
+    """21. Two joint-FF steps (sumsq, random negatives) and one adaptive
+    step at the full config: losses finite, params moved, and the
+    adaptive step's no-grad forward through the attention kernel."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.core import pff_lm, train
+    from repro_torch.kernels import counts, flash_attention as counter
+
+    cfg = get_config(name)
+    n_blocks = cfg.groups[0][1]
+    source = data.text_source(vocab=cfg.vocab, seq_len=LM_SEQ, seed=0)
+    out = {}
+    blk = source.blocks("train", 2 * LM_TRAIN_BATCH, seed=7)
+    for mode, steps in (("random", 2), ("adaptive", 1)):
+        c = dataclasses.replace(cfg, ff=dataclasses.replace(
+            cfg.ff, goodness="sumsq", neg_mode=mode))
+        params = pff_lm.init_params(c, 0, dev)
+        embed0 = params["embed"].clone()
+        w0 = {k: t.clone() for k, t in params["groups"][0][0]["attn"].items()}
+        opt = optim.adam_init(params)
+        step = train.make_ff_train_step(c, lr=1e-3)
+        t0 = time.perf_counter()
+        metrics = []
+        for i in range(steps):
+            counts.reset(counter)
+            batch = {"tokens": torch.as_tensor(
+                blk[i * LM_TRAIN_BATCH:(i + 1) * LM_TRAIN_BATCH], device=dev)}
+            params, opt, m = step(params, opt, batch, i + 1)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counter.LAUNCHES.total
+        attn = params["groups"][0][0]["attn"]
+        moved = (not torch.equal(embed0, params["embed"])
+                 and all(not torch.equal(w0[k], attn[k]) for k in w0))
+        check(all(np.isfinite(v) for m in metrics for v in m.values()),
+              f"joint FF {mode}: non-finite loss {metrics}")
+        check(moved, f"joint FF {mode}: params did not move")
+        want = n_blocks if mode == "adaptive" else 0
+        check(launched == want, f"joint FF {mode}: {launched} kernel calls "
+              f"in the last step, expected {want}")
+        out[mode] = {"steps": steps, "wall_s": wall, "metrics": metrics,
+                     "kernel_calls_last_step": launched}
+        del params, opt, embed0, w0, attn
+        torch.cuda.empty_cache()
+        print(f"[21 lm-train] joint FF ({mode} negatives, sumsq) {steps} "
+              f"step(s) in {wall:.4f} s: losses finite, params moved; "
+              f"{launched} kernel calls in the last step (the no-grad "
+              f"forward: {want}); last metrics "
+              f"{ {k: round(v, 4) for k, v in metrics[-1].items()} }")
+    print(json.dumps({"lm_joint_ff": name, **out}))
 
 
 def main():
@@ -754,7 +1200,7 @@ def main():
     from repro_torch.configs.ff_mlp import PAPER_MLP
     from repro_torch.core import ff_mlp
     from repro_torch.core.rng import TorchKey
-    from repro_torch.kernels import _build, ff_dense as kernel
+    from repro_torch.kernels import _build, counts, ff_dense as kernel
     from repro_torch.kernels import ff_dense_vjp as vjp
 
     # 1. device ------------------------------------------------------------
@@ -898,13 +1344,13 @@ def main():
     xb = torch.as_tensor(task.x_test[:64], device="cuda")
     for mode, params in (("goodness", p_sumsq), ("softmax", p_sumsq),
                          ("perf_opt_all", p_po)):
-        before = kernel.LAUNCHES
+        before = kernel.LAUNCHES.total
         s_k = ff_mlp.class_scores(params, xb, PAPER_MLP.num_classes, mode,
                                   impl="auto")
         s_r = ff_mlp.class_scores(params, xb, PAPER_MLP.num_classes, mode,
                                   impl="ref")
         torch.cuda.synchronize()
-        check(kernel.LAUNCHES - before == len(params["layers"]),
+        check(kernel.LAUNCHES.total - before == len(params["layers"]),
               f"{mode}: impl='auto' did not run the kernel once per layer")
         check(s_k.shape == (64, PAPER_MLP.num_classes)
               and bool(torch.isfinite(s_k).all()),
@@ -919,10 +1365,10 @@ def main():
               f"{mode}: kernel path disagrees with the plain path")
 
     # 6. serving: the main path --------------------------------------------
-    kernel.LAUNCHES = 0
+    counts.reset(kernel)
     res = api.serve(PAPER_MLP, task, params=p_sumsq, traffic="uniform",
                     n_requests=SERVE_REQUESTS, rate=2000.0, max_batch=64)
-    launches = kernel.LAUNCHES
+    launches = kernel.LAUNCHES.total
     batches = res.raw.batches_scored
     slo = res.slo
     print(json.dumps({"slo": slo, "batches_scored": batches,
@@ -1002,10 +1448,10 @@ def main():
                          v)),
         ]
         for name, fused, plain in cases:
-            before = vjp.LAUNCHES
+            before = vjp.LAUNCHES.total
             gk = grads(fused, x, w, b)
             torch.cuda.synchronize()
-            check(vjp.LAUNCHES - before == 1,
+            check(vjp.LAUNCHES.total - before == 1,
                   f"{name}: the backward kernel did not run once")
             gp = grads(plain, x, w, b)
             e = [scaled_err(a, r) for a, r in zip(gk, gp)]
@@ -1145,11 +1591,11 @@ def main():
     out = {}
     for impl in ("auto", "ref"):
         lp = {"w": w0.clone().cuda(), "b": torch.zeros(N, device="cuda")}
-        before = vjp.LAUNCHES
+        before = vjp.LAUNCHES.total
         ff_mlp.train_layer_chapter(
             lp, optim.adam_init(lp), xs[0], xs[1], lrs, TorchKey(5),
             batch=64, epochs=1, theta=2.0, peer_w=0.0, impl=impl)
-        out[impl] = (lp, vjp.LAUNCHES - before)
+        out[impl] = (lp, vjp.LAUNCHES.total - before)
     check(out["auto"][1] == n // 64 and out["ref"][1] == 0,
           f"train_layer_chapter backward launches {out['auto'][1]} / "
           f"{out['ref'][1]}, expected {n // 64} / 0")
@@ -1208,12 +1654,11 @@ def main():
             ("perf_opt goodness, perf_opt_all",
              dataclasses.replace(base, goodness_fn="perf_opt",
                                  classifier="perf_opt_all"))):
-        kernel.LAUNCHES = 0
-        vjp.LAUNCHES = 0
+        counts.reset(kernel, vjp)
         t0 = time.perf_counter()
         res = api.fit(cfg, fit_task, backend="sequential")
         fit_s = time.perf_counter() - t0
-        fwd_calls, bwd_calls = kernel.LAUNCHES, vjp.LAUNCHES
+        fwd_calls, bwd_calls = kernel.LAUNCHES.total, vjp.LAUNCHES.total
         train_launches["fwd"] = train_launches.get("fwd", 0) + fwd_calls
         train_launches["bwd"] = train_launches.get("bwd", 0) + bwd_calls
         t0 = time.perf_counter()
@@ -1406,17 +1851,19 @@ def main():
             torch.Generator(device="cuda").manual_seed(0), cfg)
         for impl in ("auto", "ref"):
             run_lm(cfg, params, impl, gen=2)
-        fa.LAUNCHES = ssd.LAUNCHES = 0
+        counts.reset(fa, ssd)
         res = run_lm(cfg, params, "auto")
-        launches = counter.LAUNCHES
+        launches = counter.LAUNCHES.total
         lm_launches[op] = launches
-        check(launches == calls and other.LAUNCHES == 0,
+        check(launches == calls and other.LAUNCHES.total == 0,
               f"{name}: lm_decode made {launches} {op} kernel calls (and "
-              f"{other.LAUNCHES} of the other op), expected {calls} and 0")
+              f"{other.LAUNCHES.total} of the other op), expected {calls} "
+              f"and 0")
         res_ref = run_lm(cfg, params, "ref")
         res_ref2 = run_lm(cfg, params, "ref")
         res2 = run_lm(cfg, params, "auto")
-        check(counter.LAUNCHES == 2 * calls and other.LAUNCHES == 0,
+        check(counter.LAUNCHES.total == 2 * calls
+              and other.LAUNCHES.total == 0,
               f"{name}: impl='ref' launched a kernel, or a kernel run did "
               f"not launch {calls}")
         gk, gr = res["generated"], res_ref["generated"]
@@ -1432,18 +1879,19 @@ def main():
         prompts = torch.as_tensor(next(iter(data.lm_batches(
             cfg.vocab, LM_BATCH, LM_PROMPT - 1, 1, 0))), device="cuda")
         with torch.no_grad():
-            fa.LAUNCHES = ssd.LAUNCHES = 0
+            counts.reset(fa, ssd)
             lk, caches = transformer.prefill(params, cfg, prompts,
                                              max_len=LM_PROMPT + LM_GEN,
                                              last_only=True)
-            check(counter.LAUNCHES == calls,
-                  f"{name}: prefill made {counter.LAUNCHES} kernel calls")
+            check(counter.LAUNCHES.total == calls,
+                  f"{name}: prefill made {counter.LAUNCHES.total} kernel "
+                  f"calls")
             tok = lk.argmax(-1)
             for i in range(3):
                 _, caches = transformer.serve_step(params, cfg, caches, tok,
                                                    LM_PROMPT + i)
             torch.cuda.synchronize()
-            check(fa.LAUNCHES + ssd.LAUNCHES == calls,
+            check(fa.LAUNCHES.total + ssd.LAUNCHES.total == calls,
                   f"{name}: decode launched a kernel")
             lr, _ = transformer.prefill(params, cfg, prompts,
                                         max_len=LM_PROMPT + LM_GEN,
@@ -1512,18 +1960,41 @@ def main():
 
     # 17-18. the PFF executor at full width, and its resilience ------------
     torch.use_deterministic_algorithms(True)
-    exec_calls = phase_executor(api, data, PAPER_MLP, kernel, vjp)
+    exec_calls, exec_main = phase_executor(api, data, PAPER_MLP, kernel, vjp)
+    # 19. train-while-serve: the same cell, served while it trains --------
+    tws_calls = phase_train_while_serve(api, data, PAPER_MLP, kernel, vjp,
+                                        exec_main, exec_calls)
     torch.use_deterministic_algorithms(False)
     for row in fwd_rows:
-        row["launches"] += exec_calls[0]
+        row["launches"] += exec_calls[0] + tws_calls[0]
     for row in bwd_rows:
-        row["launches"] += exec_calls[1]
+        row["launches"] += exec_calls[1] + tws_calls[1]
+    del exec_main
 
-    # 19. isolation --------------------------------------------------------
+    # 20. the attention and SSD kernels refuse autograd inputs -------------
+    phase_repair()
+
+    # 21-22. LM chapter training at full width and depth -----------------
+    lm_train_calls = {}
+    for name, (op, _) in LM_CALLS.items():
+        # the bit-exact executor gates run deterministic; the joint steps
+        # and mamba2 (no bit-exact gate) do not
+        torch.use_deterministic_algorithms(name == "qwen2-0.5b")
+        lm_train_calls[op] = phase_lm_train(
+            api, data, name, chapters=LM_CHAPTERS[name],
+            executor=name == "qwen2-0.5b")
+        torch.use_deterministic_algorithms(False)
+        if name == "qwen2-0.5b":
+            joint_ff_steps(data, name)
+        torch.cuda.empty_cache()
+    for row in lm_rows:
+        row["launches"] += lm_train_calls[row["name"]]
+
+    # 23. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[19 isolation] no jax, no repro module loaded")
+    print("[23 isolation] no jax, no repro module loaded")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -27,10 +27,21 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FFConfig:
+    """Forward-Forward training configuration of an LM (the reference's
+    ``FFConfig``)."""
+    goodness: str = "sumsq"       # sumsq | perf_opt (Performance-Optimized)
+    theta: float = 2.0            # goodness threshold
+    neg_mode: str = "random"      # adaptive | fixed | random (token corruption)
+    peer_norm_weight: float = 0.03
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's ``ModelConfig`` fields that the port's blocks
-    read; MoE, RG-LRU, encoder-decoder and vision fields wait for their
-    slices, and the FF-LM training fields for the LM training slice."""
+    """The reference's ``ModelConfig`` fields that the port's blocks and
+    LM trainers read. ``moe`` and ``enc_dec`` are kept so that a config
+    that sets them is refused by name (``NotImplementedError``); the
+    RG-LRU, encoder and vision fields wait for their slices."""
     name: str
     arch_type: str                       # dense | ssm
     num_layers: int
@@ -49,7 +60,10 @@ class ModelConfig:
     act: str = "silu"
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
+    moe: Optional[object] = None         # MoE blocks: not ported yet
     ssm: Optional[SSMConfig] = None
+    ff: FFConfig = dataclasses.field(default_factory=FFConfig)
+    enc_dec: bool = False                # encoder-decoder: not ported yet
     dtype: str = "bfloat16"
     source: str = ""                     # citation
 

@@ -1,7 +1,6 @@
 """Forward-Forward primitives (Hinton 2022, as used by the PFF paper):
 goodness, the FF losses, the image label overlay and the negative-label
-strategies. The port of ``repro.core.ff``'s image-task functions (the
-LM token corruption comes with the LM slice).
+strategies, and the LM token corruption: the port of ``repro.core.ff``.
 
 Random draws come from a key object (``core.rng``'s interface), passed
 where the reference passes its jax key.
@@ -104,3 +103,54 @@ def adaptive_wrong_labels(class_scores, labels, key=None, temp=1.0):
     sd = torch.sqrt(var) + 1e-6
     z = torch.where(torch.isfinite(masked), (masked - mu) / sd, neg_inf)
     return key.categorical(z / temp).to(labels.device, labels.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Negative sequences (LM tasks): the paper's wrong-label overlay adapted
+# to tokens, hybrid sequences spliced from two real sequences (Hinton's
+# hybrid-image recipe) plus random token resampling. The draws follow the
+# reference's split chain, so a jax-backed key reproduces its negatives
+# bit for bit.
+# ---------------------------------------------------------------------------
+
+def _span_mask(key, B, S, frac, span):
+    """A coarse (B, S // span) Bernoulli grid upsampled to S (ceil-repeat
+    + crop), on the CPU."""
+    n_spans = max(S // span, 1)
+    coarse = key.bernoulli((B, n_spans), frac)
+    rep = -(-S // n_spans)
+    return torch.repeat_interleave(coarse, rep, dim=1)[:, :S]
+
+
+def corrupt_tokens(key, tokens, vocab, frac=0.3, span=16):
+    """Hybrid negatives: splice spans from a batch-permuted copy, then
+    resample a small fraction of tokens uniformly.
+
+    tokens: (B, S) integer. Returns (B, S) negatives of tokens' dtype, on
+    its device.
+    """
+    B, S = tokens.shape
+    dev = tokens.device
+    k1, k2, k3, k4 = key.split(4)
+    donor = tokens[k1.permutation(B).to(dev)]
+    mask = _span_mask(k2, B, S, frac, span).to(dev)
+    out = torch.where(mask, donor, tokens)
+    # sprinkle uniform-random tokens (keeps negatives off-manifold)
+    resample = k3.bernoulli((B, S), 0.05).to(dev)
+    rand_tok = k4.randint((B, S), 0, vocab).to(dev, tokens.dtype)
+    return torch.where(resample, rand_tok, out)
+
+
+def adaptive_corrupt_tokens(key, tokens, logits, frac=0.3, span=16):
+    """AdaptiveNEG for LM: fill corrupted spans with tokens sampled from
+    the model's own predictive distribution (self-generated negatives).
+
+    logits: (B, S, V) from a no-grad forward with the current weights.
+    """
+    B, S = tokens.shape
+    k1, k2 = key.split(2)
+    model_tok = k1.categorical(logits).to(tokens.device, tokens.dtype)
+    # shift: logits at position t predict t+1
+    model_tok = torch.cat([tokens[:, :1], model_tok[:, :-1]], dim=1)
+    mask = _span_mask(k2, B, S, frac, span).to(tokens.device)
+    return torch.where(mask, model_tok, tokens)

@@ -73,8 +73,11 @@ the DAG shape, everything ``obs.analyze`` needs. With the default
 after its node's stream is synchronized, so spans are device time and
 ``ExecResult.records`` feed ``pff.simulate_schedule``.
 
+``LMExecutor`` runs the LM chapter schedule (``core.pff_lm``) the same
+way, bit-exact against ``pff_lm.train_chapters``.
+
 ``python -m repro_torch.core.pff_exec`` runs the reference's selftest
-cases (``--matrix``, one schedule, or a resilience case with
+cases (``--matrix``, ``--lm-matrix``, one schedule, or a resilience case with
 ``--fault-plan`` / ``--checkpoint-dir`` / ``--resume-from``) on
 ``--device`` (default ``cuda``).
 """
@@ -91,9 +94,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import checkpoint as checkpoint_lib, data as data_lib, optim
-from repro_torch.convert import tree_leaves, tree_map
+from repro_torch.convert import tree_leaves, tree_map, tree_stack
 from repro_torch.core import faults as faults_lib
-from repro_torch.core import ff, ff_mlp, pff, pff_dag, strategies
+from repro_torch.core import ff, ff_mlp, pff, pff_dag, pff_lm, strategies
 from repro_torch.core.rng import TorchKey
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
@@ -151,6 +154,19 @@ def latest_checkpoint(directory: str) -> Optional[str]:
         return None
     return max(paths, key=lambda p: int(
         re.search(r"pff_chapter_(\d+)\.npz$", p).group(1)))
+
+
+def _node_devices(num_nodes, devices, device):
+    """The nodes' devices: ``devices`` (the first ``num_nodes``; a
+    repeated device is allowed), else ``pff_node_devices(num_nodes,
+    device)``."""
+    if devices is None:
+        return mesh_lib.pff_node_devices(num_nodes, device)
+    devs = [resolve_device(d) for d in list(devices)[:num_nodes]]
+    if len(devs) != num_nodes:
+        raise ValueError(f"{num_nodes} nodes need {num_nodes} devices, got "
+                         f"{len(devs)}")
+    return devs
 
 
 class _Nodes:
@@ -330,7 +346,38 @@ class _Handoff:
             del self.slots[key]
 
 
-class PFFExecutor:
+class _NodeExecutor:
+    """What both executors share: the nodes (``_Nodes``), the run's
+    tracer, and whether tasks synchronize their stream (timeline mode).
+    ``_run`` sets ``_tracer`` and ``_block`` for one run and clears
+    them after it."""
+
+    def __init__(self, devs):
+        self._nodes = _Nodes(devs)
+        self._tracer = obs_trace.NOOP
+        self._block = False
+
+    @property
+    def devices(self):
+        return self._nodes.devices
+
+    @property
+    def streams(self):
+        return self._nodes.streams
+
+    def _finish_task(self, node, kind, layer, chapter, t0):
+        """Close one DAG task: synchronize the node's stream (timeline
+        mode only: real device time, at the cost of overlap) and record
+        the ``task:<kind>`` span."""
+        if self._block:
+            self._nodes.sync(node)
+        tr = self._tracer
+        if tr.enabled:
+            tr.add_span("task:" + kind, t0, kind=kind, layer=layer,
+                        chapter=chapter, node=node)
+
+
+class PFFExecutor(_NodeExecutor):
     """Runs one PFF schedule for real on ``num_nodes`` nodes.
 
     devices: the nodes' devices (a repeated device is allowed: each node
@@ -350,19 +397,12 @@ class PFFExecutor:
                              f"one of {pff_dag.SCHEDULES}")
         if schedule == "sequential" and num_nodes != 1:
             raise ValueError("sequential means num_nodes=1")
-        if devices is None:
-            devs = mesh_lib.pff_node_devices(num_nodes, device)
-        else:
-            devs = [resolve_device(d) for d in list(devices)[:num_nodes]]
-            if len(devs) != num_nodes:
-                raise ValueError(f"{num_nodes} nodes need {num_nodes} "
-                                 f"devices, got {len(devs)}")
+        super().__init__(_node_devices(num_nodes, devices, device))
         self.cfg = cfg
         self.task = task
         self.schedule = schedule
         self.num_nodes = num_nodes
         self.overlap = overlap
-        self._nodes = _Nodes(devs)
         self.key = TorchKey(cfg.seed) if key is None else key
         self.n_layers = len(cfg.layer_sizes) - 1
         self.C = max(cfg.epochs // cfg.splits, 1)
@@ -383,18 +423,8 @@ class PFFExecutor:
                     f"elastic federated membership supports key-only "
                     f"negative strategies; {cfg.neg_mode!r} needs "
                     f"full-model scores")
-        self._tracer = obs_trace.NOOP
-        self._block = False
         self._const_dirty = False
         self._setup_constants()
-
-    @property
-    def devices(self):
-        return self._nodes.devices
-
-    @property
-    def streams(self):
-        return self._nodes.streams
 
     # ---- per-node constants (made once, before any timing) ---------------
     def _setup_constants(self):
@@ -499,17 +529,6 @@ class PFFExecutor:
                          xn0 if idx is None else xn0[idx]), ())
             return ((const["xk0"] if idx is None else const["xk0"][idx],),
                     (const["y"] if idx is None else const["y"][idx],))
-
-    def _finish_task(self, node, kind, layer, chapter, t0):
-        """Close one DAG task: synchronize the node's stream (timeline
-        mode only: real device time, at the cost of overlap) and record
-        the ``task:<kind>`` span."""
-        if self._block:
-            self._nodes.sync(node)
-        tr = self._tracer
-        if tr.enabled:
-            tr.add_span("task:" + kind, t0, kind=kind, layer=layer,
-                        chapter=chapter, node=node)
 
     def _rtime(self, name, dt):
         """Resilience seconds into ``_rstats`` and the tracer's counters."""
@@ -1164,6 +1183,237 @@ def params_bit_equal(a, b, *, with_head=False, with_local_heads=False):
     return ok
 
 
+class LMExecutor(_NodeExecutor):
+    """Runs the LM chapter schedule (``core.pff_lm``) for real on
+    ``num_nodes`` nodes: the transformer sibling of ``PFFExecutor``,
+    sharing its nodes (N CUDA streams of one card, or N x ``cpu``), its
+    ``_Handoff`` slots, its tracer conventions and its oracle.
+
+    Bit-exactness: every task makes exactly the calls of the sequential
+    ``pff_lm.train_chapters``: the same ``make_block_task`` /
+    ``make_head_task`` steps (the sequential trainer's ``make_block_step``
+    / ``make_head_step`` wrap them), the same ``chapter_batches`` stream
+    (regenerated on each node: training data never crosses the
+    hand-off), the same global step numbers and keys. A task is handed
+    only what it reads, never a full (params, opt) tree: the embedding
+    table, the frozen prefix blocks' params, its own block's (params, m,
+    v) state, or the head's.
+
+    Hand-off per train(k, c): the block's full state goes to the node
+    that trains it in chapter c+1 (``("state", k)``), its params to the
+    forward-recompute and head consumers within chapter c
+    (``("params", k)``), as ``pff_dag.handoff_targets`` names them. The
+    head task publishes its state toward the next chapter's head node
+    (``("head",)``) and, with tied embeddings, its params toward every
+    chapter-(c+1) train node (``("headp",)``): the DAG's head_feedback
+    edge (every block task reads the post-head embedding table). The
+    trees are updated in place, so a tree crossing nodes is copied on the
+    producer's stream (``_Nodes.move``); a node that holds the tree
+    copies nothing.
+
+    params: the initial params (copied per run); default
+    ``pff_lm.init_params(cfg, seed, devices[0])``. key_fn / impl: as
+    ``pff_lm.train_chapters`` takes them.
+    """
+
+    def __init__(self, cfg, source, schedule: str, num_nodes: int, *,
+                 chapters: int, steps_per_chapter: int, batch: int = 8,
+                 lr: float = 1e-3, head_lr: Optional[float] = None,
+                 seed: int = 0, devices=None, overlap: bool = True,
+                 device=None, params=None, key_fn=TorchKey,
+                 impl: str = "auto"):
+        if schedule not in ("sequential", "single_layer", "all_layers"):
+            raise ValueError(
+                f"LM chapter executor supports sequential / single_layer"
+                f" / all_layers; got {schedule!r} (federated LM shards "
+                f"are ROADMAP work)")
+        if schedule == "sequential" and num_nodes != 1:
+            raise ValueError("sequential means num_nodes=1")
+        if len(cfg.groups) != 1:
+            raise ValueError("chapter schedule needs a uniform stack "
+                             f"(one group); got {len(cfg.groups)}")
+        super().__init__(_node_devices(num_nodes, devices, device))
+        self.cfg = cfg
+        self.source = source
+        self.schedule = schedule
+        self.num_nodes = num_nodes
+        self.chapters = chapters
+        self.steps_per_chapter = steps_per_chapter
+        self.batch = batch
+        self.overlap = overlap
+        self.seed = seed
+        self.params0 = params
+        self.n_layers = cfg.groups[0][1]
+        self.tied = bool(cfg.tie_embeddings)
+        self._head_names = pff_lm.head_param_names(cfg)
+        self._step = pff_lm.make_block_task(cfg, lr=lr, seed=seed,
+                                            key_fn=key_fn, impl=impl)
+        self._head_step = pff_lm.make_head_task(
+            cfg, head_lr=lr if head_lr is None else head_lr, impl=impl)
+
+    def _data(self, node, chapter, block):
+        return pff_lm.chapter_batches(
+            self.source, batch=self.batch, steps=self.steps_per_chapter,
+            device=self._nodes.devices[node])(chapter, block)
+
+    def _params_on(self, j, node, chapter):
+        """Block j's chapter-``chapter`` params, for reading on ``node``."""
+        if self._ver[j] != chapter:
+            raise RuntimeError(f"block {j} is at chapter {self._ver[j]}, "
+                               f"not {chapter}: the DAG order broke")
+        return self._handoff.take(("params", j), node, chapter,
+                                  self._blk[j][0], src=self._holder[j])
+
+    def _train_task(self, k, chapter, node):
+        """One per-block chapter task: the sequential trainer's
+        ``steps_per_chapter`` block steps with its global step numbers,
+        then the state published toward the DAG consumers."""
+        t0 = self._tracer.now()
+        with self._nodes.on(node):
+            prefix = [self._params_on(j, node, chapter) for j in range(k)]
+            state = self._handoff.take(("state", k), node, self._ver[k],
+                                       self._blk[k], src=self._holder[k],
+                                       pop=True)
+            if self.tied:
+                # head_feedback edge: the table this task reads is the
+                # one head(chapter - 1) produced
+                embed = self._handoff.take(
+                    ("headp",), node, self._head_ver, self._head[0],
+                    src=self._head_holder)["embed"]
+            else:
+                embed = self._embed
+            base = (chapter * self.n_layers + k) * self.steps_per_chapter
+            for s, batch in enumerate(self._data(node, chapter, k)):
+                self._step(embed, prefix, state, batch, k, base + s + 1)
+            self._blk[k] = state
+            self._ver[k] = chapter
+            self._holder[k] = node
+            nxt, param_nodes = pff_dag.handoff_targets(
+                self.schedule, self.num_nodes, n_layers=self.n_layers,
+                splits=self.chapters, layer=k, chapter=chapter,
+                has_head=True, has_neg=False)
+            if nxt is not None:
+                self._handoff.prefetch(("state", k), nxt, chapter, state,
+                                       src=node)
+            for pn in param_nodes:
+                self._handoff.prefetch(("params", k), pn, chapter,
+                                       state[0], src=node)
+        self._finish_task(node, "train", k, chapter, t0)
+
+    def _head_task(self, chapter, node):
+        """The per-chapter softmax-head task: frozen forward through every
+        chapter-c block, CE on the head subset, head state published
+        toward chapter c+1."""
+        t0 = self._tracer.now()
+        with self._nodes.on(node):
+            units = [self._params_on(j, node, chapter)
+                     for j in range(self.n_layers)]
+            head = self._handoff.take(("head",), node, self._head_ver,
+                                      self._head, src=self._head_holder,
+                                      pop=True)
+            embed = head[0]["embed"] if self.tied else self._embed
+            base = chapter * self.steps_per_chapter
+            for s, batch in enumerate(self._data(node, chapter,
+                                                 self.n_layers)):
+                self._head_step(embed, units, head, batch, base + s + 1)
+            self._head = head
+            self._head_ver = chapter
+            self._head_holder = node
+            if chapter + 1 < self.chapters:
+                nh = pff_dag.head_node_of(self.schedule, self.num_nodes,
+                                          n_layers=self.n_layers,
+                                          chapter=chapter + 1)
+                if nh != node:
+                    self._handoff.prefetch(("head",), nh, chapter, head,
+                                           src=node)
+                if self.tied:
+                    for tn in pff_dag.chapter_train_nodes(
+                            self.schedule, self.num_nodes, self.n_layers,
+                            chapter=chapter + 1):
+                        if tn != node:
+                            self._handoff.prefetch(("headp",), tn, chapter,
+                                                   head[0], src=node)
+        self._finish_task(node, "head", self.n_layers, chapter, t0)
+
+    def run(self, *, profile: bool = False, trace=None) -> ExecResult:
+        """Executes the LM chapter schedule once. Same tracer/profile
+        semantics as ``PFFExecutor.run``; ``test_acc`` is None (LM
+        quality is eval CE, scored by ``api.fit`` for both backends)."""
+        with torch.no_grad():
+            return self._run(profile, trace)
+
+    def _run(self, profile, trace):
+        cfg = self.cfg
+        tracer = obs_trace.as_tracer(trace)
+        if profile and not tracer.enabled:
+            tracer = obs_trace.Tracer()
+        self._tracer = tracer
+        self._block = profile or (tracer.enabled and tracer.block_tasks)
+        timeline = tracer.enabled and self._block
+        span0 = tracer.span_count()
+        nodes = self._nodes
+        nodes.reset()
+        dev0 = nodes.devices[0]
+        t_start = time.perf_counter()
+        t_trace0 = tracer.now()
+        params = (pff_lm.init_params(cfg, self.seed, dev0)
+                  if self.params0 is None
+                  else tree_map(lambda t: t.to(dev0, copy=True),
+                                self.params0))
+        opt = optim.adam_init(params)
+        # the canonical state partition: per-block unit views + the head
+        self._blk = list(zip(*(pff_lm.block_units(t, self.n_layers)
+                               for t in (params, opt["m"], opt["v"]))))
+        self._head = tuple({n: t[n] for n in self._head_names}
+                           for t in (params, opt["m"], opt["v"]))
+        self._embed = params["embed"]
+        self._ver = [-1] * self.n_layers
+        self._head_ver = -1
+        self._holder = [0] * self.n_layers
+        self._head_holder = 0
+        self._handoff = _Handoff(nodes, self.overlap, tracer=tracer)
+        # the trees made on the current stream: every node may read them
+        nodes.share([self._blk, self._head, self._embed])
+        for c in range(self.chapters):
+            for k in range(self.n_layers):
+                self._train_task(k, c, pff_dag.node_of(
+                    self.schedule, self.num_nodes, layer=k, chapter=c))
+            self._head_task(c, pff_dag.head_node_of(
+                self.schedule, self.num_nodes, n_layers=self.n_layers,
+                chapter=c))
+        nodes.sync()
+        makespan = time.perf_counter() - t_start
+        if tracer.enabled:
+            tracer.add_span(
+                "run", t_trace0, schedule=self.schedule,
+                num_nodes=self.num_nodes, splits=self.chapters,
+                n_layers=self.n_layers, has_head=True, has_neg=False,
+                strict_neg=False, head_feedback=self.tied,
+                start_chapter=0, overlap=self.overlap,
+                blocked=self._block, makespan_s=makespan)
+        # the canonical full params tree on the current stream: exactly
+        # the tree the sequential trainer returns
+        final = {}
+        for name in params:
+            if name == "groups":
+                final[name] = (tree_stack([
+                    tree_map(lambda t: t.to(dev0), blk[0])
+                    for blk in self._blk]),)
+            elif name in self._head_names:
+                final[name] = self._head[0][name].to(dev0, copy=True)
+            else:
+                final[name] = params[name].clone()
+        records = node_busy = None
+        if timeline:
+            records, node_busy = _records_from_spans(tracer, span0,
+                                                     self.num_nodes)
+        self._block = False
+        return ExecResult(final, self.schedule, self.num_nodes, makespan,
+                          None, records, node_busy,
+                          dict(self._handoff.stats), None,
+                          tracer if tracer.enabled else None)
+
+
 # ---------------------------------------------------------------------------
 # Self-test CLI: python -m repro_torch.core.pff_exec [--device cpu]
 # ---------------------------------------------------------------------------
@@ -1289,6 +1539,75 @@ _MATRIX = (
 _AB_CASES = (1, 3, 6)
 
 
+def _lm_case_setup(n_blocks, tied, *, seq_len=16):
+    """The (cfg, source) every LM selftest case trains (the reference's
+    ``_lm_case_setup``): a small qwen2-0.5b-shaped stack over the
+    real-text BPE source."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    cfg = dataclasses.replace(cfg, num_layers=n_blocks,
+                              groups=((("attn",), n_blocks),),
+                              tie_embeddings=tied)
+    return cfg, data_lib.text_source(vocab=cfg.vocab, seq_len=seq_len,
+                                     seed=0)
+
+
+def _lm_check_case(schedule, nodes, n_blocks, chapters, steps, tied, *,
+                   check_overlap_ab=False, device=None):
+    """Trains one LM config both ways, through ``api.fit``, and returns
+    failure strings (empty = the executor reproduced the sequential
+    ``train_chapters`` weight stream bit-exactly, and its eval CE)."""
+    from repro_torch import api
+
+    cfg, source = _lm_case_setup(n_blocks, tied)
+    kw = dict(chapters=chapters, steps_per_chapter=steps, batch=4, lr=1e-3,
+              device=device)
+    ref = api.fit(cfg, source, backend="sequential", **kw)
+    res = api.fit(cfg, source, backend="executor", schedule=schedule,
+                  num_nodes=nodes, **kw)
+    failures = []
+    if not pff_lm.lm_params_bit_equal(ref.params, res.params):
+        failures.append(f"lm {schedule}: executor weight stream diverged "
+                        f"from sequential train_chapters (tied={tied})")
+    if res.eval_ce != ref.eval_ce:
+        failures.append(f"lm {schedule}: eval CE {res.eval_ce} != "
+                        f"{ref.eval_ce}")
+    if check_overlap_ab:
+        off = api.fit(cfg, source, backend="executor", schedule=schedule,
+                      num_nodes=nodes, overlap=False, **kw)
+        stats_on, stats_off = res.raw.handoff, off.raw.handoff
+        if not pff_lm.lm_params_bit_equal(off.params, res.params):
+            failures.append(f"lm {schedule}: overlap-on vs overlap-off "
+                            "weight streams diverged")
+        if stats_off["prefetch_issued"] != 0:
+            failures.append(f"lm {schedule}: overlap=False still issued "
+                            f"{stats_off['prefetch_issued']} prefetches")
+        if nodes > 1 and stats_on["prefetch_hits"] == 0:
+            failures.append(f"lm {schedule}: overlap=True never hit a "
+                            f"prefetched slot ({stats_on})")
+        print(f"  lm overlap A/B {schedule}: on={stats_on} off={stats_off}")
+    print(f"device={res.device} lm schedule={schedule} nodes={nodes} "
+          f"blocks={n_blocks} tied={tied}: exec ce={res.eval_ce:.4f} seq "
+          f"ce={ref.eval_ce:.4f} makespan={res.makespan:.2f}s -> "
+          + ("FAIL" if failures else "bit-exact"))
+    return failures
+
+
+# (schedule, nodes, n_blocks, chapters, steps_per_chapter, tied): the
+# reference's LM matrix. Rows 0/1: both paper schedules on 4 nodes with
+# tied embeddings (the head_feedback edge: every block task must see the
+# post-head embedding table), with the overlap A/B gate. Row 2: the
+# untied head (lm_head) and nodes not dividing the block count, so the
+# single_layer round-robin wraps.
+_LM_MATRIX = (
+    ("all_layers", 4, 4, 3, 2, True),
+    ("single_layer", 4, 4, 3, 2, True),
+    ("single_layer", 2, 3, 2, 2, False),
+)
+_LM_AB_CASES = (0, 1)
+
+
 def _resilience_case(args):
     """One resilience run from the CLI: inject ``--fault-plan``, write
     chapter manifests into ``--checkpoint-dir``, resume from
@@ -1347,6 +1666,10 @@ def _selftest(argv=None):
     p.add_argument("--matrix", action="store_true",
                    help="run the full schedule/neg/classifier matrix in "
                         "one process")
+    p.add_argument("--lm-matrix", action="store_true",
+                   help="run the LM chapter-schedule bit-exactness matrix "
+                        "(LMExecutor vs pff_lm.train_chapters on the "
+                        "real-text BPE source)")
     p.add_argument("--nodes", type=int, default=4)
     p.add_argument("--schedule", default="all_layers",
                    choices=list(pff_dag.SCHEDULES))
@@ -1388,6 +1711,14 @@ def _selftest(argv=None):
             failures += _check_case(*case, check_sim_bound=i == 0,
                                     check_overlap_ab=i in _AB_CASES,
                                     device=args.device)
+    elif args.lm_matrix:
+        for i, case in enumerate(_LM_MATRIX):
+            failures += _lm_check_case(*case,
+                                       check_overlap_ab=i in _LM_AB_CASES,
+                                       device=args.device)
+        if not failures:
+            print("lm selftest OK: executor chapter schedule bit-exact "
+                  "vs train_chapters on the BPE text source")
     else:
         failures = _check_case(args.schedule, args.nodes, args.splits,
                                args.n_train, args.neg_mode,

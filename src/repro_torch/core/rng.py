@@ -19,10 +19,14 @@ object (the parity tests' jax-backed key) provides too:
     permutation(n) -> (n,) int64 CPU tensor
     randint(shape, low, high) -> int CPU tensor in [low, high)
     normal(shape) -> float32 CPU tensor
-    categorical(logits) -> (B,) index per row of (B, C) logits, on the
-                           logits' device
+    bernoulli(shape, p) -> bool CPU tensor, True with probability p
+    categorical(logits) -> one index along the last axis of logits of any
+                           rank (``(B, C)`` -> ``(B,)``, ``(B, S, V)`` ->
+                           ``(B, S)``), on the logits' device
 
-Draws land on the CPU (or the logits' device); callers move them.
+The random bits are drawn on the CPU; callers move them (``categorical``
+moves its uniforms to the logits' device and forms the Gumbel noise
+there).
 """
 from __future__ import annotations
 
@@ -70,13 +74,16 @@ class TorchKey:
         return torch.randn(tuple(shape), generator=self.generator(),
                            dtype=torch.float32)
 
+    def bernoulli(self, shape, p: float) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=self.generator(),
+                          dtype=torch.float32) < p
+
     def categorical(self, logits: torch.Tensor) -> torch.Tensor:
-        """One sample per row of (B, C) ``logits`` (Gumbel-max, as
-        ``jax.random.categorical`` draws it); -inf logits are never
-        drawn."""
+        """One sample along the last axis of ``logits`` (Gumbel-max, as
+        ``jax.random.categorical(..., axis=-1)`` draws it); -inf logits
+        are never drawn."""
         u = torch.rand(tuple(logits.shape), generator=self.generator(),
-                       dtype=torch.float32)
+                       dtype=torch.float32).to(logits.device)
         u = u.clamp_min(torch.finfo(torch.float32).tiny)
         gumbel = -torch.log(-torch.log(u))
-        return torch.argmax(logits.float() + gumbel.to(logits.device),
-                            dim=1)
+        return torch.argmax(logits.float() + gumbel, dim=-1)

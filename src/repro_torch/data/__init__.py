@@ -1,5 +1,5 @@
-"""Synthetic data (the port's own copy of the image part of
-``repro.data`` and of its Markov LM prompts).
+"""Data (the port's own copy of ``repro.data``: the image tasks, the
+Markov LM prompts and the real-text token blocks).
 
 Deterministic class-prototype generators: each class has a smooth
 random prototype; samples are ``clip(proto + noise)``. ``mnist_like`` is
@@ -14,7 +14,9 @@ generator regenerates its payloads without communication.
 ``PrototypeSource`` is the generator behind ``mnist_like``/``cifar_like``;
 ``ArraySource`` adapts materialized arrays (a task's test split) to the
 same protocol. ``MarkovLM``/``lm_batches`` give the LM serving path's
-prompts. The real-text ``TextSource`` waits for the LM training slice.
+prompts; ``TextSource``/``text_source`` give the LM chapter trainers
+real text, tokenized by the port's copy of the byte-level BPE encoder
+(``data.encoder``, over its own copy of the corpus sample).
 """
 from __future__ import annotations
 
@@ -223,3 +225,79 @@ def lm_batches(vocab, batch, seq_len, steps, seed=0):
     chain = MarkovLM(min(vocab, 4096), seed)
     for s in range(steps):
         yield chain.sample(batch, seq_len + 1, seed * 100003 + s) % vocab
+
+
+# ---------------------------------------------------------------------------
+# Language modelling (real text through the byte-level BPE pipeline): the
+# token blocks of the LM chapter trainers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TextSource:
+    """Real text as a streaming ``Source``: the corpus sample, tokenized
+    once by the byte-level BPE encoder (``data.encoder``), sampled as
+    fixed-shape ``(n, seq_len + 1)`` int32 token blocks.
+
+    ``blocks(split, n, seed)`` draws ``n`` random windows from the
+    split's region of the token stream and is a pure function of
+    ``(split, n, seed)``: every node of a distributed run regenerates its
+    batches locally, so training data never crosses the hand-off.
+    "train" windows come from the leading ``1 - holdout`` fraction of the
+    stream, any other split ("val" / "test" / ...) from the held-out
+    tail. ``sample`` adapts the same windows to the protocol's ``(x, y)``
+    shape (x = the window's first ``seq_len`` tokens, y = the next one).
+    """
+    ids: np.ndarray          # (T,) int32 — the tokenized corpus
+    encoder: object          # data.encoder.Encoder (vocab/round-trip)
+    seq_len: int
+    seed: int = 0
+    holdout: float = 0.1
+
+    @property
+    def num_classes(self) -> int:
+        return int(self.encoder.n_vocab)
+
+    @property
+    def vocab(self) -> int:
+        return self.num_classes
+
+    @property
+    def dim(self) -> int:
+        return self.seq_len
+
+    def _region(self, split: str) -> np.ndarray:
+        cut = int(len(self.ids) * (1.0 - self.holdout))
+        return self.ids[:cut] if split == "train" else self.ids[cut:]
+
+    def blocks(self, split: str, n: int, seed: int = 0) -> np.ndarray:
+        """(n, seq_len + 1) int32 token windows, deterministic per
+        (split, n, seed)."""
+        region = self._region(split)
+        span = self.seq_len + 1
+        if len(region) < span:
+            raise ValueError(
+                f"split {split!r} holds {len(region)} tokens < "
+                f"seq_len + 1 = {span}")
+        rng = _split_rng(self.seed, split, seed)
+        offs = rng.integers(0, len(region) - span + 1, size=n)
+        return region[offs[:, None] + np.arange(span)].astype(np.int32)
+
+    def sample(self, split: str, n: int, seed: int = 0):
+        b = self.blocks(split, n, seed)
+        return b[:, :-1], b[:, -1].astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def text_source(vocab: int = 512, seq_len: int = 32,
+                seed: int = 0) -> TextSource:
+    """The default real-text LM source: the BPE encoder trained on the
+    corpus sample, the corpus tokenized once (memoized). ``vocab`` must
+    cover the encoder's vocabulary (512 tokens at most)."""
+    from repro_torch.data import encoder as encoder_lib
+
+    enc = encoder_lib.default_encoder(min(vocab, 512))
+    if enc.n_vocab > vocab:
+        raise ValueError(f"config vocab {vocab} < encoder vocab "
+                         f"{enc.n_vocab}")
+    ids = np.asarray(enc.encode(encoder_lib.corpus_text()), np.int32)
+    return TextSource(ids=ids, encoder=enc, seq_len=seq_len, seed=seed)

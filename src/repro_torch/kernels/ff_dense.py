@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counts
 
 # Hinton's inter-layer normalization epsilon, shared by the kernel
 # (csrc/ff_dense.cu), the plain version, the oracles and ff_mlp._norm.
@@ -31,7 +31,7 @@ NORM_EPS = 1e-8
 # Calls that launched the CUDA kernel (2 CUDA launches each) in this
 # process. chip_smoke.py zeroes it before the serving run and reads it
 # after, to show the serving path went through the kernel.
-LAUNCHES = 0
+LAUNCHES = counts.Counter()     # launched calls, by thread
 
 # gemm_split's block tile rows (m), the block widths (n) it is built for,
 # and its ring-stage depth (k), as in csrc/ff_dense.cu.
@@ -161,7 +161,6 @@ def ff_dense(x, w, b, *, norm=False):
     raw pre-norm goodness. CUDA tensors launch the kernel (or raise);
     CPU tensors take ``ff_dense_plain``.
     """
-    global LAUNCHES
     _check(x, w, b)
     if x.device.type == "cpu":
         return ff_dense_plain(x, w, b, norm=norm)
@@ -169,5 +168,5 @@ def ff_dense(x, w, b, *, norm=False):
         raise ValueError(f"ff_dense runs on cuda or cpu tensors, got "
                          f"{x.device}")
     out = _launch(x, w, b, norm)
-    LAUNCHES += 1
+    LAUNCHES.bump()
     return out

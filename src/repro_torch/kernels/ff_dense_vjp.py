@@ -30,13 +30,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ff_dense as ff_dense_kernel
+from repro_torch.kernels import counts, ff_dense as ff_dense_kernel
 from repro_torch.kernels.ff_dense import NORM_EPS
 
 # Calls that launched the CUDA backward kernel (3 CUDA launches each) in
 # this process. chip_smoke.py zeroes it before a training run and reads
 # it after, to show every grad step went through the kernel.
-LAUNCHES = 0
+LAUNCHES = counts.Counter()     # launched calls, by thread
 
 # grad_x's block tile (m rows, k columns) and stage depth (n), as in
 # csrc/ff_dense_bwd.cu.
@@ -153,7 +153,6 @@ def ff_dense_bwd(x, w, y, dy_out, dg):
     CUDA tensors launch the kernel (three CUDA launches, or raise); CPU
     tensors take ``ff_dense_bwd_plain``.
     """
-    global LAUNCHES
     _check(x, w, y, dy_out, dg)
     if x.device.type == "cpu":
         return ff_dense_bwd_plain(x, w, y, dy_out, dg)
@@ -161,7 +160,7 @@ def ff_dense_bwd(x, w, y, dy_out, dg):
         raise ValueError(f"ff_dense_bwd runs on cuda or cpu tensors, got "
                          f"{x.device}")
     out = _launch(x, w, y, dy_out, dg)
-    LAUNCHES += 1
+    LAUNCHES.bump()
     return out
 
 

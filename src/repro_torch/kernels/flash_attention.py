@@ -25,7 +25,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counts
+from repro_torch.kernels.guard import refuse_autograd
 
 NEG_INF = -1e30
 # Head widths the kernel is compiled for (qwen2: 64; the other configs
@@ -35,7 +36,7 @@ KERNEL_HEAD_DIMS = (64, 128)
 # Calls that launched the CUDA kernel (1 CUDA launch each) in this
 # process. chip_smoke.py zeroes it before an LM prefill and reads it
 # after, to show the prefill went through the kernel.
-LAUNCHES = 0
+LAUNCHES = counts.Counter()     # launched calls, by thread
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -108,15 +109,16 @@ def _check(q, k, v, window):
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q (B, Sq, H, hd); k, v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
     dtype. Query head h reads kv head ``h // (H // KV)``. CUDA tensors
-    launch the kernel (or raise); CPU tensors take
+    launch the kernel (or raise, also when autograd would record the call:
+    ``guard.refuse_autograd``); CPU tensors take
     ``flash_attention_plain``."""
-    global LAUNCHES
     B, Sq, Sk, H, KV, hd = _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    refuse_autograd("flash_attention", q, k, v)
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention's kernel takes hd in "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
@@ -145,5 +147,5 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{lib.flash_attention_error_string(err).decode()}")
-    LAUNCHES += 1
+    LAUNCHES.bump()
     return out

@@ -34,7 +34,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counts
+from repro_torch.kernels.guard import refuse_autograd
 
 # What the kernel is compiled for: (chunk, hd, N) combinations (one block
 # covers a whole head's hd), and the values each dimension takes in them.
@@ -49,7 +50,7 @@ SCORES, STATES, STATE_PASS, OUTPUT = 1, 2, 4, 8
 # Calls that launched the CUDA kernel (4 CUDA launches each) in this
 # process. chip_smoke.py zeroes it before an LM prefill and reads it
 # after, to show the prefill went through the kernel.
-LAUNCHES = 0
+LAUNCHES = counts.Counter()     # launched calls, by thread
 
 _lib = None
 
@@ -75,7 +76,7 @@ def mamba2_ssd_plain(xbar, dA, b, c, *, chunk=128):
     cc = c.float().reshape(B, nc, L, N)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool,
                                  device=xbar.device))
-    zero = torch.zeros((), device=xbar.device)
+    neg_inf = torch.full((), float("-inf"), device=xbar.device)
     h = torch.zeros((B, H, hd, N), dtype=torch.float32, device=xbar.device)
     ys = []
     for i in range(nc):
@@ -83,7 +84,11 @@ def mamba2_ssd_plain(xbar, dA, b, c, *, chunk=128):
         cums = torch.cumsum(dA_c, dim=1)                     # (B, L, H)
         # intra-chunk dual form
         seg = cums[:, :, None, :] - cums[:, None, :, :]      # (B, i, j, H)
-        decay = torch.where(mask[None, :, :, None], torch.exp(seg), zero)
+        # exp(-inf) = 0 on the masked (j > i) entries: the same values as
+        # zeroing exp(seg) there, but autograd's gradient through them is
+        # 0 rather than 0 * exp(seg), which overflows to NaN under strong
+        # decay
+        decay = torch.exp(torch.where(mask[None, :, :, None], seg, neg_inf))
         scores = torch.einsum("bin,bjn->bij", c_c, b_c)
         y = torch.einsum("bijh,bjhd->bihd", scores[..., None] * decay,
                          xbar_c)
@@ -198,14 +203,15 @@ def _launch(xbar, dA, b, c, chunk, parts=SCORES | STATES | STATE_PASS
 def mamba2_ssd(xbar, dA, b, c, *, chunk=128):
     """xbar (B, S, H, hd), dA (B, S, H), b, c (B, S, N), all f32 ->
     (y (B, S, H, hd) f32, hT (B, H, hd, N) f32). CUDA tensors launch the
-    kernel (or raise); CPU tensors take ``mamba2_ssd_plain``."""
-    global LAUNCHES
+    kernel (or raise, also when autograd would record the call:
+    ``guard.refuse_autograd``); CPU tensors take ``mamba2_ssd_plain``."""
     _check(xbar, dA, b, c)
     if xbar.device.type == "cpu":
         return mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk)
     if xbar.device.type != "cuda":
         raise ValueError(f"mamba2_ssd runs on cuda or cpu tensors, got "
                          f"{xbar.device}")
+    refuse_autograd("mamba2_ssd", xbar, dA, b, c)
     out = _launch(xbar, dA, b, c, chunk)
-    LAUNCHES += 1
+    LAUNCHES.bump()
     return out

@@ -1,17 +1,26 @@
-"""LM serving launcher: batched prefill, then greedy decode against the
-caches (the port of ``repro.launch.serve``'s ``--mode lm``).
+"""Serving launcher (the port of ``repro.launch.serve``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+``--mode ff`` (the default): train-while-serve through ``api.serve``.
+The executor trains a goodness-classifier FF MLP on ``mnist_like`` on
+``--nodes`` nodes (CUDA streams of the card) and hot-publishes every
+freshly trained layer into the replica that serves ``--traffic`` at
+``--rate`` requests/s meanwhile:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode ff \
+      --schedule all_layers --nodes 4 --rate 300
+
+``--mode lm``: batched prefill, then greedy decode against the caches:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
       --arch qwen2-0.5b --batch 4 --prompt-len 64 --gen 32
 
 runs the reduced config on the card (``--full`` for the published
-widths and depth, ``--device cpu`` for the plain path on the CPU). The
-prefill goes through the hand-written attention and SSD kernels
-(``kernels/csrc/flash_attention.cu``, ``kernels/csrc/mamba2_ssd.cu``);
-decode is plain torch. The SSD kernel is compiled for both the reduced
-mamba2 config (N 16, hd 32, chunk 32) and the full one. ``--mode ff``
-(train-while-serve through ``api.serve``) waits for the train-while-serve
-slice (``ROADMAP.md`` §1).
+widths and depth). The prefill goes through the hand-written attention
+and SSD kernels (``kernels/csrc/flash_attention.cu``,
+``kernels/csrc/mamba2_ssd.cu``); decode is plain torch. The SSD kernel
+is compiled for both the reduced mamba2 config (N 16, hd 32, chunk 32)
+and the full one. ``--device cpu`` runs either mode's plain path on the
+CPU.
 """
 from __future__ import annotations
 
@@ -86,6 +95,50 @@ def lm_decode(cfg, *, batch, prompt_len, gen, seed=0, greedy=True,
     }
 
 
+def _main_ff(args):
+    from repro_torch import api
+    from repro_torch.configs.ff_mlp import FFMLPConfig
+    from repro_torch.obs import export as obs_export, trace as obs_trace
+
+    task = data_lib.mnist_like(n_train=args.n_train, n_test=400)
+    cfg = FFMLPConfig(
+        layer_sizes=(task.dim,) + (args.width,) * args.layers,
+        epochs=args.epochs, splits=args.splits, neg_mode="random",
+        classifier="goodness", batch_size=64, seed=args.seed)
+    # block_tasks=False: the point of tracing a serve run is the live
+    # interleaving of training and scoring, so keep the async overlap
+    tracer = (obs_trace.Tracer(block_tasks=False,
+                               meta={"launcher": "serve"})
+              if args.trace else obs_trace.NOOP)
+    res = api.serve(cfg, task, traffic=args.traffic,
+                    schedule=args.schedule, num_nodes=args.nodes,
+                    rate=args.rate, max_batch=args.max_batch,
+                    max_wait_s=args.max_wait, queue_cap=args.queue_cap,
+                    seed=args.seed, trace=tracer, device=args.device)
+    if tracer.enabled:
+        obs_export.export(tracer, args.trace, format=args.trace_format)
+        print(f"trace: {tracer.span_count()} spans -> {args.trace} "
+              f"({args.trace_format})")
+    slo = res.slo
+    print(f"train-while-serve: schedule={res.schedule} "
+          f"nodes={res.num_nodes} traffic={res.traffic} "
+          f"device={res.device}")
+    print(f"  train acc={res.fit.test_acc:.4f} "
+          f"makespan={res.fit.makespan:.2f}s")
+    print(f"  served {slo['requests']} req @ "
+          f"{slo['throughput_rps']:.1f} rps  "
+          f"p50={slo['latency_p50_ms']:.1f}ms "
+          f"p99={slo['latency_p99_ms']:.1f}ms  "
+          f"shed={slo['shed_rate']:.3f}")
+    print(f"  swaps={slo['swaps']} "
+          f"staleness_max={slo['staleness_max_s']:.3f}s "
+          f"violations={slo['consistency_violations']}")
+    for v, row in res.accuracy_by_version.items():
+        print(f"    version {v:3d}: n={row['n']:5d} "
+              f"acc={row['accuracy']:.3f}")
+    return 1 if slo["consistency_violations"] else 0
+
+
 def _main_lm(args):
     cfg = get_config(args.arch)
     if not args.full:
@@ -99,27 +152,53 @@ def _main_lm(args):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--mode", choices=("ff", "lm"), default="lm",
-                    help="lm: transformer prefill + decode (ff: "
-                         "train-while-serve, not ported yet)")
-    ap.add_argument("--arch", default=None, choices=list_configs(),
+    from repro_torch.core import pff_dag
+    from repro_torch.obs import export as obs_export
+    from repro_torch.serve.traffic import traffic
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=("ff", "lm"), default="ff",
+                    help="ff: train-while-serve via api.serve (default); "
+                         "lm: transformer prefill + decode")
+    g = ap.add_argument_group("ff mode")
+    g.add_argument("--traffic", default="uniform",
+                   choices=list(traffic.names()))
+    g.add_argument("--schedule", default="all_layers",
+                   choices=list(pff_dag.SCHEDULES))
+    g.add_argument("--nodes", type=int, default=4)
+    g.add_argument("--rate", type=float, default=300.0)
+    g.add_argument("--max-batch", type=int, default=64)
+    g.add_argument("--max-wait", type=float, default=0.02)
+    g.add_argument("--queue-cap", type=int, default=512)
+    g.add_argument("--epochs", type=int, default=100)
+    g.add_argument("--splits", type=int, default=4)
+    g.add_argument("--layers", type=int, default=2)
+    g.add_argument("--width", type=int, default=256)
+    g.add_argument("--n-train", type=int, default=2560)
+    g.add_argument("--trace", default=None, metavar="PATH",
+                   help="record an execution trace (repro_torch.obs; "
+                        "non-blocking tracer, overlap intact) and export "
+                        "it here after the run")
+    g.add_argument("--trace-format", default="chrome",
+                   choices=list(obs_export.names()),
+                   help="trace exporter (the obs exporter registry)")
+    lm = ap.add_argument_group("lm mode")
+    lm.add_argument("--arch", default=None, choices=list_configs(),
                     help="transformer config name")
-    ap.add_argument("--full", action="store_true",
+    lm.add_argument("--full", action="store_true",
                     help="published widths and depth (default: reduced)")
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=64)
-    ap.add_argument("--gen", type=int, default=32)
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--prompt-len", type=int, default=64)
+    lm.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mode == "ff":
-        ap.error("--mode ff (train-while-serve) is not ported yet; it "
-                 "waits for the train-while-serve slice (ROADMAP.md §1)")
-    if args.arch is None:
-        ap.error("--mode lm requires --arch")
-    return _main_lm(args)
+    if args.mode == "lm":
+        if args.arch is None:
+            ap.error("--mode lm requires --arch")
+        return _main_lm(args)
+    return _main_ff(args)
 
 
 if __name__ == "__main__":

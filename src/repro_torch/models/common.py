@@ -24,6 +24,14 @@ def rms_norm(x, scale, eps=1e-6):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def rms_normalize(x, eps=1e-6):
+    """Scale-free RMS normalization in f32, cast back to x's dtype (the
+    FF goodness's locality)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
 def activation(name):
     return {
         "silu": F.silu,

@@ -18,6 +18,7 @@ Encoder-decoder and vision configs wait for their block kinds
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.convert import tree_leaves, tree_map, tree_stack
 from repro_torch.device import resolve_device
@@ -71,7 +72,10 @@ def param_count(params):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens.long()]
+    """The embedding rows of ``tokens``. ``F.embedding`` rather than an
+    index: its backward has a deterministic CUDA kernel, which the LM
+    trainers' bit-exact gates run under."""
+    return F.embedding(tokens.long(), params["embed"])
 
 
 def unembed(params, cfg, x):

@@ -12,6 +12,16 @@ at install, and that check is the consistency-violation counter.
 Copy on publish: a producer may update its tensors in place after
 publishing, so every published leaf is cloned (``tensor.clone()``, the
 counterpart of the reference's ``jnp.copy``): the bus owns its bits.
+
+Streams: the clones run on the publishing thread's current stream (in
+train-while-serve, the executor node's stream that trained the layer),
+and a replica scores on a stream of its own on another thread, so a
+snapshot could be read before its clones have landed. Each publication
+therefore records a CUDA event after its clones; a snapshot carries the
+events of all its pieces (``fences``), and the replica makes its stream
+wait on them, and tells the allocator it uses the clones
+(``record_stream``), before it installs the snapshot. On the CPU there
+are no events and nothing to wait for.
 """
 from __future__ import annotations
 
@@ -19,12 +29,22 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.convert import tree_map
+import torch
+
+from repro_torch.convert import tree_leaves, tree_map
 
 
 def _owned(tree):
-    """A copy that the producer's later in-place updates cannot reach."""
-    return tree_map(lambda t: t.clone(), tree)
+    """A copy that the producer's later in-place updates cannot reach,
+    made on the current stream, and the event recorded after it on that
+    stream (None for CPU tensors)."""
+    copy = tree_map(lambda t: t.clone(), tree)
+    leaves = tree_leaves(copy)
+    if not leaves or not leaves[0].is_cuda:
+        return copy, None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(leaves[0].device))
+    return copy, ev
 
 
 class WeightBus:
@@ -44,20 +64,24 @@ class WeightBus:
         self._lock = threading.Lock()
         self._staged: Dict[int, dict] = {}   # version -> {layer: piece} (+head)
         self._ready: List[tuple] = []        # (version, params, vec, wall_t)
+        self._events: Dict[int, list] = {}   # version -> its pieces' events
+        self._fences: Dict[int, list] = {}   # assembled version -> events
         self.stats = {"layers_published": 0, "heads_published": 0,
                       "snapshots_assembled": 0, "snapshots_taken": 0}
 
     # ---- producer side ---------------------------------------------------
     def publish_layer(self, layer: int, version: int, piece: dict):
-        piece = _owned(piece)
+        piece, ev = _owned(piece)
         with self._lock:
+            self._events.setdefault(version, []).append(ev)
             self._staged.setdefault(version, {})[layer] = piece
             self.stats["layers_published"] += 1
             self._try_assemble(version)
 
     def publish_head(self, version: int, head_params):
-        head_params = _owned(head_params)
+        head_params, ev = _owned(head_params)
         with self._lock:
+            self._events.setdefault(version, []).append(ev)
             self._staged.setdefault(version, {})["head"] = head_params
             self.stats["heads_published"] += 1
             self._try_assemble(version)
@@ -65,8 +89,9 @@ class WeightBus:
     def publish_all(self, version: int, params: dict):
         """Publish a complete params dict in one call (a static
         serve-only model)."""
-        params = _owned(params)
+        params, ev = _owned(params)
         with self._lock:
+            self._events.setdefault(version, []).append(ev)
             staged = {k: {"layers": [lp]} for k, lp in
                       enumerate(params["layers"])}
             if "local_heads" in params:
@@ -98,6 +123,8 @@ class WeightBus:
             params["head"] = staged["head"]
             vec = vec + [version]
         del self._staged[version]
+        self._fences[version] = [e for e in self._events.pop(version)
+                                 if e is not None]
         self._ready.append((version, params, vec, time.perf_counter()))
         self._ready.sort(key=lambda r: r[0])
         self.stats["snapshots_assembled"] += 1
@@ -115,6 +142,12 @@ class WeightBus:
                     self.stats["snapshots_taken"] += 1
                     return rec
         return None
+
+    def fences(self, version: int) -> list:
+        """The CUDA events after the clones of every piece of an
+        assembled snapshot (empty on the CPU)."""
+        with self._lock:
+            return list(self._fences.get(version, ()))
 
     def latest_version(self) -> Optional[int]:
         with self._lock:

@@ -22,6 +22,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.convert import tree_leaves
 from repro_torch.core import ff_mlp
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.bus import WeightBus
@@ -77,10 +78,21 @@ class Replica:
         return True
 
     def maybe_swap(self, bus: WeightBus, *, now: float = 0.0) -> bool:
-        """Install the next newer snapshot, if one is assembled."""
+        """Install the next newer snapshot, if one is assembled. On the
+        card the current stream (the serving loop's) first waits for the
+        snapshot's clones (``bus.fences``) and is recorded on them, so
+        the allocator keeps their blocks until its reads are done."""
         rec = bus.next_snapshot(self.version)
         if rec is None:
             return False
+        events = bus.fences(rec[0])
+        if events:
+            stream = torch.cuda.current_stream(
+                rec[1]["layers"][0]["w"].device)
+            for ev in events:
+                stream.wait_event(ev)
+            for t in tree_leaves(rec[1]):
+                t.record_stream(stream)
         return self.install(rec[0], rec[1], rec[2], rec[3], now=now)
 
     def drain(self, bus: WeightBus, *, now: float = 0.0) -> int:

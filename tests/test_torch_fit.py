@@ -136,14 +136,21 @@ def test_simulate_backend_and_facade(task):
                       2)
 
 
-# The executor backend is ported; what it still lacks, train-while-serve
-# (fit(serve=...)), names its slice under the executor's id.
+# The executor backend and train-while-serve (fit(serve=...)) are
+# ported; what the executor still lacks, an LM config with MoE blocks,
+# names its slice under the executor's id.
 @pytest.mark.parametrize("backend,kw,slice_name", [
-    ("executor", {"serve": tapi.ServeConfig()}, "train-while-serve"),
+    ("executor", {"moe": True}, "MoE"),
     ("pod", {}, "pod")], ids=["executor-executor", "pod-pod"])
 def test_unported_backends_name_their_slice(backend, kw, slice_name, task):
+    cfg = TConfig(**BASE)
+    if kw.get("moe"):
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
+                                  moe=object())
+        task = None
     with pytest.raises(NotImplementedError, match=f"the {slice_name} slice"):
-        tapi.fit(TConfig(**BASE), task, backend=backend, device="cpu", **kw)
+        tapi.fit(cfg, task, backend=backend, device="cpu")
 
 
 def test_fit_validates_its_config(task):

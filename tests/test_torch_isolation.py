@@ -30,7 +30,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), leaked)
+print(len(names), leaked, ",".join(names))
 sys.exit(1 if leaked else 0)
 """
 
@@ -45,6 +45,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 19                         # the slice's modules
+    # the train-while-serve and LM-training slice's modules among them
+    names = set(proc.stdout.split()[-1].split(","))
+    assert {"repro_torch.core.train", "repro_torch.core.pff_lm",
+            "repro_torch.data.encoder", "repro_torch.kernels.guard",
+            "repro_torch.kernels.counts", "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -84,6 +90,13 @@ def test_entry_points_do_not_carry_on_on_the_cpu(monkeypatch):
     assert params["layers"][0]["w"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.serve(cfg, data.mnist_like(n_train=8, n_test=8), params=params)
+    # train-while-serve and LM chapter training
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.serve(cfg, data.mnist_like(n_train=8, n_test=8))
+    from repro_torch.configs import get_config
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.fit(get_config("qwen2-0.5b").reduced(), None, chapters=1,
+                steps_per_chapter=1, seq=8)
 
 
 def test_init_caches_defaults_to_cuda_and_raises_without_it(monkeypatch):

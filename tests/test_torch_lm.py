@@ -332,7 +332,18 @@ def test_cli_lm_mode_on_the_cpu(capsys):
     assert out[1].startswith("first generated rows:")
 
 
-def test_cli_ff_mode_is_not_ported(capsys):
+def test_cli_ff_mode_is_not_ported(monkeypatch):
+    """``--mode ff`` (now the default) is ported: without ``--device
+    cpu`` on a machine with no card it refuses to carry on on the CPU
+    (``tests/test_torch_train_while_serve.py`` runs it with
+    ``--device cpu``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--epochs", "2", "--splits", "2", "--width", "16",
+                     "--n-train", "64", "--nodes", "1"])
+
+
+def test_cli_lm_mode_needs_arch(capsys):
     with pytest.raises(SystemExit):
-        tserve.main(["--mode", "ff"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+        tserve.main(["--mode", "lm", "--device", "cpu"])
+    assert "--mode lm requires --arch" in capsys.readouterr().err

@@ -93,12 +93,12 @@ def test_ssd_chunked_matches_reference_model_path(S, chunk):
 
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     _, tx = _inputs(1, 70, 2, 16, 16)
-    before = kernel.LAUNCHES
+    before = kernel.LAUNCHES.total
     for chunk in (32, 64):
         y, hT = kernel.mamba2_ssd(*tx, chunk=chunk)
         yp, hp = kernel.mamba2_ssd_plain(*tx, chunk=chunk)
         assert torch.equal(y, yp) and torch.equal(hT, hp)
-    assert kernel.LAUNCHES == before
+    assert kernel.LAUNCHES.total == before
 
 
 @pytest.mark.parametrize("case,exc,match", [
@@ -136,11 +136,11 @@ def test_ops_cuda_impl_on_a_cpu_tensor_raises():
 @pytest.mark.parametrize("chunk", [32, 48])
 def test_ops_auto_on_a_cpu_tensor_is_ref(chunk):
     _, tx = _inputs(2, 96, 3, 16, 16, seed=3)
-    before = kernel.LAUNCHES
+    before = kernel.LAUNCHES.total
     y, hT = ops.mamba2_ssd(*tx, chunk=chunk)
     yr, hr = ref.mamba2_ssd_ref(*tx, chunk=chunk)
     assert torch.equal(y, yr) and torch.equal(hT, hr)
-    assert kernel.LAUNCHES == before
+    assert kernel.LAUNCHES.total == before
 
 
 def _chunk_cumsum(dA):

@@ -130,8 +130,9 @@ def test_serve_facade_validation(ref_params):
     cfg = TConfig(layer_sizes=SIZES)
     task = tdata.mnist_like(n_train=16, n_test=32)
     params = params_from_numpy(ref_params, "cpu")
-    with pytest.raises(NotImplementedError, match="executor"):
-        tapi.serve(cfg, task, device="cpu")
+    # no params=: train-while-serve, which needs the task to train on
+    with pytest.raises(ValueError, match="needs the training task"):
+        tapi.serve(cfg, source=tdata.source_of(task), device="cpu")
     with pytest.raises(TypeError, match="knob"):
         tapi.serve(cfg, task, params=params, device="cpu", bogus_knob=3)
     with pytest.raises(ValueError, match="unknown traffic"):
