@@ -50,17 +50,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
     a fit through the plain path must reach a test accuracy within 0.05.
 12. Attention kernel against its plain version: ``flash_attention`` at
     the qwen2-0.5b prefill shape (bf16, f32), a ragged S with a window,
-    G = 1 at hd 128, Sq != Sk non-causal, rows that see no key, and the
-    LM-training shapes (4, 8 and 16 rows of 256); a second call must give
-    bit-identical outputs.
+    G = 1 at hd 128, Sq != Sk non-causal, rows that see no key, the
+    LM-training shapes (4, 8 and 16 rows of 256), the qwen3-8b,
+    h2o-danube-3-4b (hd 120, window 4096) and recurrentgemma-2b (hd 256,
+    MQA, window 2048) prefill shapes and two ragged ones at hd 120 and
+    256; a second call must give bit-identical outputs.
 13. SSD kernel against its plain version: ``mamba2_ssd`` at the
     mamba2-780m prefill shape (strong and mild decay), a ragged S,
     chunk 128, and the LM-training shapes (4, 8 and 16 rows of S = chunk
     = 256: one chunk); a second call at the prefill shape must give
     bit-identical outputs.
 14. Timing of both (CUDA events, L2 flushed) beside the plain versions,
-    the bound and, for attention, ``F.scaled_dot_product_attention``;
-    each of the SSD's four launches alone.
+    the bound and, for attention, ``F.scaled_dot_product_attention``, at
+    the four attention prefill shapes; each of the SSD's four launches
+    alone.
 15. LM serving, the main path: ``launch.serve.lm_decode`` of qwen2-0.5b
     and mamba2-780m at full width and depth (random weights from seed 0,
     batch 4, prompt 2048, 32 tokens) in bf16 through the kernels and
@@ -110,7 +113,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
     forward).
 22. The same for mamba2-780m (1 chapter, sequential and plain): 2400
     SSD kernel calls, and the same eval CE gates.
-23. Isolation: no ``jax`` and no ``repro`` module was loaded.
+23. LM families, the main path of the dense and hybrid configs:
+    ``lm_decode`` of tinyllama-1.1b, qwen3-8b, h2o-danube-3-4b and
+    recurrentgemma-2b at published widths and depth (random weights from
+    seed 0, bf16, batch 4, prompts of 2048 / 2048 / 4608 / 4096 tokens,
+    32 tokens) through the kernels and through the plain path: 22 / 36 /
+    24 / 8 attention kernel calls per prefill, none in decode;
+    last-position prefill logits within ``LM_BF16_TOL`` of the plain
+    path, first tokens equal where its top-2 margin decides them; then
+    in f32 at full width and one unit of each group pattern, logits
+    within ``PATH_TOL`` and first tokens equal on decided rows.
+24. The reduced h2o-danube-3-4b and recurrentgemma-2b served on the card
+    (prompts past their windows of 64 and 32, so the rings wrap): kernel
+    calls, prefill logits and first tokens against the plain path.
+25. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 Phases 17-19 and 21's fits run under
 ``torch.use_deterministic_algorithms(True)`` with
@@ -190,11 +206,19 @@ QWEN_ATTN = (4, 2048, 2048, 14, 2, 64, True, None)
 # head task's 4 rows, the frozen prefixes' 8 (positives and negatives)
 # and eval's 16
 LM_TRAIN_ROWS = (4, 8, 16)
+# the qwen3-8b, h2o-danube-3-4b (its window bites at S 4608) and
+# recurrentgemma-2b (local attention, MQA) prefills of phase 23
+QWEN3_ATTN = (4, 2048, 2048, 32, 8, 128, True, None)
+DANUBE_ATTN = (4, 4608, 4608, 32, 8, 120, True, 4096)
+RG_ATTN = (4, 4096, 4096, 10, 1, 256, True, 2048)
+TIMED_ATTN = [QWEN_ATTN, QWEN3_ATTN, DANUBE_ATTN, RG_ATTN]
 FA_CHECKS = [QWEN_ATTN, (2, 333, 333, 14, 2, 64, True, 128),
              (2, 512, 512, 4, 4, 128, True, None),
              (2, 300, 700, 8, 2, 64, False, None),
              (1, 90, 40, 2, 1, 128, False, 16)] + [
-    (B, 256, 256, 14, 2, 64, True, None) for B in LM_TRAIN_ROWS]
+    (B, 256, 256, 14, 2, 64, True, None) for B in LM_TRAIN_ROWS] + [
+    QWEN3_ATTN, DANUBE_ATTN, RG_ATTN, (2, 300, 700, 8, 2, 120, False, None),
+    (1, 333, 333, 4, 1, 256, True, 100)]
 # (B, S, H, hd, N, chunk, decay): the mamba2-780m prefill first
 MAMBA_SSD = (4, 2048, 48, 64, 128, 256)
 SSD_CHECKS = [MAMBA_SSD + ("strong",), MAMBA_SSD + ("mild",),
@@ -230,6 +254,13 @@ LM_CALLS = {"qwen2-0.5b": ("flash_attention", 24),
 # where the plain path's top-2 margin exceeds F32_MARGIN
 LM_BF16_TOL = 5e-2
 F32_MARGIN = 1e-3
+# LM families (phase 23): prompt length and attention kernel calls per
+# prefill at full depth; the f32 gate's generated tokens
+LM_FAMILIES = {"tinyllama-1.1b": (2048, 22), "qwen3-8b": (2048, 36),
+               "h2o-danube-3-4b": (4608, 24), "recurrentgemma-2b": (4096, 8)}
+LM_F32_GEN = 8
+# phase 24: the reduced configs whose windows (64, 32) wrap at REDUCED_LM
+REDUCED_FAMILIES = ("h2o-danube-3-4b", "recurrentgemma-2b")
 # Train-while-serve (phase 19): the phase-17 cell served meanwhile at the
 # phase-6 traffic (uniform, 2000 req/s, batches of 64), final_probe
 # requests at the final weights
@@ -458,17 +489,29 @@ def fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype):
     return [t.to(dtype).cuda() for t in (q, k, v)]
 
 
-def fa_bound(B, Sq, Sk, H, KV, hd, causal, dtype):
+def fa_pairs(Sq, Sk, causal, window):
+    """(query, key) pairs the function reads for one head: row i sees
+    keys j < Sk with j <= i when causal and i - j < window when a window
+    is given; a row that sees none averages v over all Sk keys."""
+    i = np.arange(Sq)
+    lo = np.maximum(i - window + 1, 0) if window is not None else 0 * i
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    seen = np.maximum(hi - lo + 1, 0)
+    return int(np.where(seen > 0, seen, Sk).sum())
+
+
+def fa_bound(B, Sq, Sk, H, KV, hd, causal, dtype, window=None):
     """(f32 operations, bytes, bf16 operations) for attention: the
-    products over the visible pairs (half the dense pairs when causal),
-    against q, k, v read once and out written once. In f32 both products
+    products over the visible pairs (``fa_pairs``: causal and window
+    counted row by row), against q, k, v read once and out written
+    once. In f32 both products
     count at the f32 FMA rate. In bf16 every product counts at the bf16
     tensor-core rate: Q.K^T on the bf16 inputs at every hd (the scale
     comes after the product), and P.V as two bf16 products, P split into
     bf16(p) and bf16(p - bf16(p)) to keep the reference's f32 P; counting
     P.V at the f32 rate would bound the function by a path the kernel
     does not take."""
-    pairs = B * H * Sq * Sk / (2 if causal else 1)
+    pairs = B * H * fa_pairs(Sq, Sk, causal, window)
     nbytes = (torch.finfo(dtype).bits // 8) * hd * (2 * B * Sq * H
                                                     + 2 * B * Sk * KV)
     qk = 2 * pairs * hd
@@ -520,6 +563,51 @@ def roofline(flops, nbytes, bf16_flops=0, tf32_flops=0):
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def attention_rows(gen, shape, fa_errs, flush):
+    """14. The attention kernel at one prefill shape, bf16 and f32: its
+    time, its plain version's, one SDPA call's (a causal and window mask
+    passed as a boolean ``attn_mask`` where a window is given) and the
+    bound. Returns the two kernels-line rows."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, Sk, H, KV, hd, causal, window = shape
+    mask = None
+    if window is not None:
+        qpos = torch.arange(Sq, device="cuda")[:, None]
+        kpos = torch.arange(Sk, device="cuda")[None, :]
+        mask = (qpos - kpos < window) & ((qpos >= kpos) if causal else True)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        call = dict(causal=causal, window=window)
+        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, **call), flush)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **call),
+                           flush)
+        library_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True), flush)
+        bound_ms, bound_by = roofline(*fa_bound(B, Sq, Sk, H, KV, hd, causal,
+                                                dtype, window))
+        rows.append({
+            "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+            "replaces": FA_REPLACES, "shape": [B, Sq, Sk, H, KV, hd],
+            "causal": causal, "window": window, "dtype": str(dtype)[6:],
+            "launches": None, "max_abs_err": fa_errs[shape + (dtype,)],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention(enable_gqa=True; "
+                       "is_causal=True, or the causal and window mask as "
+                       "attn_mask) on (B, H, S, hd) copies, TF32 off"})
+        print(f"[14 time] flash_attention {shape} {str(dtype)[6:]}: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"{fa_pairs(Sq, Sk, causal, window)} pairs a head)")
+        del q, k, v, qt, kt, vt
+    return rows
 
 
 def phase_reduced_ssd(gen, data):
@@ -584,11 +672,8 @@ def phase_reduced_ssd(gen, data):
           "reduced mamba2: generated tokens of the wrong shape or range")
     prompts = torch.as_tensor(next(iter(data.lm_batches(
         cfg.vocab, batch, prompt - 1, 1, 0))), device="cuda")
-    with torch.no_grad():
-        lk, _ = transformer.prefill(params, cfg, prompts, last_only=True)
-        lr, _ = transformer.prefill(params, cfg, prompts, last_only=True,
-                                    impl="ref")
-    lk, lr = lk[:, :cfg.vocab], lr[:, :cfg.vocab]
+    lk, lr = lm_gate("reduced mamba2", cfg, params, prompts, prompt + n_gen,
+                     calls, "[16 reduced lm]", "mamba2_ssd")
     e = scaled_err(lk, lr)
     decided = top2_margin(lr) > F32_MARGIN
     same = gk[:, 0] == res_ref["generated"][:, 0]
@@ -611,6 +696,218 @@ def phase_reduced_ssd(gen, data):
         "bound_by": bound_by, "library_ms": None,
         "library": "none: no single PyTorch call computes the SSD scan",
         "path": "lm_decode of the reduced mamba2-780m config"}
+
+
+def attention_calls(cfg):
+    """Attention kernel calls a prefill of ``cfg`` makes: one per ``attn``
+    or ``local_attn`` block."""
+    return sum(r * sum(k in ("attn", "local_attn") for k in p)
+               for p, r in cfg.groups)
+
+
+def cut_depth(cfg):
+    """``cfg`` in f32 with one unit of each group pattern (the f32 gate's
+    depth): widths unchanged."""
+    groups = tuple((p, 1) for p, _ in cfg.groups)
+    return dataclasses.replace(cfg, dtype="float32", groups=groups,
+                               num_layers=sum(len(p) for p, _ in groups))
+
+
+def lm_gate(name, cfg, params, prompts, max_len, calls, tag,
+            op="flash_attention"):
+    """Prefill ``prompts`` through the kernels (``calls`` launches of
+    ``op``'s kernel and none of the other, counts zeroed first) and the
+    plain route, with three decode steps between them that must launch
+    nothing. Returns the last-position logits over the real vocab,
+    kernel and plain."""
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.models import transformer
+
+    counter, other = (fa, ssd) if op == "flash_attention" else (ssd, fa)
+    S = prompts.shape[1]
+    with torch.no_grad():
+        counts.reset(fa, ssd)
+        lk, caches = transformer.prefill(params, cfg, prompts,
+                                         max_len=max_len, last_only=True)
+        check(counter.LAUNCHES.total == calls and other.LAUNCHES.total == 0,
+              f"{tag} {name}: prefill made {counter.LAUNCHES.total} {op} "
+              f"kernel calls, expected {calls}")
+        tok = lk.argmax(-1)
+        for i in range(3):
+            _, caches = transformer.serve_step(params, cfg, caches, tok,
+                                               S + i)
+        torch.cuda.synchronize()
+        check(counter.LAUNCHES.total == calls and other.LAUNCHES.total == 0,
+              f"{tag} {name}: decode launched a kernel")
+        del caches
+        lr, _ = transformer.prefill(params, cfg, prompts, max_len=max_len,
+                                    last_only=True, impl="ref")
+    check(counter.LAUNCHES.total == calls and other.LAUNCHES.total == 0,
+          f"{tag} {name}: impl='ref' launched a kernel")
+    return lk[:, :cfg.vocab], lr[:, :cfg.vocab]
+
+
+def phase_lm_families(data):
+    """23. The dense and hybrid configs served at published widths and
+    depth in bf16 (the main path: counts zeroed just before the kernel
+    route's ``lm_decode`` and read just after), then gated in f32 at
+    ``cut_depth``. Returns the main paths' attention kernel calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import lm_decode
+    from repro_torch.models import transformer
+
+    total = 0
+    for name, (prompt, calls) in LM_FAMILIES.items():
+        cfg = get_config(name)
+        check(attention_calls(cfg) == calls, f"{name}: the config has "
+              f"{attention_calls(cfg)} attention blocks, expected {calls}")
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        n_params = transformer.param_count(params)
+
+        def run(impl, gen=LM_GEN, cfg=cfg, params=params):
+            return lm_decode(cfg, batch=LM_BATCH, prompt_len=prompt, gen=gen,
+                             seed=0, params=params, impl=impl)
+
+        for impl in ("auto", "ref"):
+            run(impl, gen=2)
+        counts.reset(fa, ssd)
+        res = run("auto")
+        launches = fa.LAUNCHES.total
+        check(launches == calls and ssd.LAUNCHES.total == 0,
+              f"{name}: lm_decode made {launches} attention kernel calls "
+              f"(and {ssd.LAUNCHES.total} SSD), expected {calls} and 0")
+        total += launches
+        res_ref = run("ref")
+        check(fa.LAUNCHES.total == calls, f"{name}: impl='ref' launched the "
+              f"attention kernel")
+        gk, gr = res["generated"], res_ref["generated"]
+        check(gk.shape == (LM_BATCH, LM_GEN) and bool(
+            ((gk >= 0) & (gk < cfg.vocab)).all()),
+              f"{name}: generated tokens of the wrong shape or range")
+        prompts = torch.as_tensor(next(iter(data.lm_batches(
+            cfg.vocab, LM_BATCH, prompt - 1, 1, 0))), device="cuda")
+        lk, lr = lm_gate(name, cfg, params, prompts, prompt + LM_GEN, calls,
+                         "[23 lm-families]")
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        e = scaled_err(lk, lr)
+        # rows whose first token the measured logit difference cannot flip
+        decided = top2_margin(lr) > 2 * float((lk - lr).abs().max())
+        same = gk[:, 0] == gr[:, 0]
+        agree = float((gk == gr).float().mean())
+        print(f"[23 lm-families] {name} bf16 ({n_params / 1e9:.3f} B "
+              f"params; B {LM_BATCH}, prompt {prompt}, gen {LM_GEN}): "
+              f"{launches} flash_attention calls in prefill, 0 in decode; "
+              f"last-position prefill logits kernel vs plain err {e:.3e} "
+              f"(<= {LM_BF16_TOL}); first token equal on "
+              f"{int(same[decided].sum())}/{int(decided.sum())} rows whose "
+              f"plain top-2 margin exceeds twice the largest logit "
+              f"difference ({int(same.sum())}/{LM_BATCH} in all); greedy "
+              f"tokens agree {agree:.4f}; prefill s kernel / plain "
+              f"{res['prefill_s']:.4f} / {res_ref['prefill_s']:.4f}; "
+              f"decode tok/s {res['decode_tok_per_s']:.2f} / "
+              f"{res_ref['decode_tok_per_s']:.2f}")
+        print(json.dumps({"lm": name, "dtype": "bfloat16",
+                          "batch": LM_BATCH, "prompt": prompt,
+                          "gen": LM_GEN, "params": n_params,
+                          "kernel": {k: res[k] for k in (
+                              "prefill_s", "decode_s", "decode_tok_per_s")},
+                          "plain": {k: res_ref[k] for k in (
+                              "prefill_s", "decode_s", "decode_tok_per_s")},
+                          "kernel_calls": launches, "logit_err": e,
+                          "token_agreement": agree}))
+        check(e <= LM_BF16_TOL, f"{name}: prefill logits, kernel path vs "
+              f"plain path, {e} > {LM_BF16_TOL}")
+        check(bool(same[decided].all()), f"{name} bf16: first generated "
+              f"tokens differ from the plain path on decided rows")
+        del params, res, res_ref, lk, lr, run
+        torch.cuda.empty_cache()
+
+        cfg32 = cut_depth(cfg)
+        calls32 = attention_calls(cfg32)
+        p32 = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg32)
+        res = lm_decode(cfg32, batch=LM_BATCH, prompt_len=prompt,
+                        gen=LM_F32_GEN, seed=0, params=p32)
+        res_ref = lm_decode(cfg32, batch=LM_BATCH, prompt_len=prompt,
+                            gen=LM_F32_GEN, seed=0, params=p32, impl="ref")
+        lk, lr = lm_gate(name, cfg32, p32, prompts, prompt + LM_F32_GEN,
+                         calls32, "[23 lm-families] f32")
+        e = scaled_err(lk, lr)
+        decided = top2_margin(lr) > F32_MARGIN
+        same = res["generated"][:, 0] == res_ref["generated"][:, 0]
+        print(f"[23 lm-families] {name} f32 at one unit of each group "
+              f"({cfg32.num_layers} blocks, {calls32} attention calls): "
+              f"last-position prefill logits kernel vs plain err {e:.3e} "
+              f"(<= {PATH_TOL}); first token equal on "
+              f"{int(same[decided].sum())}/{int(decided.sum())} rows with "
+              f"top-2 margin > {F32_MARGIN}; prefill s kernel / plain "
+              f"{res['prefill_s']:.4f} / {res_ref['prefill_s']:.4f}")
+        check(e <= PATH_TOL, f"{name} f32: prefill logits, kernel path vs "
+              f"plain path, {e} > {PATH_TOL}")
+        check(bool(same[decided].all()), f"{name} f32: first generated "
+              f"tokens differ from the plain path on decided rows")
+        del p32, res, res_ref, lk, lr, prompts
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_reduced_families(data):
+    """24. The reduced h2o-danube-3-4b and recurrentgemma-2b (f32, hd 64)
+    served on the card at ``REDUCED_LM``, prompts past their windows:
+    attention kernel calls of the main path (counts zeroed just before),
+    prefill logits and first tokens against the plain path. Returns the
+    calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import lm_decode
+    from repro_torch.models import transformer
+
+    batch, prompt, n_gen = REDUCED_LM
+    total = 0
+    for name in REDUCED_FAMILIES:
+        cfg = get_config(name).reduced()
+        calls = attention_calls(cfg)
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        counts.reset(fa, ssd)
+        res = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen,
+                        seed=0, params=params)
+        launches = fa.LAUNCHES.total
+        check(launches == calls and ssd.LAUNCHES.total == 0,
+              f"reduced {name}: lm_decode made {launches} attention kernel "
+              f"calls, expected {calls}")
+        total += launches
+        res_ref = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen,
+                            seed=0, params=params, impl="ref")
+        gk = res["generated"]
+        check(gk.shape == (batch, n_gen) and bool(
+            ((gk >= 0) & (gk < cfg.vocab)).all()),
+              f"reduced {name}: generated tokens of the wrong shape or range")
+        prompts = torch.as_tensor(next(iter(data.lm_batches(
+            cfg.vocab, batch, prompt - 1, 1, 0))), device="cuda")
+        lk, lr = lm_gate(name, cfg, params, prompts, prompt + n_gen, calls,
+                         "[24 reduced families]")
+        e = scaled_err(lk, lr)
+        decided = top2_margin(lr) > F32_MARGIN
+        same = gk[:, 0] == res_ref["generated"][:, 0]
+        window = (cfg.rglru.window if cfg.rglru else cfg.window)
+        print(f"[24 reduced families] {cfg.name} (B {batch}, prompt "
+              f"{prompt}, gen {n_gen}, window {window}, {cfg.dtype}): "
+              f"{launches} flash_attention calls in prefill; last-position "
+              f"prefill logits kernel vs plain err {e:.3e} (<= {PATH_TOL}); "
+              f"first token equal on {int(same[decided].sum())}/"
+              f"{int(decided.sum())} decided rows; greedy tokens agree "
+              f"{float((gk == res_ref['generated']).float().mean()):.4f}")
+        check(bool(torch.isfinite(lk).all()) and e <= PATH_TOL,
+              f"reduced {name}: prefill logits, kernel vs plain, {e}")
+        check(bool(same[decided].all()), f"reduced {name}: first generated "
+              f"tokens differ from the plain path on decided rows")
+    return total
 
 
 def phase_executor(api, data, base_cfg, kernel, vjp):
@@ -1772,30 +2069,8 @@ def main():
     # 14. timing of both beside their bounds -----------------------------
     flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
     lm_rows = []
-    B, Sq, Sk, H, KV, hd, causal, window = QWEN_ATTN
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v), flush)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), flush)
-        library_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
-        bound_ms, bound_by = roofline(*fa_bound(B, Sq, Sk, H, KV, hd, causal,
-                                                dtype))
-        lm_rows.append({
-            "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
-            "replaces": FA_REPLACES, "shape": [B, Sq, Sk, H, KV, hd],
-            "causal": True, "dtype": str(dtype)[6:], "launches": None,
-            "max_abs_err": fa_errs[QWEN_ATTN + (dtype,)], "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "library": "F.scaled_dot_product_attention(is_causal=True, "
-                       "enable_gqa=True) on (B, H, S, hd) copies, TF32 off"})
-        print(f"[14 time] flash_attention {QWEN_ATTN} {str(dtype)[6:]}: "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        del q, k, v, qt, kt, vt
+    for shape in TIMED_ATTN:
+        lm_rows += attention_rows(gen, shape, fa_errs, flush)
     B, S, H, hd, N, chunk = MAMBA_SSD
     xbar, dA, b, c = ssd_inputs(gen, B, S, H, hd, N, "mild")
     kernel_ms = time_ms(lambda: ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk),
@@ -1878,25 +2153,8 @@ def main():
         # the prefill alone, each path: kernel calls, logits, and decode
         prompts = torch.as_tensor(next(iter(data.lm_batches(
             cfg.vocab, LM_BATCH, LM_PROMPT - 1, 1, 0))), device="cuda")
-        with torch.no_grad():
-            counts.reset(fa, ssd)
-            lk, caches = transformer.prefill(params, cfg, prompts,
-                                             max_len=LM_PROMPT + LM_GEN,
-                                             last_only=True)
-            check(counter.LAUNCHES.total == calls,
-                  f"{name}: prefill made {counter.LAUNCHES.total} kernel "
-                  f"calls")
-            tok = lk.argmax(-1)
-            for i in range(3):
-                _, caches = transformer.serve_step(params, cfg, caches, tok,
-                                                   LM_PROMPT + i)
-            torch.cuda.synchronize()
-            check(fa.LAUNCHES.total + ssd.LAUNCHES.total == calls,
-                  f"{name}: decode launched a kernel")
-            lr, _ = transformer.prefill(params, cfg, prompts,
-                                        max_len=LM_PROMPT + LM_GEN,
-                                        last_only=True, impl="ref")
-        lk, lr = lk[:, :cfg.vocab], lr[:, :cfg.vocab]
+        lk, lr = lm_gate(name, cfg, params, prompts, LM_PROMPT + LM_GEN,
+                         calls, "[15 lm]", op)
         check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
         e = scaled_err(lk, lr)
         print(f"[15 lm] {name} bf16 (B {LM_BATCH}, prompt {LM_PROMPT}, gen "
@@ -1919,7 +2177,7 @@ def main():
                           "token_agreement": agree}))
         check(e <= LM_BF16_TOL, f"{name}: prefill logits, kernel path vs "
               f"plain path, {e} > {LM_BF16_TOL}")
-        del params, caches, res, res2, res_ref, res_ref2
+        del params, res, res2, res_ref, res_ref2
 
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         p32 = transformer.init(torch.Generator(device="cuda").manual_seed(0),
@@ -1928,11 +2186,8 @@ def main():
             run_lm(cfg32, p32, impl, gen=2)
         res = run_lm(cfg32, p32, "auto")
         res_ref = run_lm(cfg32, p32, "ref")
-        with torch.no_grad():
-            lk, _ = transformer.prefill(p32, cfg32, prompts, last_only=True)
-            lr, _ = transformer.prefill(p32, cfg32, prompts, last_only=True,
-                                        impl="ref")
-        lk, lr = lk[:, :cfg.vocab], lr[:, :cfg.vocab]
+        lk, lr = lm_gate(name, cfg32, p32, prompts, LM_PROMPT + LM_GEN, calls,
+                         "[15 lm] f32", op)
         decided = top2_margin(lr) > F32_MARGIN
         same = res["generated"][:, 0] == res_ref["generated"][:, 0]
         e = scaled_err(lk, lr)
@@ -1990,11 +2245,18 @@ def main():
     for row in lm_rows:
         row["launches"] += lm_train_calls[row["name"]]
 
-    # 23. isolation --------------------------------------------------------
+    # 23-24. the dense and hybrid configs: the main path at full size, and
+    # the reduced windowed ones -------------------------------------------
+    family_calls = phase_lm_families(data) + phase_reduced_families(data)
+    for row in lm_rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += family_calls
+
+    # 25. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[23 isolation] no jax, no repro module loaded")
+    print("[25 isolation] no jax, no repro module loaded")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,11 @@ by *groups*: ``(pattern, repeat)``, where ``pattern`` is a tuple of
 block kinds whose parameters are stacked on a leading ``repeat`` axis,
 as in the reference, so its parameter tree converts one to one.
 
-Only the configs whose blocks the port can run are registered
-(``qwen2-0.5b``: ``attn``; ``mamba2-780m``: ``mamba2``); the others
-wait for their block kinds (``ROADMAP.md`` §1).
+Only the configs whose blocks the port can run are registered:
+``qwen2-0.5b``, ``tinyllama-1.1b``, ``qwen3-8b`` and ``h2o-danube-3-4b``
+(``attn``), ``mamba2-780m`` (``mamba2``) and ``recurrentgemma-2b``
+(``rglru`` and ``local_attn``). The MoE, vision and audio configs wait
+for their block kinds (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 
@@ -27,6 +29,13 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0          # 0 -> d_model
+    conv_width: int = 4
+    window: int = 2048          # local-attn window used by hybrid attn blocks
+
+
+@dataclasses.dataclass(frozen=True)
 class FFConfig:
     """Forward-Forward training configuration of an LM (the reference's
     ``FFConfig``)."""
@@ -41,9 +50,9 @@ class ModelConfig:
     """The reference's ``ModelConfig`` fields that the port's blocks and
     LM trainers read. ``moe`` and ``enc_dec`` are kept so that a config
     that sets them is refused by name (``NotImplementedError``); the
-    RG-LRU, encoder and vision fields wait for their slices."""
+    encoder and vision fields wait for their slices."""
     name: str
-    arch_type: str                       # dense | ssm
+    arch_type: str                       # dense | ssm | hybrid
     num_layers: int
     d_model: int
     n_heads: int
@@ -62,6 +71,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     moe: Optional[object] = None         # MoE blocks: not ported yet
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     ff: FFConfig = dataclasses.field(default_factory=FFConfig)
     enc_dec: bool = False                # encoder-decoder: not ported yet
     dtype: str = "bfloat16"
@@ -99,12 +109,16 @@ class ModelConfig:
         if self.ssm is not None:
             ssm = dataclasses.replace(self.ssm, state_dim=16, head_dim=32,
                                       chunk=32)
+        rglru = None
+        if self.rglru is not None:
+            rglru = dataclasses.replace(self.rglru, lru_width=d_model,
+                                        window=32)
         return dataclasses.replace(
             self, name=self.name + "-smoke", num_layers=nl, d_model=d_model,
             n_heads=n_heads, n_kv=n_kv, d_ff=2 * d_model,
             vocab=min(self.vocab, 512), head_dim=0, groups=groups,
             window=min(self.window, 64) if self.window else None,
-            ssm=ssm, dtype="float32")
+            ssm=ssm, rglru=rglru, dtype="float32")
 
 
 def _reduce_groups(groups, layers_hint):
@@ -149,4 +163,6 @@ def list_configs():
 
 
 def load_all():
-    from repro_torch.configs import mamba2_780m, qwen2_0_5b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        h2o_danube_3_4b, mamba2_780m, qwen2_0_5b, qwen3_8b,
+        recurrentgemma_2b, tinyllama_1_1b)

@@ -31,6 +31,17 @@
 //     alone, and read every k tile with a score of 0.
 //   * l is clamped at 1e-30 before the division, as in the reference.
 //
+// Head widths: 64 (qwen2, tinyllama), 120 (h2o-danube), 128 (qwen3) and
+// 256 (recurrentgemma), each a template instance of both kernels. Rows
+// are kept in shared memory padded to whole 64-column groups (120 ->
+// 128): the pad columns of q, k and v are zero-filled, add nothing to
+// Q.K^T, and give output columns that are never stored, so hd 120 runs
+// the hd-128 arithmetic on 128 / 120 of its work. At hd 256 the bf16
+// kernel's output accumulator is 128 f32 registers a thread and its
+// shared memory 193 KB (the f32 kernel's 217 KB): one block an SM, up
+// to 255 registers a thread; P.V is two m64n128k16 products per 16 keys,
+// one on each half of v's panels.
+//
 // Bound: at the qwen2-0.5b prefill (B 4, S 2048, H 14, KV 2, hd 64,
 // causal) Q.K^T and P.V each do 2 * B * H * hd * S^2 / 2 = 15 GFLOP on
 // ~34 MB of q, k, v and out (bf16), so operations bound both kernels.
@@ -63,7 +74,7 @@
 //     f32 registers; each row lives in one quad of lanes and is reduced with
 //     a fixed xor tree, so all four agree bit for bit. Masks are applied
 //     only on tiles some row of the warp cannot fully see. Two blocks share
-//     an SM (128 registers a thread).
+//     an SM (128 registers a thread) up to hd 128.
 //   * Grid (B * H, q tiles) with the q tiles in the slow axis, last
 //     first: under a causal mask the heaviest tiles of every head are
 //     issued before any light one.
@@ -117,27 +128,44 @@ __device__ __forceinline__ int key_hi(int i, int Sk, int causal) {
   return causal ? min(i, Sk - 1) : Sk - 1;
 }
 
+// hd rounded up to whole 64-column groups (120 -> 128): the kernels keep
+// v (and, in bf16, q and k) in shared memory padded with zero columns,
+// which add nothing to Q.K^T and give output columns that are not
+// stored.
+template <int HD>
+__host__ __device__ constexpr int padded() {
+  return (HD + 63) / 64 * 64;
+}
+
+// Blocks an SM holds: at hd 256 one, so that a thread may use up to 255
+// registers (the output alone takes 128 in bf16).
+template <int HD>
+__host__ __device__ constexpr int min_blocks() {
+  return HD > 128 ? 1 : 2;
+}
+
 template <int HD>
 constexpr size_t smem_floats() {
-  return (size_t)HD * (BQ + TPAD)       // Qt: q tile, transposed, scaled
-         + (size_t)HD * (BKV + TPAD)    // Kt: k tile, transposed
-         + (size_t)BKV * HD             // Vs: v tile
-         + (size_t)BKV * (BQ + TPAD);   // Pt: probabilities, transposed
+  return (size_t)HD * (BQ + TPAD)             // Qt: q tile, transposed, scaled
+         + (size_t)HD * (BKV + TPAD)          // Kt: k tile, transposed
+         + (size_t)BKV * padded<HD>()         // Vs: v tile, zero-padded
+         + (size_t)BKV * (BQ + TPAD);         // Pt: probabilities, transposed
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, min_blocks<HD>())
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk, int H,
           int KV, int causal, int has_window, int window, float scale) {
-  constexpr int NC = HD / 64;   // 4-wide output column groups per thread
+  constexpr int HP = padded<HD>();
+  constexpr int NC = HP / 64;   // 4-wide output column groups per thread
   constexpr int QLD = BQ + TPAD;
   constexpr int KLD = BKV + TPAD;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);
   float* Kt = Qt + HD * QLD;
   float* Vs = Kt + HD * KLD;
-  float* Pt = Vs + BKV * HD;
+  float* Pt = Vs + BKV * HP;
 
   const int tid = threadIdx.x;
   const int ty = tid / 16;      // row group: rows ty*4 .. ty*4+3
@@ -186,12 +214,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();   // the previous tile's Kt, Vs and Pt are consumed
-    for (int e = tid; e < BKV * HD; e += THREADS) {
-      const int r = e / HD, d = e % HD;
+    for (int e = tid; e < BKV * HP; e += THREADS) {
+      const int r = e / HP, d = e % HP;
       const int s = k0 + r;
-      const bool in = s < Sk;
-      Kt[d * KLD + r] = in ? to_f32(kb[(size_t)s * k_stride + d]) : 0.f;
-      Vs[r * HD + d] = in ? to_f32(vb[(size_t)s * k_stride + d]) : 0.f;
+      const bool in = s < Sk && d < HD;
+      if (d < HD)
+        Kt[d * KLD + r] = in ? to_f32(kb[(size_t)s * k_stride + d]) : 0.f;
+      Vs[r * HP + d] = in ? to_f32(vb[(size_t)s * k_stride + d]) : 0.f;
     }
     __syncthreads();
 
@@ -264,7 +293,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int g = 0; g < NC; ++g) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(&Vs[c * HD + g * 64 + tx * 4]);
+            *reinterpret_cast<const float4*>(&Vs[c * HP + g * 64 + tx * 4]);
         const float vw[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -284,8 +313,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < NC; ++g)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        ob[(size_t)s * q_stride + g * 64 + tx * 4 + j] =
-            from_f32<T>(acc[i][g * 4 + j] / denom);
+        if (g * 64 + tx * 4 + j < HD)   // padded columns are not stored
+          ob[(size_t)s * q_stride + g * 64 + tx * 4 + j] =
+              from_f32<T>(acc[i][g * 4 + j] / denom);
   }
 }
 
@@ -322,7 +352,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
 constexpr size_t smem_bytes() {          // + 1024 for the alignment below
-  return (size_t)(BQ + 2 * NSTAGE * BKV) * HD * sizeof(bf16) + 1024;
+  return (size_t)(BQ + 2 * NSTAGE * BKV) * padded<HD>() * sizeof(bf16) +
+         1024;
 }
 
 // Element (r, c) of a ROWS-row tile kept as 64-column panels, each in
@@ -349,16 +380,17 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // A ROWS x HD tile from rows row0.. of src (stride elements apart) into
-// swizzled panels; rows at or past `rows` are zero-filled.
+// swizzled panels padded to padded<HD>() columns; rows at or past `rows`
+// and the pad columns are zero-filled.
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           size_t stride, int row0, int rows,
                                           int tid) {
-  constexpr int CPR = HD / 8;   // 16-byte chunks a row
+  constexpr int CPR = padded<HD>() / 8;   // 16-byte chunks a padded row
 #pragma unroll
   for (int e = tid; e < ROWS * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * 8;
-    const bool in = row0 + r < rows;
+    const bool in = row0 + r < rows && c < HD;
     const bf16* g = in ? src + (size_t)(row0 + r) * stride + c : src;
     cp_async16(smem_u32(dst + sw<ROWS>(r, c)), g, in);
   }
@@ -471,20 +503,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(o, a, db);
+// o (64 x HP) += A (64 x 16 keys, registers) . V (keys 16kk.., smem,
+// MN-major): one m64n64k16 at HP 64, one m64n128k16 per 128 columns
+// above (two at HP 256, each on its half of o and of v's panels).
+template <int HP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HP / 2],
+                                         const uint32_t (&a)[4],
+                                         const bf16* Vt, int kk) {
+  if constexpr (HP == 64) {
+    wgmma_rs_n64(o, a, desc(Vt + sw<BKV>(kk * 16, 0), BKV * 128, 1024));
+  } else {
+    static_assert(HP % 128 == 0, "P.V takes 64 or a multiple of 128 columns");
+#pragma unroll
+    for (int n0 = 0; n0 < HP; n0 += 128)
+      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + n0 / 2), a,
+                    desc(Vt + sw<BKV>(kk * 16, n0), BKV * 128, 1024));
+  }
 }
 
 // 2^x on the MUFU unit (relative error ~2^-22; -inf gives +0).
@@ -507,21 +541,22 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, min_blocks<HD>())
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
              int Sk, int H, int KV, int causal, int has_window, int window,
              float scale_log2) {
   constexpr int NS = NSTAGE;
-  constexpr int KD = HD / 16;    // k steps of Q.K^T
-  constexpr int ND = HD / 8;     // 8-column groups of the output
+  constexpr int HP = padded<HD>();   // shared-memory row width
+  constexpr int KD = HP / 16;    // k steps of Q.K^T
+  constexpr int ND = HP / 8;     // 8-column groups of the output
   constexpr int NK = BKV / 8;    // 8-key groups of the scores
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned: the swizzle acts on address bits 4-9
   bf16* Qs = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* Ks = Qs + BQ * HD;
-  bf16* Vs = Ks + NS * BKV * HD;
+  bf16* Ks = Qs + BQ * HP;
+  bf16* Vs = Ks + NS * BKV * HP;
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;                  // this thread's warpgroup
@@ -553,8 +588,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int s = 0; s < NS - 1; ++s) {
     if (s < n_tiles) {
       const int k0 = (kt_begin + s) * BKV;
-      load_tile<HD, BKV>(Ks + s * BKV * HD, kb, k_stride, k0, Sk, tid);
-      load_tile<HD, BKV>(Vs + s * BKV * HD, vb, k_stride, k0, Sk, tid);
+      load_tile<HD, BKV>(Ks + s * BKV * HP, kb, k_stride, k0, Sk, tid);
+      load_tile<HD, BKV>(Vs + s * BKV * HP, vb, k_stride, k0, Sk, tid);
     }
     cp_async_commit();
   }
@@ -565,7 +600,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int w_hi_first = key_hi(w0, Sk, causal);
   int lo[2], hi[2];
   bool empty[2];
-  float m[2], l[2], o[HD / 2];   // o[4j + e]: column 8j + 2tig + e % 2
+  float m[2], l[2], o[HP / 2];   // o[4j + e]: column 8j + 2tig + e % 2
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int qi = w0 + g + 8 * hf;
@@ -576,7 +611,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[hf] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HP / 2; ++i) o[i] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = (kt_begin + t) * BKV;
@@ -587,13 +622,13 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int tn = t + NS - 1;
       if (tn < n_tiles) {
         const int st = tn % NS, kn = (kt_begin + tn) * BKV;
-        load_tile<HD, BKV>(Ks + st * BKV * HD, kb, k_stride, kn, Sk, tid);
-        load_tile<HD, BKV>(Vs + st * BKV * HD, vb, k_stride, kn, Sk, tid);
+        load_tile<HD, BKV>(Ks + st * BKV * HP, kb, k_stride, kn, Sk, tid);
+        load_tile<HD, BKV>(Vs + st * BKV * HP, vb, k_stride, kn, Sk, tid);
       }
       cp_async_commit();
     }
-    const bf16* Kt = Ks + (t % NS) * BKV * HD;
-    const bf16* Vt = Vs + (t % NS) * BKV * HD;
+    const bf16* Kt = Ks + (t % NS) * BKV * HP;
+    const bf16* Vt = Vs + (t % NS) * BKV * HP;
 
     // S = Q . K^T over the warpgroup's 64 rows; s[4j + e] holds key
     // 8j + 2tig + e % 2 of row g + 8 (e / 2).
@@ -676,9 +711,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint64_t dv = desc(Vt + sw<BKV>(kk * 16, 0), BKV * 128, 1024);
-      wgmma_pv<HD>(o, ph[kk], dv);
-      wgmma_pv<HD>(o, pl[kk], dv);
+      wgmma_pv<HP>(o, ph[kk], Vt, kk);
+      wgmma_pv<HP>(o, pl[kk], Vt, kk);
     }
     wgmma_commit();
     wgmma_wait();
@@ -694,9 +728,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* orow = ob + (size_t)row * q_stride + 2 * tig;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o[4 * j + 2 * hf] / denom,
-                                o[4 * j + 2 * hf + 1] / denom);
+      if (j * 8 < HD)   // padded columns are not stored
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+            __floats2bfloat162_rn(o[4 * j + 2 * hf] / denom,
+                                  o[4 * j + 2 * hf + 1] / denom);
   }
 }
 
@@ -722,14 +757,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// dtype: 0 = float32 (flash_fwd), 1 = bfloat16 (flash_fwd_tc); hd: 64,
+// 120, 128 or 256. One launch on `stream`; returns cudaGetLastError()
+// after it (0 = success). Does not synchronise.
+template <int HD>
+cudaError_t launch_dtype(const void* q, const void* k, const void* v,
+                         void* out, int B, int Sq, int Sk, int H, int KV,
+                         int causal, int has_window, int window, float scale,
+                         int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<HD>(q, k, v, out, B, Sq, Sk, H, KV, causal, has_window,
+                      window, scale, s);
+  if (dtype == 1)
+    return tc::launch<HD>(q, k, v, out, B, Sq, Sk, H, KV, causal, has_window,
+                          window, scale, s);
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (flash_fwd), 1 = bfloat16 (flash_fwd_tc); hd: 64 or
-// 128. One launch on `stream`; returns cudaGetLastError() after it
-// (0 = success). Does not synchronise.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int Sq, int Sk, int H, int KV,
                            int hd, int causal, int has_window, int window,
@@ -737,21 +785,26 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return static_cast<int>(launch<64>(q, k, v, out, B, Sq, Sk, H, KV, causal,
-                                       has_window, window, scale, s));
-  if (dtype == 0 && hd == 128)
-    return static_cast<int>(launch<128>(q, k, v, out, B, Sq, Sk, H, KV,
-                                        causal, has_window, window, scale, s));
-  if (dtype == 1 && hd == 64)
-    return static_cast<int>(tc::launch<64>(q, k, v, out, B, Sq, Sk, H, KV,
-                                           causal, has_window, window, scale,
-                                           s));
-  if (dtype == 1 && hd == 128)
-    return static_cast<int>(tc::launch<128>(q, k, v, out, B, Sq, Sk, H, KV,
-                                            causal, has_window, window, scale,
-                                            s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 64:
+      return static_cast<int>(launch_dtype<64>(q, k, v, out, B, Sq, Sk, H,
+                                               KV, causal, has_window, window,
+                                               scale, dtype, s));
+    case 120:
+      return static_cast<int>(launch_dtype<120>(q, k, v, out, B, Sq, Sk, H,
+                                                KV, causal, has_window,
+                                                window, scale, dtype, s));
+    case 128:
+      return static_cast<int>(launch_dtype<128>(q, k, v, out, B, Sq, Sk, H,
+                                                KV, causal, has_window,
+                                                window, scale, dtype, s));
+    case 256:
+      return static_cast<int>(launch_dtype<256>(q, k, v, out, B, Sq, Sk, H,
+                                                KV, causal, has_window,
+                                                window, scale, dtype, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* flash_attention_error_string(int err) {

@@ -14,10 +14,11 @@ registers and skip fully masked k tiles. One call is one CUDA launch;
 
 ``flash_attention`` takes q (B, Sq, H, hd) and k, v (B, Sk, KV, hd), all
 f32 or all bf16, and returns (B, Sq, H, hd) in q's dtype. The kernel
-takes hd in {64, 128} and any Sq, Sk (ragged tiles are masked). On CUDA
-tensors it launches the kernel or raises; on CPU tensors it computes the
-same function with ``flash_attention_plain``, because the kernel cannot
-run there.
+takes hd in ``KERNEL_HEAD_DIMS`` (64, 120, 128, 256) and any Sq, Sk
+(ragged tiles are masked); it pads hd 120 to 128 with zero columns in
+shared memory. On CUDA tensors it launches the kernel or raises; on CPU
+tensors it computes the same function with ``flash_attention_plain``,
+because the kernel cannot run there.
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ from repro_torch.kernels import _build, counts
 from repro_torch.kernels.guard import refuse_autograd
 
 NEG_INF = -1e30
-# Head widths the kernel is compiled for (qwen2: 64; the other configs
-# of the reference: 128).
-KERNEL_HEAD_DIMS = (64, 128)
+# Head widths the kernel is compiled for: qwen2-0.5b and tinyllama-1.1b
+# 64, h2o-danube-3-4b 120, qwen3-8b 128, recurrentgemma-2b 256.
+KERNEL_HEAD_DIMS = (64, 120, 128, 256)
 
 # Calls that launched the CUDA kernel (1 CUDA launch each) in this
 # process. chip_smoke.py zeroes it before an LM prefill and reads it

@@ -1,3 +1,3 @@
-"""LM models of the port: the ``attn`` and ``mamba2`` blocks, the
-transformer assembly with prefill and one-token decode (own copies of
-``repro.models``)."""
+"""LM models of the port: the ``attn``, ``local_attn``, ``mamba2`` and
+``rglru`` blocks, the transformer assembly with prefill and one-token
+decode (own copies of ``repro.models``)."""

@@ -1,11 +1,13 @@
 """Block-level init/apply/prefill/decode dispatch (own copy of
 ``repro.models.blocks`` for the kinds the port runs).
 
-Block kinds: ``attn`` (GQA self-attention, optional sliding window,
-followed by a dense MLP) and ``mamba2`` (SSD, followed by a dense MLP
-only when ``d_ff`` > 0). Every block is pre-norm residual. The other
-kinds of the reference raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+Block kinds: ``attn`` (GQA self-attention, optional sliding window
+``cfg.window``), ``local_attn`` (the same with the recurrentgemma local
+window ``cfg.rglru.window``), ``rglru`` (the RG-LRU recurrent block),
+each followed by a dense MLP; and ``mamba2`` (SSD, followed by a dense
+MLP only when ``d_ff`` > 0). Every block is pre-norm residual. The
+reference's ``cross_attn`` and ``xdec`` raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that ports them.
 
 ``ctx`` carries ``impl`` (the kernel ops' ``impl=``, default "auto")
 and, for prefill, ``max_len`` (the decode caches' length).
@@ -14,13 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, common, mlp, ssm
+from repro_torch.models import attention, common, mlp, rglru, ssm
 
 _UNPORTED = {
-    "local_attn": "the recurrentgemma/h2o slice (ROADMAP.md §1: remaining "
-                  "block kinds and configs)",
-    "rglru": "the recurrentgemma slice (ROADMAP.md §1: remaining block "
-             "kinds and configs)",
     "cross_attn": "the vision/audio slice (ROADMAP.md §1: remaining block "
                   "kinds and configs)",
     "xdec": "the vision/audio slice (ROADMAP.md §1: remaining block kinds "
@@ -165,8 +163,12 @@ def mlp_apply(p, cfg, x):
 
 def block_init(gen, cfg, kind):
     dnorm = torch.zeros((cfg.d_model,), device=gen.device)
-    if kind == "attn":
-        p = {"norm1": dnorm, "attn": attn_init(gen, cfg)}
+    if kind in ("attn", "local_attn", "rglru"):
+        p = {"norm1": dnorm}
+        if kind == "rglru":
+            p["rec"] = rglru.init(gen, cfg)
+        else:
+            p["attn"] = attn_init(gen, cfg)
         m = mlp_init(gen, cfg)
         if m is not None:
             p["norm2"] = dnorm.clone()
@@ -181,6 +183,12 @@ def block_init(gen, cfg, kind):
     raise _unported(kind)
 
 
+def _window_for(cfg, kind):
+    if kind == "local_attn":
+        return cfg.rglru.window if cfg.rglru else (cfg.window or 2048)
+    return cfg.window
+
+
 def _mlp_residual(p, cfg, x):
     if "mlp" in p:
         h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -192,13 +200,16 @@ def _mlp_residual(p, cfg, x):
 def block_apply(p, cfg, kind, x, ctx):
     """x: (B, S, d). ctx: dict(causal, impl). Returns (x_out, aux_loss)."""
     impl = ctx.get("impl", "auto")
-    if kind == "attn":
+    if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=ctx.get("causal", True),
-                           window=cfg.window, impl=impl)
+                           window=_window_for(cfg, kind), impl=impl)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + ssm.forward(p["ssm"], cfg, h, impl=impl)
+    elif kind == "rglru":
+        h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + rglru.forward(p["rec"], cfg, h)[0]
     else:
         raise _unported(kind)
     return _mlp_residual(p, cfg, x), torch.zeros((), device=x.device)
@@ -208,15 +219,21 @@ def block_prefill(p, cfg, kind, x, ctx):
     """x: (B, S, d). Returns (x_out, cache) — cache matches block_decode."""
     max_len = ctx.get("max_len", x.shape[1])
     impl = ctx.get("impl", "auto")
-    if kind == "attn":
+    if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
-        y, cache = _attn_prefill(p["attn"], cfg, h, window=cfg.window,
+        y, cache = _attn_prefill(p["attn"], cfg, h,
+                                 window=_window_for(cfg, kind),
                                  max_len=max_len, impl=impl)
         x = x + y
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = ssm.forward(p["ssm"], cfg, h, return_cache=True,
                                impl=impl)
+        x = x + y
+    elif kind == "rglru":
+        h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+        y, h_T, conv_tail = rglru.forward(p["rec"], cfg, h)
+        cache = {"h": h_T, "conv": conv_tail}
         x = x + y
     else:
         raise _unported(kind)
@@ -225,8 +242,9 @@ def block_prefill(p, cfg, kind, x, ctx):
 
 def block_cache_init(cfg, kind, batch, max_len, dtype, device):
     KV, hd = cfg.n_kv, cfg.resolved_head_dim
-    if kind == "attn":
-        length = max_len if cfg.window is None else min(cfg.window, max_len)
+    if kind in ("attn", "local_attn"):
+        window = _window_for(cfg, kind)
+        length = max_len if window is None else min(window, max_len)
         return {"k": torch.zeros((batch, length, KV, hd), dtype=dtype,
                                  device=device),
                 "v": torch.zeros((batch, length, KV, hd), dtype=dtype,
@@ -235,20 +253,26 @@ def block_cache_init(cfg, kind, batch, max_len, dtype, device):
                                    device=device)}
     if kind == "mamba2":
         return ssm.init_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return rglru.init_cache(cfg, batch, dtype, device)
     raise _unported(kind)
 
 
 def block_decode(p, cfg, kind, cache, x, pos, ctx):
     """x: (B, d) one token. Returns (x_out, cache), the cache updated in
     place."""
-    if kind == "attn":
+    if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = attn_decode(p["attn"], cfg, cache, h, pos,
-                               window=cfg.window)
+                               window=_window_for(cfg, kind))
         x = x + y
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = ssm.decode_step(p["ssm"], cfg, cache, h)
+        x = x + y
+    elif kind == "rglru":
+        h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+        y, cache = rglru.decode_step(p["rec"], cfg, cache, h)
         x = x + y
     else:
         raise _unported(kind)

@@ -18,7 +18,9 @@ from repro_torch.models import attention
 
 # tests/test_kernels.py::test_flash_attention*: f32 at 2e-5, bf16 at 5e-2
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
-PALLAS_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 1, 32), (2, 128, 4, 4, 128)]
+# the last two at h2o-danube-3-4b's and recurrentgemma-2b's head widths
+PALLAS_SHAPES = [(2, 256, 4, 2, 64), (1, 128, 8, 1, 32), (2, 128, 4, 4, 128),
+                 (1, 128, 4, 2, 120), (1, 128, 2, 1, 256)]
 MASKS = [(True, None), (True, 64), (False, None)]
 
 
@@ -81,6 +83,17 @@ def test_plain_and_oracle_match_reference_oracle(B, Sq, Sk, H, KV, hd, causal,
     _assert_close(got, want, TOL[dtype])
     assert torch.equal(ref.flash_attention_ref(q, k, v, causal=causal,
                                                window=window), got)
+
+
+def test_kernel_head_widths_cover_the_registered_configs():
+    """The head width of every registered config with attention blocks,
+    full and reduced, is one the kernel is built for."""
+    from repro_torch.configs import get_config, list_configs
+    cfgs = [get_config(n) for n in list_configs()]
+    cfgs = [c for c in cfgs + [c.reduced() for c in cfgs]
+            if any(k.endswith("attn") for p, _ in c.groups for k in p)]
+    assert {c.resolved_head_dim for c in cfgs} == {64, 120, 128, 256}
+    assert kernel.KERNEL_HEAD_DIMS == (64, 120, 128, 256)
 
 
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
@@ -220,6 +233,8 @@ def _bf16_gate_readings(got, want):
     (2, 256, 4, 2, 64, True, None),
     (1, 128, 4, 4, 128, True, 64),
     (1, 128, 8, 2, 64, False, None),
+    (1, 128, 4, 2, 120, True, 64),
+    (1, 128, 2, 1, 256, True, 32),
 ])
 def test_bf16_tensor_core_arithmetic_meets_gates_against_pallas(
         B, S, H, KV, hd, causal, window):
@@ -237,6 +252,8 @@ def test_bf16_tensor_core_arithmetic_meets_gates_against_pallas(
     (2, 512, 512, 4, 4, 128, True, None),
     (2, 300, 700, 8, 2, 64, False, None),
     (1, 90, 40, 2, 1, 128, False, 16),
+    (2, 300, 700, 8, 2, 120, False, None),
+    (1, 333, 333, 4, 1, 256, True, 100),
 ])
 def test_bf16_tensor_core_arithmetic_meets_gates_against_oracle(
         B, Sq, Sk, H, KV, hd, causal, window):

@@ -51,6 +51,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.data.encoder", "repro_torch.kernels.guard",
             "repro_torch.kernels.counts", "repro_torch.serve.engine",
             "repro_torch.launch.serve"} <= names
+    # the dense and hybrid LM families' modules
+    assert {"repro_torch.models.rglru", "repro_torch.configs.tinyllama_1_1b",
+            "repro_torch.configs.qwen3_8b",
+            "repro_torch.configs.h2o_danube_3_4b",
+            "repro_torch.configs.recurrentgemma_2b"} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
