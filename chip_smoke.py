@@ -53,8 +53,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     G = 1 at hd 128, Sq != Sk non-causal, rows that see no key, the
     LM-training shapes (4, 8 and 16 rows of 256), the qwen3-8b,
     h2o-danube-3-4b (hd 120, window 4096) and recurrentgemma-2b (hd 256,
-    MQA, window 2048) prefill shapes and two ragged ones at hd 120 and
-    256; a second call must give bit-identical outputs.
+    MQA, window 2048) prefill shapes, two ragged ones at hd 120 and
+    256, and the deepseek-moe-16b (MHA, 16/16 heads) and
+    qwen3-moe-235b-a22b (GQA of 16, 64/4 heads) prefill shapes at hd 128;
+    a second call must give bit-identical outputs.
 13. SSD kernel against its plain version: ``mamba2_ssd`` at the
     mamba2-780m prefill shape (strong and mild decay), a ragged S,
     chunk 128, and the LM-training shapes (4, 8 and 16 rows of S = chunk
@@ -62,8 +64,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     bit-identical outputs.
 14. Timing of both (CUDA events, L2 flushed) beside the plain versions,
     the bound and, for attention, ``F.scaled_dot_product_attention``, at
-    the four attention prefill shapes; each of the SSD's four launches
-    alone.
+    the six attention prefill shapes (qwen2-0.5b, qwen3-8b,
+    h2o-danube-3-4b, recurrentgemma-2b, deepseek-moe-16b,
+    qwen3-moe-235b-a22b); each of the SSD's four launches alone.
 15. LM serving, the main path: ``launch.serve.lm_decode`` of qwen2-0.5b
     and mamba2-780m at full width and depth (random weights from seed 0,
     batch 4, prompt 2048, 32 tokens) in bf16 through the kernels and
@@ -126,7 +129,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
 24. The reduced h2o-danube-3-4b and recurrentgemma-2b served on the card
     (prompts past their windows of 64 and 32, so the rings wrap): kernel
     calls, prefill logits and first tokens against the plain path.
-25. Isolation: no ``jax`` and no ``repro`` module was loaded.
+25. The MoE configs, the main path: ``lm_decode`` of deepseek-moe-16b
+    (published widths and depth) and qwen3-moe-235b-a22b (published
+    widths, 10 of its 94 blocks) in bf16 (random weights from seed 0,
+    batch 4, prompt 2048, 32 tokens) through the kernels and through the
+    plain path: 28 / 10 attention kernel calls per prefill, none in
+    decode, no SSD calls; prefill time and decode step time beside their
+    bounds. Then ``moe_gate``: with the router's choices pinned to the
+    plain route's, last-position prefill logits within ``LM_BF16_TOL``
+    and first tokens equal on decided rows; free-running, the logits,
+    the (token, slot) and expert-set agreement of the routes per block
+    and the pairs dropped past capacity, each route, printed beside a
+    control (the plain route with attention moved one step at one in
+    ten outputs). Then in f32 at one block, within ``PATH_TOL``.
+26. The reduced deepseek-moe-16b and qwen3-moe-235b-a22b on the card at
+    ``REDUCED_LM`` (T = 800: the MoE's sorted branch) and at a 32-token
+    prompt (T = 128: its dense-local branch): kernel calls, then
+    ``moe_gate`` within ``PATH_TOL``.
+27. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 Phases 17-19 and 21's fits run under
 ``torch.use_deterministic_algorithms(True)`` with
@@ -137,6 +157,7 @@ The second-to-last line is the kernels JSON; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -211,14 +232,19 @@ LM_TRAIN_ROWS = (4, 8, 16)
 QWEN3_ATTN = (4, 2048, 2048, 32, 8, 128, True, None)
 DANUBE_ATTN = (4, 4608, 4608, 32, 8, 120, True, 4096)
 RG_ATTN = (4, 4096, 4096, 10, 1, 256, True, 2048)
-TIMED_ATTN = [QWEN_ATTN, QWEN3_ATTN, DANUBE_ATTN, RG_ATTN]
+# the MoE configs' prefills of phase 25: deepseek-moe-16b (MHA, G = 1)
+# and qwen3-moe-235b-a22b (GQA of 16)
+DEEPSEEK_ATTN = (4, 2048, 2048, 16, 16, 128, True, None)
+QWEN3_MOE_ATTN = (4, 2048, 2048, 64, 4, 128, True, None)
+TIMED_ATTN = [QWEN_ATTN, QWEN3_ATTN, DANUBE_ATTN, RG_ATTN, DEEPSEEK_ATTN,
+              QWEN3_MOE_ATTN]
 FA_CHECKS = [QWEN_ATTN, (2, 333, 333, 14, 2, 64, True, 128),
              (2, 512, 512, 4, 4, 128, True, None),
              (2, 300, 700, 8, 2, 64, False, None),
              (1, 90, 40, 2, 1, 128, False, 16)] + [
     (B, 256, 256, 14, 2, 64, True, None) for B in LM_TRAIN_ROWS] + [
     QWEN3_ATTN, DANUBE_ATTN, RG_ATTN, (2, 300, 700, 8, 2, 120, False, None),
-    (1, 333, 333, 4, 1, 256, True, 100)]
+    (1, 333, 333, 4, 1, 256, True, 100), DEEPSEEK_ATTN, QWEN3_MOE_ATTN]
 # (B, S, H, hd, N, chunk, decay): the mamba2-780m prefill first
 MAMBA_SSD = (4, 2048, 48, 64, 128, 256)
 SSD_CHECKS = [MAMBA_SSD + ("strong",), MAMBA_SSD + ("mild",),
@@ -261,6 +287,15 @@ LM_FAMILIES = {"tinyllama-1.1b": (2048, 22), "qwen3-8b": (2048, 36),
 LM_F32_GEN = 8
 # phase 24: the reduced configs whose windows (64, 32) wrap at REDUCED_LM
 REDUCED_FAMILIES = ("h2o-danube-3-4b", "recurrentgemma-2b")
+# The MoE configs (phase 25): blocks served (deepseek-moe-16b whole;
+# qwen3-moe-235b-a22b at its published widths cut to 10 of its 94
+# blocks, ~52 GB in bf16: the whole model, ~470 GB, does not fit one
+# card) and attention kernel calls per prefill; prompts of LM_PROMPT
+MOE_LM = {"deepseek-moe-16b": (28, 28), "qwen3-moe-235b-a22b": (10, 10)}
+# phase 26: the reduced MoE configs at REDUCED_LM (T = 800, the sorted
+# branch) and at a short prompt (B 4 x 32: T = 128 = 64 top_k, the
+# dense-local branch)
+REDUCED_MOE_SHORT = 32
 # Train-while-serve (phase 19): the phase-17 cell served meanwhile at the
 # phase-6 traffic (uniform, 2000 req/s, batches of 64), final_probe
 # requests at the final weights
@@ -910,6 +945,368 @@ def phase_reduced_families(data):
     return total
 
 
+def moe_prefill_work(cfg, B, S):
+    """(f32 operations, bf16 operations) of one prefill of B prompts of S
+    tokens at the code's shapes: per block the expert GEMMs over every
+    capacity slot (E·C in the sorted branch, which computes empty slots
+    too; E·T in the dense-local one), the shared MLP, the q/k/v/o
+    projections and the two attention products over the causal pairs,
+    then the last position's head, all bf16; the router's product in f32
+    (TF32 off)."""
+    from repro_torch.models import mlp
+
+    T, d, m = B * S, cfg.d_model, cfg.moe
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv
+    slots = m.num_experts * (
+        T if T <= 64 * m.top_k
+        else mlp._capacity(T, m.top_k, m.num_experts, m.capacity_factor))
+    block = (slots * 6 * d * m.expert_ff
+             + T * 6 * d * m.num_shared * m.shared_ff
+             + T * 2 * d * hd * (2 * H + 2 * KV)
+             + B * H * fa_pairs(S, S, True, None) * hd * 4)
+    n = cfg.num_layers
+    return n * T * 2 * d * m.num_experts, n * block + B * 2 * d * cfg.vocab
+
+
+def decode_step_bytes(cfg, params, B, pos):
+    """Bytes one decode step must read: every weight but the embedding
+    table (the dense-local branch runs every expert), B embedding rows,
+    and the KV caches up to ``pos``."""
+    from repro_torch.convert import tree_leaves
+
+    w = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    emb = params["embed"]
+    kv = (2 * cfg.num_layers * B * pos * cfg.n_kv * cfg.resolved_head_dim
+          * emb.element_size())
+    return w - emb.numel() * emb.element_size() + B * emb[0].nbytes + kv
+
+
+@contextlib.contextmanager
+def routing(T, replay=None):
+    """Records the expert ids of every router call over ``T`` tokens (a
+    prefill's; a decode step's have T = B) while the span lasts: a list
+    of (T, k) tensors on the card, in block order. With ``replay`` (such
+    a list), those calls take its ids instead, their gates the router's
+    probabilities at those ids renormalised as ``_router`` does: the
+    discrete routing of another run, pinned."""
+    from repro_torch.models import mlp
+
+    calls, router = [], mlp._router
+    pinned = iter(replay) if replay is not None else None
+
+    def recording(p, x, moe):
+        gate, eids, aux = router(p, x, moe)
+        if x.shape[0] == T:
+            if pinned is not None:
+                eids = next(pinned)
+                with mlp.full_f32():
+                    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+                gate = probs.gather(1, eids)
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                          min=1e-9)
+            calls.append(eids.clone())
+        return gate, eids, aux
+
+    mlp._router = recording
+    try:
+        yield calls
+    finally:
+        mlp._router = router
+
+
+def routing_agreement(a, b):
+    """Two prefills' routings (``routing`` lists): the share of (token,
+    slot) choices equal, and the share of each token's k experts that
+    the other run chose too (order within the top-k aside), each per
+    block."""
+    slots = [float((x == y).float().mean()) for x, y in zip(a, b)]
+    sets = [float((x[:, :, None] == y[:, None, :]).any(-1).float().mean())
+            for x, y in zip(a, b)]
+    return slots, sets
+
+
+def dropped(cfg, calls, T):
+    """(capacity, the (token, slot) pairs past it, summed over the
+    blocks) of a prefill's routing; no capacity in the dense-local
+    branch."""
+    from repro_torch.models import mlp
+
+    m = cfg.moe
+    if T <= 64 * m.top_k:
+        return None, 0
+    cap = mlp._capacity(T, m.top_k, m.num_experts, m.capacity_factor)
+    return cap, sum(int((torch.bincount(e.reshape(-1), minlength=m.num_experts)
+                         - cap).clamp(min=0).sum()) for e in calls)
+
+
+def nudged_attention(q, k, v, *, causal, window):
+    """The plain attention with one in ten output elements moved one
+    bf16 (or f32) step away from zero, at places drawn from a fixed
+    seed: a control as far from the plain version as the kernel may be
+    (phase 12's elementwise limit), run on the plain route."""
+    from repro_torch.kernels import ref
+
+    o = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    gen = torch.Generator(device=o.device).manual_seed(1)
+    bits = torch.int16 if o.dtype == torch.bfloat16 else torch.int32
+    step = torch.rand(o.shape, generator=gen, device=o.device) < 0.1
+    return (o.view(bits) + step.to(bits)).view(o.dtype)
+
+
+def moe_gate(name, cfg, params, prompts, max_len, calls, tag, tol):
+    """The MoE's prefill gate. Prefills ``prompts`` through the plain
+    route (its routing recorded), through the kernels (``calls``
+    launches, counts zeroed first; three decode steps after it launch
+    nothing), through the kernels with the plain route's routing pinned,
+    and through the plain route with its attention nudged
+    (``nudged_attention``). A top-k choice is a discontinuity: one
+    flipped choice moves a token's output by a whole expert's share, and
+    later blocks carry it on. So the kernels are gated with the routing
+    pinned: last-position logits over the real vocab within ``tol``,
+    first tokens equal where the plain top-2 margin exceeds twice the
+    largest logit difference. The free-running kernel route is printed
+    beside the nudged control, whose distance from the plain route is
+    the model's own sensitivity to a one-step change of attention.
+    Returns the readings."""
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.models import transformer
+
+    B, S = prompts.shape
+    T = B * S
+
+    def prefill(impl="auto"):
+        return transformer.prefill(params, cfg, prompts, max_len=max_len,
+                                   last_only=True, impl=impl)
+
+    with torch.no_grad():
+        with routing(T) as plain_route:
+            lr, _ = prefill("ref")
+        counts.reset(fa, ssd)
+        with routing(T) as kernel_route:
+            lk, caches = prefill()
+        check(fa.LAUNCHES.total == calls and ssd.LAUNCHES.total == 0,
+              f"{tag} {name}: prefill made {fa.LAUNCHES.total} attention "
+              f"kernel calls (and {ssd.LAUNCHES.total} SSD), expected "
+              f"{calls} and 0")
+        tok = lk.argmax(-1)
+        for i in range(3):
+            _, caches = transformer.serve_step(params, cfg, caches, tok,
+                                               S + i)
+        torch.cuda.synchronize()
+        check(fa.LAUNCHES.total == calls, f"{tag} {name}: decode launched "
+              f"a kernel")
+        del caches
+        with routing(T, replay=plain_route):
+            lp, _ = prefill()
+        check(fa.LAUNCHES.total == 2 * calls and ssd.LAUNCHES.total == 0,
+              f"{tag} {name}: the pinned prefill made "
+              f"{fa.LAUNCHES.total - calls} attention kernel calls")
+        with routing(T) as nudged_route:
+            ln, _ = prefill("nudged")
+        check(fa.LAUNCHES.total == 2 * calls, f"{tag} {name}: the plain "
+              f"routes launched a kernel")
+    V = cfg.vocab
+    lr, lk, lp, ln = lr[:, :V], lk[:, :V], lp[:, :V], ln[:, :V]
+    check(all(bool(torch.isfinite(t).all()) for t in (lr, lk, lp, ln)),
+          f"{tag} {name}: non-finite logits")
+    e_pin = scaled_err(lp, lr)
+    decided = top2_margin(lr) > 2 * float((lp - lr).abs().max())
+    same = lp.argmax(-1) == lr.argmax(-1)
+    slots, sets = routing_agreement(kernel_route, plain_route)
+    _, nsets = routing_agreement(nudged_route, plain_route)
+    cap, drop_r = dropped(cfg, plain_route, T)
+    out = {"logit_err_pinned": e_pin, "logit_err_free": scaled_err(lk, lr),
+           "logit_err_nudged_control": scaled_err(ln, lr),
+           "routing_slots_equal": float(np.mean(slots)),
+           "routing_experts_equal": float(np.mean(sets)),
+           "routing_experts_equal_by_block": sets,
+           "routing_experts_equal_nudged_control": float(np.mean(nsets)),
+           "capacity": cap, "dropped": {
+               "plain": drop_r, "kernel": dropped(cfg, kernel_route, T)[1],
+               "nudged_control": dropped(cfg, nudged_route, T)[1]},
+           "pairs": T * cfg.moe.top_k * cfg.num_layers,
+           "first_token_decided": [int(same[decided].sum()),
+                                   int(decided.sum())]}
+    print(f"{tag} {name} {cfg.dtype} (T {T}, capacity {cap}): routing "
+          f"pinned to the plain route's: last-position prefill logits "
+          f"kernel vs plain err {e_pin:.3e} (<= {tol}); first token equal "
+          f"on {int(same[decided].sum())}/{int(decided.sum())} rows whose "
+          f"plain top-2 margin exceeds twice the largest logit difference "
+          f"({int(same.sum())}/{B} in all)")
+    print(f"{tag} {name} {cfg.dtype} free-running: logits err "
+          f"{out['logit_err_free']:.3e} (the nudged plain control "
+          f"{out['logit_err_nudged_control']:.3e}); (token, slot) choices "
+          f"equal {out['routing_slots_equal']:.6f}, experts equal "
+          f"{out['routing_experts_equal']:.6f} (control "
+          f"{out['routing_experts_equal_nudged_control']:.6f}; by block "
+          f"{[round(x, 4) for x in sets]}); pairs dropped plain / kernel / "
+          f"control {drop_r} / {out['dropped']['kernel']} / "
+          f"{out['dropped']['nudged_control']} of {out['pairs']}")
+    check(e_pin <= tol, f"{tag} {name}: prefill logits with the routing "
+          f"pinned, kernel path vs plain path, {e_pin} > {tol}")
+    check(bool(same[decided].all()), f"{tag} {name}: first tokens differ "
+          f"from the plain path's on decided rows")
+    return out
+
+
+def moe_cut(cfg, blocks):
+    """``cfg`` with its one group cut to ``blocks`` blocks; widths as
+    published."""
+    (pattern, _), = cfg.groups
+    return dataclasses.replace(cfg, num_layers=blocks * len(pattern),
+                               groups=((pattern, blocks),))
+
+
+def phase_moe_lm(data):
+    """25. The MoE configs served in bf16 at published widths (the main
+    path: counts zeroed just before the kernel route's ``lm_decode`` and
+    read just after), deepseek-moe-16b at its depth and
+    qwen3-moe-235b-a22b cut to 10 blocks, with ``moe_gate``; then in f32
+    at one block. Returns the main paths' attention kernel calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import lm_decode
+    from repro_torch.models import transformer
+
+    total = 0
+    for name, (depth, calls) in MOE_LM.items():
+        cfg = moe_cut(get_config(name), depth)
+        check(attention_calls(cfg) == calls, f"{name}: {depth} blocks hold "
+              f"{attention_calls(cfg)} attention blocks, expected {calls}")
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        n_params = transformer.param_count(params)
+
+        def run(impl, gen=LM_GEN, cfg=cfg, params=params):
+            return lm_decode(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                             gen=gen, seed=0, params=params, impl=impl)
+
+        for impl in ("auto", "ref"):
+            run(impl, gen=2)
+        counts.reset(fa, ssd)
+        res = run("auto")
+        launches = fa.LAUNCHES.total
+        check(launches == calls and ssd.LAUNCHES.total == 0,
+              f"{name}: lm_decode made {launches} attention kernel calls "
+              f"(and {ssd.LAUNCHES.total} SSD), expected {calls} and 0")
+        total += launches
+        res_ref = run("ref")
+        check(fa.LAUNCHES.total == calls, f"{name}: impl='ref' launched the "
+              f"attention kernel")
+        gk, gr = res["generated"], res_ref["generated"]
+        check(gk.shape == (LM_BATCH, LM_GEN) and bool(
+            ((gk >= 0) & (gk < cfg.vocab)).all()),
+              f"{name}: generated tokens of the wrong shape or range")
+        prompts = torch.as_tensor(next(iter(data.lm_batches(
+            cfg.vocab, LM_BATCH, LM_PROMPT - 1, 1, 0))), device="cuda")
+        gate = moe_gate(name, cfg, params, prompts, LM_PROMPT + LM_GEN,
+                        calls, "[25 moe]", LM_BF16_TOL)
+        f32_ops, bf16_ops = moe_prefill_work(cfg, LM_BATCH, LM_PROMPT)
+        pre_bound, _ = roofline(f32_ops, decode_step_bytes(cfg, params, 0, 0),
+                                bf16_ops)
+        step_bytes = decode_step_bytes(cfg, params, LM_BATCH,
+                                       LM_PROMPT + LM_GEN // 2)
+        step_bound, step_by = roofline(0, step_bytes)
+        step_ms = [1e3 * r["decode_s"] / (LM_GEN - 1) for r in (res, res_ref)]
+        agree = float((gk == gr).float().mean())
+        print(f"[25 moe] {name} bf16 ({cfg.num_layers} blocks, "
+              f"{n_params / 1e9:.3f} B params; B {LM_BATCH}, prompt "
+              f"{LM_PROMPT}, gen {LM_GEN}): {launches} flash_attention calls "
+              f"in prefill, 0 in decode; greedy tokens of the two routes "
+              f"agree {agree:.4f}; prefill s kernel / plain "
+              f"{res['prefill_s']:.4f} / {res_ref['prefill_s']:.4f} (bound "
+              f"{pre_bound:.2f} ms: {bf16_ops / 1e12:.2f} TFLOP bf16 + "
+              f"{f32_ops / 1e12:.3f} f32); decode step ms kernel / plain "
+              f"{step_ms[0]:.3f} / {step_ms[1]:.3f}, tok/s "
+              f"{res['decode_tok_per_s']:.2f} / "
+              f"{res_ref['decode_tok_per_s']:.2f} (bound {step_bound:.3f} ms "
+              f"a step, {step_by}: {step_bytes / 1e9:.2f} GB)")
+        print(json.dumps({"lm": name, "dtype": "bfloat16",
+                          "blocks": cfg.num_layers, "batch": LM_BATCH,
+                          "prompt": LM_PROMPT, "gen": LM_GEN,
+                          "params": n_params,
+                          "kernel": {k: res[k] for k in (
+                              "prefill_s", "decode_s", "decode_tok_per_s")},
+                          "plain": {k: res_ref[k] for k in (
+                              "prefill_s", "decode_s", "decode_tok_per_s")},
+                          "prefill_bound_ms": pre_bound,
+                          "decode_step_bound_ms": step_bound,
+                          "kernel_calls": launches, "token_agreement": agree,
+                          **gate}))
+        del params, res, res_ref, run
+        torch.cuda.empty_cache()
+
+        cfg32 = cut_depth(cfg)
+        calls32 = attention_calls(cfg32)
+        p32 = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg32)
+        res = lm_decode(cfg32, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                        gen=LM_F32_GEN, seed=0, params=p32)
+        res_ref = lm_decode(cfg32, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                            gen=LM_F32_GEN, seed=0, params=p32, impl="ref")
+        gate = moe_gate(name, cfg32, p32, prompts, LM_PROMPT + LM_F32_GEN,
+                        calls32, "[25 moe] f32 one block", PATH_TOL)
+        print(f"[25 moe] {name} f32 at one block: greedy tokens of the two "
+              f"routes agree "
+              f"{float((res['generated'] == res_ref['generated']).float().mean()):.4f}"
+              f"; prefill s kernel / plain {res['prefill_s']:.4f} / "
+              f"{res_ref['prefill_s']:.4f}")
+        del p32, res, res_ref, prompts
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_reduced_moe(data):
+    """26. The reduced deepseek-moe-16b and qwen3-moe-235b-a22b (f32, d
+    256, 4 experts top-2, one block) served on the card at
+    ``REDUCED_LM`` (T = 800: the sorted branch) and at a short prompt
+    (T = 128: the dense-local branch): attention kernel calls of the main
+    path (counts zeroed just before), then ``moe_gate`` at
+    ``PATH_TOL``. Returns the calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import lm_decode
+    from repro_torch.models import transformer
+
+    batch, long_prompt, n_gen = REDUCED_LM
+    total = 0
+    for name in MOE_LM:
+        cfg = get_config(name).reduced()
+        calls = attention_calls(cfg)
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        for prompt in (long_prompt, REDUCED_MOE_SHORT):
+            T = batch * prompt
+            counts.reset(fa, ssd)
+            res = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen,
+                            seed=0, params=params)
+            launches = fa.LAUNCHES.total
+            check(launches == calls and ssd.LAUNCHES.total == 0,
+                  f"reduced {name}: lm_decode made {launches} attention "
+                  f"kernel calls, expected {calls}")
+            total += launches
+            res_ref = lm_decode(cfg, batch=batch, prompt_len=prompt,
+                                gen=n_gen, seed=0, params=params, impl="ref")
+            gk = res["generated"]
+            check(gk.shape == (batch, n_gen) and bool(
+                ((gk >= 0) & (gk < cfg.vocab)).all()),
+                  f"reduced {name}: generated tokens of the wrong shape or "
+                  f"range")
+            prompts = torch.as_tensor(next(iter(data.lm_batches(
+                cfg.vocab, batch, prompt - 1, 1, 0))), device="cuda")
+            branch = "dense-local" if T <= 64 * cfg.moe.top_k else "sorted"
+            moe_gate(name, cfg, params, prompts, prompt + n_gen, calls,
+                     f"[26 reduced moe, {branch} branch]", PATH_TOL)
+            print(f"[26 reduced moe] {cfg.name} (B {batch}, prompt {prompt}, "
+                  f"gen {n_gen}): {launches} flash_attention call in "
+                  f"prefill; greedy tokens of the two routes agree "
+                  f"{float((gk == res_ref['generated']).float().mean()):.4f}")
+    return total
+
+
 def phase_executor(api, data, base_cfg, kernel, vjp):
     """17. The PFF executor at full width, on 4 CUDA streams of the card,
     against the sequential and federated trainers bit for bit; 18. its
@@ -1482,6 +1879,7 @@ def joint_ff_steps(data, name, dev="cuda"):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -2248,15 +2646,21 @@ def main():
     # 23-24. the dense and hybrid configs: the main path at full size, and
     # the reduced windowed ones -------------------------------------------
     family_calls = phase_lm_families(data) + phase_reduced_families(data)
+    # 25-26. the MoE configs: the main path at published widths, and the
+    # reduced ones in both MoE branches ------------------------------------
+    from repro_torch.kernels import registry
+    registry.flash_attention.register("nudged", nudged_attention)
+    family_calls += phase_moe_lm(data) + phase_reduced_moe(data)
     for row in lm_rows:
         if row["name"] == "flash_attention":
             row["launches"] += family_calls
 
-    # 25. isolation --------------------------------------------------------
+    # 27. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[25 isolation] no jax, no repro module loaded")
+    print("[27 isolation] no jax, no repro module loaded")
+    print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,26 @@ as in the reference, so its parameter tree converts one to one.
 
 Only the configs whose blocks the port can run are registered:
 ``qwen2-0.5b``, ``tinyllama-1.1b``, ``qwen3-8b`` and ``h2o-danube-3-4b``
-(``attn``), ``mamba2-780m`` (``mamba2``) and ``recurrentgemma-2b``
-(``rglru`` and ``local_attn``). The MoE, vision and audio configs wait
-for their block kinds (``ROADMAP.md`` §1).
+(``attn``), ``mamba2-780m`` (``mamba2``), ``recurrentgemma-2b``
+(``rglru`` and ``local_attn``), and ``deepseek-moe-16b`` and
+``qwen3-moe-235b-a22b`` (``attn`` blocks with MoE MLPs). The vision and
+audio configs wait for their block kinds (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_ff: int
+    num_shared: int = 0
+    shared_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,11 +60,11 @@ class FFConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``ModelConfig`` fields that the port's blocks and
-    LM trainers read. ``moe`` and ``enc_dec`` are kept so that a config
-    that sets them is refused by name (``NotImplementedError``); the
-    encoder and vision fields wait for their slices."""
+    LM trainers read. ``enc_dec`` is kept so that a config that sets it
+    is refused by name (``NotImplementedError``); the encoder and vision
+    fields wait for their slices."""
     name: str
-    arch_type: str                       # dense | ssm | hybrid
+    arch_type: str                       # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     n_heads: int
@@ -69,7 +81,7 @@ class ModelConfig:
     act: str = "silu"
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
-    moe: Optional[object] = None         # MoE blocks: not ported yet
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     ff: FFConfig = dataclasses.field(default_factory=FFConfig)
@@ -105,6 +117,12 @@ class ModelConfig:
             n_kv -= 1
         groups = _reduce_groups(self.groups, layers_hint)
         nl = sum(len(p) * r for p, r in groups)
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2, expert_ff=2 * d_model,
+                num_shared=min(self.moe.num_shared, 1),
+                shared_ff=2 * d_model if self.moe.num_shared else 0)
         ssm = None
         if self.ssm is not None:
             ssm = dataclasses.replace(self.ssm, state_dim=16, head_dim=32,
@@ -118,7 +136,7 @@ class ModelConfig:
             n_heads=n_heads, n_kv=n_kv, d_ff=2 * d_model,
             vocab=min(self.vocab, 512), head_dim=0, groups=groups,
             window=min(self.window, 64) if self.window else None,
-            ssm=ssm, rglru=rglru, dtype="float32")
+            moe=moe, ssm=ssm, rglru=rglru, dtype="float32")
 
 
 def _reduce_groups(groups, layers_hint):
@@ -164,5 +182,5 @@ def list_configs():
 
 def load_all():
     from repro_torch.configs import (  # noqa: F401
-        h2o_danube_3_4b, mamba2_780m, qwen2_0_5b, qwen3_8b,
-        recurrentgemma_2b, tinyllama_1_1b)
+        deepseek_moe_16b, h2o_danube_3_4b, mamba2_780m, qwen2_0_5b,
+        qwen3_8b, qwen3_moe_235b_a22b, recurrentgemma_2b, tinyllama_1_1b)

@@ -53,17 +53,14 @@ REF = {"causal": True, "impl": "ref"}   # ctx of a differentiated forward
 
 
 def check_supported(cfg):
-    """The LM trainers run decoder-only stacks of dense blocks; the other
-    kinds name the ``ROADMAP.md`` slice that ports them."""
+    """The LM trainers run decoder-only stacks (dense or MoE MLPs); an
+    encoder-decoder config names the ``ROADMAP.md`` slice that ports
+    it."""
     if getattr(cfg, "enc_dec", False):
         raise NotImplementedError(
             "encoder-decoder LM training is not ported yet; it waits for "
             "the vision/audio slice (ROADMAP.md §1: remaining block kinds "
             "and configs)")
-    if getattr(cfg, "moe", None) is not None:
-        raise NotImplementedError(
-            "MoE LM training is not ported yet; it waits for the MoE slice "
-            "(ROADMAP.md §1: remaining block kinds and configs)")
 
 
 def unit_views(group, r):

@@ -15,16 +15,22 @@ freshly trained layer into the replica that serves ``--traffic`` at
       --arch qwen2-0.5b --batch 4 --prompt-len 64 --gen 32
 
 runs the reduced config on the card (``--full`` for the published
-widths and depth). ``--arch`` is one of the six registered configs:
+widths and depth). ``--arch`` is one of the eight registered configs:
 ``qwen2-0.5b``, ``tinyllama-1.1b``, ``qwen3-8b``, ``h2o-danube-3-4b``
 (``attn`` blocks; head widths 64, 64, 128, 120; danube's sliding window
-4096), ``mamba2-780m`` (``mamba2``) and ``recurrentgemma-2b`` (``rglru``
-and ``local_attn`` blocks, head width 256, local window 2048). The
-prefill goes through the hand-written attention and SSD kernels
-(``kernels/csrc/flash_attention.cu``, ``kernels/csrc/mamba2_ssd.cu``);
-the RG-LRU blocks and decode are plain torch. The SSD kernel is compiled
-for both the reduced mamba2 config (N 16, hd 32, chunk 32) and the full
-one. ``--device cpu`` runs either mode's plain path on the CPU.
+4096), ``mamba2-780m`` (``mamba2``), ``recurrentgemma-2b`` (``rglru``
+and ``local_attn`` blocks, head width 256, local window 2048), and
+``deepseek-moe-16b`` (MHA, 64 experts top-6 and 2 shared) and
+``qwen3-moe-235b-a22b`` (GQA of 16, 128 experts top-8): ``attn`` blocks
+with MoE MLPs. The prefill goes through the hand-written attention and
+SSD kernels (``kernels/csrc/flash_attention.cu``,
+``kernels/csrc/mamba2_ssd.cu``); the RG-LRU blocks, the MoE MLPs
+(``models/mlp.py``: router, capacity dispatch in prefill, every expert
+over the batch in decode) and decode are plain torch. The SSD kernel is
+compiled for both the reduced mamba2 config (N 16, hd 32, chunk 32) and
+the full one. ``--device cpu`` runs either mode's plain path on the
+CPU. qwen3-moe-235b-a22b at its published depth (94 blocks, ~470 GB in
+bf16) does not fit one card.
 """
 from __future__ import annotations
 
@@ -188,7 +194,7 @@ def main(argv=None):
                    help="trace exporter (the obs exporter registry)")
     lm = ap.add_argument_group("lm mode")
     lm.add_argument("--arch", default=None, choices=list_configs(),
-                    help="LM config name (the six the port registers)")
+                    help="LM config name (the eight the port registers)")
     lm.add_argument("--full", action="store_true",
                     help="published widths and depth (default: reduced)")
     lm.add_argument("--batch", type=int, default=4)

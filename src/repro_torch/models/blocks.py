@@ -4,10 +4,13 @@
 Block kinds: ``attn`` (GQA self-attention, optional sliding window
 ``cfg.window``), ``local_attn`` (the same with the recurrentgemma local
 window ``cfg.rglru.window``), ``rglru`` (the RG-LRU recurrent block),
-each followed by a dense MLP; and ``mamba2`` (SSD, followed by a dense
-MLP only when ``d_ff`` > 0). Every block is pre-norm residual. The
-reference's ``cross_attn`` and ``xdec`` raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them.
+each followed by its MLP (dense, or MoE when ``cfg.moe`` is set); and
+``mamba2`` (SSD, followed by an MLP only when ``d_ff`` > 0). Every block
+is pre-norm residual. The MoE's router load-balance loss comes back from
+``block_apply``; decode runs the MLP on (B, 1, d), so T = B takes the
+MoE's dense-local branch. The reference's ``cross_attn`` and ``xdec``
+raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
+them.
 
 ``ctx`` carries ``impl`` (the kernel ops' ``impl=``, default "auto")
 and, for prefill, ``max_len`` (the decode caches' length).
@@ -135,26 +138,31 @@ def attn_decode(p, cfg, cache, x, pos, *, window=None):
 
 
 # ---------------------------------------------------------------------------
-# MLP sub-layer (dense only; MoE waits for its slice)
+# MLP sub-layer dispatch: dense or MoE
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen, cfg):
-    if getattr(cfg, "moe", None) is not None:
-        raise NotImplementedError(
-            "MoE MLPs are not ported yet; they wait for the MoE slice "
-            "(ROADMAP.md §1: remaining block kinds and configs)")
+    if cfg.moe is not None:
+        return moe_wrap_init(gen, cfg)
     if cfg.d_ff == 0:
         return None
     return mlp.dense_mlp_init(gen, cfg.d_model, cfg.d_ff,
                               common.dtype_of(cfg))
 
 
+def moe_wrap_init(gen, cfg):
+    return mlp.moe_init(gen, cfg.moe, cfg.d_model, common.dtype_of(cfg))
+
+
 def mlp_apply(p, cfg, x):
-    """Returns (y, aux_loss); the dense MLP has no auxiliary loss."""
-    zero = torch.zeros((), device=x.device)
+    """Returns (y, aux_loss): the MoE's router load-balance loss, 0 for
+    the dense MLP."""
     if p is None:
-        return torch.zeros_like(x), zero
-    return mlp.dense_mlp_apply(p, x, cfg.act), zero
+        return torch.zeros_like(x), torch.zeros((), device=x.device)
+    if cfg.moe is not None:
+        return mlp.moe_apply(p, x, cfg.moe, cfg.act)
+    return mlp.dense_mlp_apply(p, x, cfg.act), torch.zeros((),
+                                                            device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -190,11 +198,12 @@ def _window_for(cfg, kind):
 
 
 def _mlp_residual(p, cfg, x):
-    if "mlp" in p:
-        h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
-        y, _ = mlp_apply(p["mlp"], cfg, h)
-        x = x + y
-    return x
+    """The block's MLP sub-layer: (x_out, aux_loss)."""
+    if "mlp" not in p:
+        return x, torch.zeros((), device=x.device)
+    h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
+    y, aux = mlp_apply(p["mlp"], cfg, h)
+    return x + y, aux
 
 
 def block_apply(p, cfg, kind, x, ctx):
@@ -212,7 +221,7 @@ def block_apply(p, cfg, kind, x, ctx):
         x = x + rglru.forward(p["rec"], cfg, h)[0]
     else:
         raise _unported(kind)
-    return _mlp_residual(p, cfg, x), torch.zeros((), device=x.device)
+    return _mlp_residual(p, cfg, x)
 
 
 def block_prefill(p, cfg, kind, x, ctx):
@@ -237,7 +246,7 @@ def block_prefill(p, cfg, kind, x, ctx):
         x = x + y
     else:
         raise _unported(kind)
-    return _mlp_residual(p, cfg, x), cache
+    return _mlp_residual(p, cfg, x)[0], cache
 
 
 def block_cache_init(cfg, kind, batch, max_len, dtype, device):

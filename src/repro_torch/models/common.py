@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.convert import tree_stack
+from repro_torch.convert import tree_leaves, tree_map
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -102,5 +102,15 @@ def zeros_init(gen, shape, dtype):
 
 
 def stack_init(gen, repeat, init_fn):
-    """``repeat`` draws of a parameter tree, stacked on axis 0."""
-    return tree_stack([init_fn(gen) for _ in range(repeat)])
+    """``repeat`` draws of a parameter tree, stacked on axis 0. Each draw
+    is copied into the stacked leaves as it is made, so the peak memory
+    is the stack and one draw, not two copies of the group."""
+    unit = init_fn(gen)
+    out = tree_map(lambda t: t.new_empty((repeat,) + tuple(t.shape)), unit)
+    for r in range(repeat):
+        if r:
+            unit = init_fn(gen)
+        for dst, src in zip(tree_leaves(out), tree_leaves(unit)):
+            dst[r].copy_(src)
+        del unit
+    return out

@@ -12,8 +12,9 @@ Three entry points:
   ``prefill``     — full-sequence forward that also fills decode caches
   ``serve_step``  — one-token decode against the caches, in place
 
-Encoder-decoder and vision configs wait for their block kinds
-(``ROADMAP.md`` §1).
+``forward`` returns the MoE blocks' router load-balance losses summed
+over every block (0 for dense stacks). Encoder-decoder and vision
+configs wait for their block kinds (``ROADMAP.md`` §1).
 """
 from __future__ import annotations
 

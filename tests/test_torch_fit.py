@@ -137,17 +137,18 @@ def test_simulate_backend_and_facade(task):
 
 
 # The executor backend and train-while-serve (fit(serve=...)) are
-# ported; what the executor still lacks, an LM config with MoE blocks,
-# names its slice under the executor's id.
+# ported, and so are LM configs with MoE blocks; what the executor still
+# lacks, an encoder-decoder LM config, names its slice under the
+# executor's id.
 @pytest.mark.parametrize("backend,kw,slice_name", [
-    ("executor", {"moe": True}, "MoE"),
+    ("executor", {"enc_dec": True}, "vision/audio"),
     ("pod", {}, "pod")], ids=["executor-executor", "pod-pod"])
 def test_unported_backends_name_their_slice(backend, kw, slice_name, task):
     cfg = TConfig(**BASE)
-    if kw.get("moe"):
+    if kw.get("enc_dec"):
         from repro_torch.configs import get_config
         cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
-                                  moe=object())
+                                  enc_dec=True)
         task = None
     with pytest.raises(NotImplementedError, match=f"the {slice_name} slice"):
         tapi.fit(cfg, task, backend=backend, device="cpu")

@@ -56,6 +56,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
             "repro_torch.configs.qwen3_8b",
             "repro_torch.configs.h2o_danube_3_4b",
             "repro_torch.configs.recurrentgemma_2b"} <= names
+    # the MoE slice's modules
+    assert {"repro_torch.models.mlp", "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.configs.qwen3_moe_235b_a22b"} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():

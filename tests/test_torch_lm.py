@@ -28,9 +28,10 @@ from repro_torch.models import blocks, transformer
 
 NAMES = ["qwen2-0.5b", "mamba2-780m"]
 # every config the port registers (the others' parity is in
-# tests/test_torch_lm_families.py)
+# tests/test_torch_lm_families.py and tests/test_torch_moe.py)
 REGISTERED = NAMES + ["tinyllama-1.1b", "qwen3-8b", "h2o-danube-3-4b",
-                      "recurrentgemma-2b"]
+                      "recurrentgemma-2b", "deepseek-moe-16b",
+                      "qwen3-moe-235b-a22b"]
 TOL = 1e-4            # scaled error, f32
 BF16_TOL = 2e-2       # scaled error of bf16 logits, ~2.5 bf16 ulps of the max
 B, S, MAX_LEN, STEPS = 2, 40, 48, 4
@@ -105,7 +106,7 @@ def test_configs_match_reference(name, reduce):
 
 def test_unknown_config_names_the_registered_ones():
     with pytest.raises(KeyError, match="qwen2-0.5b"):
-        tget("deepseek-moe-16b")
+        tget("llama-3.2-vision-90b")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -317,9 +318,17 @@ def test_unported_block_kinds_raise(kind):
 
 
 def test_moe_mlp_raises():
-    cfg = types.SimpleNamespace(moe=object(), d_model=8, d_ff=16)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        blocks.mlp_init(torch.Generator(), cfg)
+    """The MoE MLP is ported (``mlp_init`` builds the reference's tree);
+    what it still refuses is expert parallelism over a mesh, an enabled
+    ``Dist``, which names the pod slice."""
+    from repro_torch.models import mlp
+    tc = tget("deepseek-moe-16b").reduced()
+    p = blocks.mlp_init(torch.Generator().manual_seed(0), tc)
+    assert set(p) == {"router", "wi", "wg", "wo", "shared"}
+    assert not mlp.NO_DIST.enabled
+    assert not mlp.Dist(mesh=object()).enabled
+    with pytest.raises(NotImplementedError, match="pod slice"):
+        mlp.Dist(mesh=object(), model_axis="model")
 
 
 def test_cli_lm_mode_on_the_cpu(capsys):
