@@ -54,8 +54,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
     LM-training shapes (4, 8 and 16 rows of 256), the qwen3-8b,
     h2o-danube-3-4b (hd 120, window 4096) and recurrentgemma-2b (hd 256,
     MQA, window 2048) prefill shapes, two ragged ones at hd 120 and
-    256, and the deepseek-moe-16b (MHA, 16/16 heads) and
-    qwen3-moe-235b-a22b (GQA of 16, 64/4 heads) prefill shapes at hd 128;
+    256, the deepseek-moe-16b (MHA, 16/16 heads) and
+    qwen3-moe-235b-a22b (GQA of 16, 64/4 heads) prefill shapes at hd 128,
+    the seamless-m4t-large-v2 prefill's three (its encoder's 1024 frames
+    non-causal, its decoder's causal self-attention, its cross attention
+    of 2048 rows to 1024 frames; MHA 16/16 at hd 64), the
+    llama-3.2-vision-90b prefill's two (causal self-attention, and cross
+    attention of 2048 rows to 1600 patches; GQA 64/8 at hd 128), and the
+    reduced configs' encoder (16 frames) and cross shapes (Sk 16 and 8);
     a second call must give bit-identical outputs.
 13. SSD kernel against its plain version: ``mamba2_ssd`` at the
     mamba2-780m prefill shape (strong and mild decay), a ragged S,
@@ -64,9 +70,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     bit-identical outputs.
 14. Timing of both (CUDA events, L2 flushed) beside the plain versions,
     the bound and, for attention, ``F.scaled_dot_product_attention``, at
-    the six attention prefill shapes (qwen2-0.5b, qwen3-8b,
+    the eleven attention prefill shapes (qwen2-0.5b, qwen3-8b,
     h2o-danube-3-4b, recurrentgemma-2b, deepseek-moe-16b,
-    qwen3-moe-235b-a22b); each of the SSD's four launches alone.
+    qwen3-moe-235b-a22b, the three of seamless-m4t-large-v2 and the two
+    of llama-3.2-vision-90b); each of the SSD's four launches alone.
 15. LM serving, the main path: ``launch.serve.lm_decode`` of qwen2-0.5b
     and mamba2-780m at full width and depth (random weights from seed 0,
     batch 4, prompt 2048, 32 tokens) in bf16 through the kernels and
@@ -146,7 +153,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
     ``REDUCED_LM`` (T = 800: the MoE's sorted branch) and at a 32-token
     prompt (T = 128: its dense-local branch): kernel calls, then
     ``moe_gate`` within ``PATH_TOL``.
-27. Isolation: no ``jax`` and no ``repro`` module was loaded.
+27. The encoder-decoder and vision configs, the main path:
+    ``lm_decode`` of seamless-m4t-large-v2 (whole: 12 encoder blocks over
+    1024 stub audio frames, 12 ``xdec`` blocks) and llama-3.2-vision-90b
+    (published widths, 5 of its 20 units of 4 ``attn`` and a
+    ``cross_attn`` block, 1600 stub vision patches) in bf16 (random
+    weights from seed 0 with every cross-attention gate set to 1.0, where
+    init leaves 0 and the cross path would not reach the logits; batch
+    4, prompt 2048, 32 tokens; the stub embeddings drawn by
+    ``launch.serve.frontend_embeddings``) through the kernels and through
+    the plain path: 36 / 25 attention kernel calls per prefill (encoder,
+    causal self and cross attention), none in decode, no SSD call;
+    last-position prefill logits within ``XATTN_BF16_TOL`` of the plain
+    path and first tokens equal where its top-2 margin decides them; a
+    control, the same prefill with the embeddings halved, must move the
+    logits by more than ``XATTN_BF16_TOL``; prefill time and decode step
+    time beside their bounds, peak memory. Then in f32 at one unit of
+    each group, within ``PATH_TOL``, the same control beyond it.
+28. The reduced seamless-m4t-large-v2 and llama-3.2-vision-90b (f32,
+    16 frames, 8 patches, gates 1.0) served on the card at
+    ``REDUCED_LM``: 3 and 5 attention kernel calls of the main path,
+    prefill logits and first tokens against the plain path.
+29. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 Phases 17-19 and 21's fits run under
 ``torch.use_deterministic_algorithms(True)`` with
@@ -236,15 +264,32 @@ RG_ATTN = (4, 4096, 4096, 10, 1, 256, True, 2048)
 # and qwen3-moe-235b-a22b (GQA of 16)
 DEEPSEEK_ATTN = (4, 2048, 2048, 16, 16, 128, True, None)
 QWEN3_MOE_ATTN = (4, 2048, 2048, 64, 4, 128, True, None)
+# the encoder-decoder and vision prefills of phase 27: seamless-m4t-large-v2
+# (MHA 16/16, hd 64) over 1024 stub frames: its encoder (non-causal), its
+# decoder's causal self-attention and its cross attention (Sq != Sk);
+# llama-3.2-vision-90b (GQA 64/8, hd 128): causal self-attention, and
+# cross attention to 1600 stub patches
+SEAMLESS_ENC_ATTN = (4, 1024, 1024, 16, 16, 64, False, None)
+SEAMLESS_SELF_ATTN = (4, 2048, 2048, 16, 16, 64, True, None)
+SEAMLESS_CROSS_ATTN = (4, 2048, 1024, 16, 16, 64, False, None)
+VISION_SELF_ATTN = (4, 2048, 2048, 64, 8, 128, True, None)
+VISION_CROSS_ATTN = (4, 2048, 1600, 64, 8, 128, False, None)
+XATTN_SHAPES = [SEAMLESS_ENC_ATTN, SEAMLESS_SELF_ATTN, SEAMLESS_CROSS_ATTN,
+                VISION_SELF_ATTN, VISION_CROSS_ATTN]
 TIMED_ATTN = [QWEN_ATTN, QWEN3_ATTN, DANUBE_ATTN, RG_ATTN, DEEPSEEK_ATTN,
-              QWEN3_MOE_ATTN]
+              QWEN3_MOE_ATTN] + XATTN_SHAPES
 FA_CHECKS = [QWEN_ATTN, (2, 333, 333, 14, 2, 64, True, 128),
              (2, 512, 512, 4, 4, 128, True, None),
              (2, 300, 700, 8, 2, 64, False, None),
              (1, 90, 40, 2, 1, 128, False, 16)] + [
     (B, 256, 256, 14, 2, 64, True, None) for B in LM_TRAIN_ROWS] + [
     QWEN3_ATTN, DANUBE_ATTN, RG_ATTN, (2, 300, 700, 8, 2, 120, False, None),
-    (1, 333, 333, 4, 1, 256, True, 100), DEEPSEEK_ATTN, QWEN3_MOE_ATTN]
+    (1, 333, 333, 4, 1, 256, True, 100), DEEPSEEK_ATTN, QWEN3_MOE_ATTN
+] + XATTN_SHAPES + [
+    # the reduced configs' (phase 28): 16 encoder frames, and cross
+    # attention of 200 rows to 16 frames and to 8 patches
+    (4, 16, 16, 4, 4, 64, False, None), (4, 200, 16, 4, 4, 64, False, None),
+    (4, 200, 8, 4, 4, 64, False, None)]
 # (B, S, H, hd, N, chunk, decay): the mamba2-780m prefill first
 MAMBA_SSD = (4, 2048, 48, 64, 128, 256)
 SSD_CHECKS = [MAMBA_SSD + ("strong",), MAMBA_SSD + ("mild",),
@@ -296,6 +341,26 @@ MOE_LM = {"deepseek-moe-16b": (28, 28), "qwen3-moe-235b-a22b": (10, 10)}
 # branch) and at a short prompt (B 4 x 32: T = 128 = 64 top_k, the
 # dense-local branch)
 REDUCED_MOE_SHORT = 32
+# The encoder-decoder and vision configs (phase 27): units of the one
+# group served (None: whole; llama-3.2-vision-90b at its published widths
+# cut to 5 of its 20 units of 5 blocks, ~47 GB in bf16: the whole model,
+# ~175 GB, does not fit one card) and attention kernel calls per prefill;
+# prompts of LM_PROMPT. Every cross-attention gate is set to XATTN_GATE:
+# init leaves them 0, and tanh(0) = 0 keeps the cross path out of the
+# logits, so a gate at init would pass any cross attention.
+XATTN_LM = {"seamless-m4t-large-v2": (None, 36),
+            "llama-3.2-vision-90b": (5, 25)}
+XATTN_GATE = 1.0
+# Phase 27's bf16 logit gate, and the least a control with the stub
+# embeddings halved must move the logits. LM_BF16_TOL cannot see
+# llama-3.2-vision-90b's cross path: with random weights its 2048 rows
+# attend nearly evenly over 1600 random patches, whose values average
+# out, and halving them moved the logits 4.276e-2 (PERF.md §6).
+# The limit sits between the kernel route's readings (1.863e-2,
+# 1.953e-2) and that control, as LM_SAME_CE_TOL sits between its
+# reading and a control: stricter than LM_BF16_TOL, and a cross
+# attention as wrong as halved embeddings fails it.
+XATTN_BF16_TOL = 3e-2
 # Train-while-serve (phase 19): the phase-17 cell served meanwhile at the
 # phase-6 traffic (uniform, 2000 req/s, batches of 64), final_probe
 # requests at the final weights
@@ -735,26 +800,32 @@ def phase_reduced_ssd(gen, data):
 
 def attention_calls(cfg):
     """Attention kernel calls a prefill of ``cfg`` makes: one per ``attn``
-    or ``local_attn`` block."""
-    return sum(r * sum(k in ("attn", "local_attn") for k in p)
-               for p, r in cfg.groups)
+    (encoder blocks included), ``local_attn`` or ``cross_attn`` block,
+    two per ``xdec`` block (its self and its cross attention)."""
+    per = {"attn": 1, "local_attn": 1, "cross_attn": 1, "xdec": 2}
+    return sum(r * sum(per.get(k, 0) for k in p) for p, r in cfg.groups)
 
 
 def cut_depth(cfg):
     """``cfg`` in f32 with one unit of each group pattern (the f32 gate's
-    depth): widths unchanged."""
+    depth): widths unchanged; an encoder keeps the units of its groups."""
+    from repro_torch.models import transformer
+
     groups = tuple((p, 1) for p, _ in cfg.groups)
+    enc = sum(len(p) for _, p, _, is_enc in transformer.group_infos(cfg)
+              if is_enc)
     return dataclasses.replace(cfg, dtype="float32", groups=groups,
-                               num_layers=sum(len(p) for p, _ in groups))
+                               num_layers=sum(len(p) for p, _ in groups)
+                               - enc, enc_layers=enc)
 
 
 def lm_gate(name, cfg, params, prompts, max_len, calls, tag,
-            op="flash_attention"):
-    """Prefill ``prompts`` through the kernels (``calls`` launches of
-    ``op``'s kernel and none of the other, counts zeroed first) and the
-    plain route, with three decode steps between them that must launch
-    nothing. Returns the last-position logits over the real vocab,
-    kernel and plain."""
+            op="flash_attention", aux=None):
+    """Prefill ``prompts`` (with the stub embeddings ``aux``) through the
+    kernels (``calls`` launches of ``op``'s kernel and none of the other,
+    counts zeroed first) and the plain route, with three decode steps
+    between them that must launch nothing. Returns the last-position
+    logits over the real vocab, kernel and plain."""
     from repro_torch.kernels import counts, flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.models import transformer
@@ -763,7 +834,7 @@ def lm_gate(name, cfg, params, prompts, max_len, calls, tag,
     S = prompts.shape[1]
     with torch.no_grad():
         counts.reset(fa, ssd)
-        lk, caches = transformer.prefill(params, cfg, prompts,
+        lk, caches = transformer.prefill(params, cfg, prompts, aux=aux,
                                          max_len=max_len, last_only=True)
         check(counter.LAUNCHES.total == calls and other.LAUNCHES.total == 0,
               f"{tag} {name}: prefill made {counter.LAUNCHES.total} {op} "
@@ -776,8 +847,9 @@ def lm_gate(name, cfg, params, prompts, max_len, calls, tag,
         check(counter.LAUNCHES.total == calls and other.LAUNCHES.total == 0,
               f"{tag} {name}: decode launched a kernel")
         del caches
-        lr, _ = transformer.prefill(params, cfg, prompts, max_len=max_len,
-                                    last_only=True, impl="ref")
+        lr, _ = transformer.prefill(params, cfg, prompts, aux=aux,
+                                    max_len=max_len, last_only=True,
+                                    impl="ref")
     check(counter.LAUNCHES.total == calls and other.LAUNCHES.total == 0,
           f"{tag} {name}: impl='ref' launched a kernel")
     return lk[:, :cfg.vocab], lr[:, :cfg.vocab]
@@ -969,16 +1041,29 @@ def moe_prefill_work(cfg, B, S):
 
 
 def decode_step_bytes(cfg, params, B, pos):
-    """Bytes one decode step must read: every weight but the embedding
-    table (the dense-local branch runs every expert), B embedding rows,
-    and the KV caches up to ``pos``."""
+    """Bytes one decode step must read: the decoder's weights (every
+    expert: the dense-local branch runs them all; not the encoder's, not
+    the embedding table), B embedding rows, the self-attention caches up
+    to ``pos`` and every cross-attention cache whole."""
     from repro_torch.convert import tree_leaves
+    from repro_torch.models import transformer
 
-    w = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
     emb = params["embed"]
-    kv = (2 * cfg.num_layers * B * pos * cfg.n_kv * cfg.resolved_head_dim
-          * emb.element_size())
-    return w - emb.numel() * emb.element_size() + B * emb[0].nbytes + kv
+    w = (nbytes({k: v for k, v in params.items()
+                 if k not in ("groups", "embed", "enc_norm")})
+         + B * emb[0].nbytes)
+    row = 2 * B * cfg.n_kv * cfg.resolved_head_dim * emb.element_size()
+    Ta = transformer.aux_tokens(cfg)
+    for gi, pattern, repeat in transformer.groups_of(cfg):
+        w += nbytes(params["groups"][gi])
+        for kind in pattern:
+            self_rows = pos if kind in ("attn", "xdec") else 0
+            cross_rows = Ta if kind in ("cross_attn", "xdec") else 0
+            w += repeat * row * (self_rows + cross_rows)
+    return w
 
 
 @contextlib.contextmanager
@@ -1150,12 +1235,12 @@ def moe_gate(name, cfg, params, prompts, max_len, calls, tag, tol):
     return out
 
 
-def moe_cut(cfg, blocks):
-    """``cfg`` with its one group cut to ``blocks`` blocks; widths as
-    published."""
+def cut_units(cfg, units):
+    """``cfg`` with its one group cut to ``units`` units of its pattern
+    (whole units only); widths as published."""
     (pattern, _), = cfg.groups
-    return dataclasses.replace(cfg, num_layers=blocks * len(pattern),
-                               groups=((pattern, blocks),))
+    return dataclasses.replace(cfg, num_layers=units * len(pattern),
+                               groups=((pattern, units),))
 
 
 def phase_moe_lm(data):
@@ -1172,7 +1257,7 @@ def phase_moe_lm(data):
 
     total = 0
     for name, (depth, calls) in MOE_LM.items():
-        cfg = moe_cut(get_config(name), depth)
+        cfg = cut_units(get_config(name), depth)
         check(attention_calls(cfg) == calls, f"{name}: {depth} blocks hold "
               f"{attention_calls(cfg)} attention blocks, expected {calls}")
         params = transformer.init(
@@ -1304,6 +1389,280 @@ def phase_reduced_moe(data):
                   f"gen {n_gen}): {launches} flash_attention call in "
                   f"prefill; greedy tokens of the two routes agree "
                   f"{float((gk == res_ref['generated']).float().mean()):.4f}")
+    return total
+
+
+def set_gates(params, value):
+    """Every cross-attention ``gate`` leaf of ``params`` set to ``value``
+    in place. Returns how many leaves were set."""
+    n = 0
+    if isinstance(params, dict):
+        for k, v in params.items():
+            if k == "gate":
+                v.fill_(value)
+                n += 1
+            else:
+                n += set_gates(v, value)
+    elif isinstance(params, (list, tuple)):
+        n += sum(set_gates(v, value) for v in params)
+    return n
+
+
+def xattn_prefill_work(cfg, B, S):
+    """bf16 operations of one prefill of B prompts of S tokens with
+    ``transformer.aux_tokens(cfg)`` stub embeddings each: per block the
+    q/k/v/o projections and the two attention products over the visible
+    pairs (the encoder's over its frames, non-causal; the decoder's
+    self-attention causal; cross attention's q/o over the tokens, its k/v
+    over the embeddings, its products over every (token, embedding)
+    pair), the gated MLP, then the last position's head."""
+    from repro_torch.models import transformer
+
+    d, ff = cfg.d_model, cfg.d_ff
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv
+    Ta = transformer.aux_tokens(cfg)
+
+    def self_attn(S, causal):
+        return (B * S * 2 * d * hd * (2 * H + 2 * KV)
+                + B * H * fa_pairs(S, S, causal, None) * hd * 4)
+
+    def cross_attn():
+        return (B * S * 2 * d * hd * 2 * H + B * Ta * 2 * d * hd * 2 * KV
+                + B * H * S * Ta * hd * 4)
+
+    total = 0
+    for _, pattern, repeat, is_enc in transformer.group_infos(cfg):
+        rows = Ta if is_enc else S
+        for kind in pattern:
+            block = B * rows * 6 * d * ff
+            if kind == "attn":
+                block += self_attn(rows, not is_enc)
+            elif kind == "cross_attn":
+                block += cross_attn()
+            elif kind == "xdec":
+                block += self_attn(S, True) + cross_attn()
+            total += repeat * block
+    return total + B * 2 * d * cfg.vocab
+
+
+def phase_xattn_lm(data):
+    """27. The encoder-decoder and vision configs served in bf16 at
+    published widths, gates set (the main path: counts zeroed just before
+    the kernel route's ``lm_decode`` and read just after):
+    seamless-m4t-large-v2 whole, llama-3.2-vision-90b cut to 5 units;
+    ``lm_gate`` given the same stub embeddings, the halved-embeddings
+    control, times beside bounds and peak memory; then in f32 at
+    ``cut_depth``. Returns the main paths' attention kernel calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import frontend_embeddings, lm_decode
+    from repro_torch.models import transformer
+
+    total = 0
+    for name, (units, calls) in XATTN_LM.items():
+        cfg = get_config(name)
+        if units is not None:
+            cfg = cut_units(cfg, units)
+        check(attention_calls(cfg) == calls, f"{name}: the config makes "
+              f"{attention_calls(cfg)} attention calls a prefill, expected "
+              f"{calls}")
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        n_gates = set_gates(params, XATTN_GATE)
+        check(n_gates == 1, f"{name}: {n_gates} gate leaves, expected 1")
+        n_params = transformer.param_count(params)
+
+        def run(impl, gen=LM_GEN, cfg=cfg, params=params):
+            return lm_decode(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                             gen=gen, seed=0, params=params, impl=impl)
+
+        for impl in ("auto", "ref"):
+            run(impl, gen=2)
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset(fa, ssd)
+        res = run("auto")
+        launches = fa.LAUNCHES.total
+        peak = [torch.cuda.max_memory_allocated()]
+        check(launches == calls and ssd.LAUNCHES.total == 0,
+              f"{name}: lm_decode made {launches} attention kernel calls "
+              f"(and {ssd.LAUNCHES.total} SSD), expected {calls} and 0")
+        total += launches
+        torch.cuda.reset_peak_memory_stats()
+        res_ref = run("ref")
+        peak.append(torch.cuda.max_memory_allocated())
+        check(fa.LAUNCHES.total == calls, f"{name}: impl='ref' launched the "
+              f"attention kernel")
+        gk, gr = res["generated"], res_ref["generated"]
+        check(gk.shape == (LM_BATCH, LM_GEN) and bool(
+            ((gk >= 0) & (gk < cfg.vocab)).all()),
+              f"{name}: generated tokens of the wrong shape or range")
+        prompts = torch.as_tensor(next(iter(data.lm_batches(
+            cfg.vocab, LM_BATCH, LM_PROMPT - 1, 1, 0))), device="cuda")
+        aux = frontend_embeddings(cfg, LM_BATCH, 0, "cuda")
+        lk, lr = lm_gate(name, cfg, params, prompts, LM_PROMPT + LM_GEN,
+                         calls, "[27 xattn]", aux=aux)
+        check(bool(torch.isfinite(lk).all()), f"{name}: non-finite logits")
+        e = scaled_err(lk, lr)
+        decided = top2_margin(lr) > 2 * float((lk - lr).abs().max())
+        same = gk[:, 0] == gr[:, 0]
+        # the control: the cross path must reach the logits
+        with torch.no_grad():
+            lh, _ = transformer.prefill(params, cfg, prompts, aux=aux * 0.5,
+                                        max_len=LM_PROMPT + LM_GEN,
+                                        last_only=True)
+        check(fa.LAUNCHES.total == 2 * calls, f"{name}: the control "
+              f"prefill made {fa.LAUNCHES.total - calls} attention calls")
+        e_ctrl = scaled_err(lh[:, :cfg.vocab], lk)
+        pre_ops = xattn_prefill_work(cfg, LM_BATCH, LM_PROMPT)
+        pre_bound, _ = roofline(0, 0, pre_ops)
+        step_bytes = decode_step_bytes(cfg, params, LM_BATCH,
+                                       LM_PROMPT + LM_GEN // 2)
+        step_bound, step_by = roofline(0, step_bytes)
+        step_ms = [1e3 * r["decode_s"] / (LM_GEN - 1) for r in (res, res_ref)]
+        agree = float((gk == gr).float().mean())
+        print(f"[27 xattn] {name} bf16 ({cfg.num_layers + cfg.enc_layers} "
+              f"blocks, {n_params / 1e9:.3f} B params, gates "
+              f"{XATTN_GATE}; B {LM_BATCH}, prompt {LM_PROMPT}, "
+              f"{transformer.aux_tokens(cfg)} stub embeddings, gen "
+              f"{LM_GEN}): {launches} flash_attention calls in prefill, 0 in "
+              f"decode; last-position prefill logits kernel vs plain err "
+              f"{e:.3e} (<= {XATTN_BF16_TOL}); the halved-embeddings control "
+              f"moves them {e_ctrl:.3e} (> {XATTN_BF16_TOL}); first token "
+              f"equal "
+              f"on {int(same[decided].sum())}/{int(decided.sum())} rows whose "
+              f"plain top-2 margin exceeds twice the largest logit "
+              f"difference ({int(same.sum())}/{LM_BATCH} in all); greedy "
+              f"tokens agree {agree:.4f}")
+        print(f"[27 xattn] {name} bf16 prefill s kernel / plain "
+              f"{res['prefill_s']:.4f} / {res_ref['prefill_s']:.4f} (bound "
+              f"{pre_bound:.2f} ms: {pre_ops / 1e12:.3f} TFLOP bf16); decode "
+              f"step ms kernel / plain {step_ms[0]:.3f} / {step_ms[1]:.3f}, "
+              f"tok/s {res['decode_tok_per_s']:.2f} / "
+              f"{res_ref['decode_tok_per_s']:.2f} (bound {step_bound:.3f} ms "
+              f"a step, {step_by}: {step_bytes / 1e9:.3f} GB); peak memory "
+              f"kernel / plain {peak[0] / 1e9:.2f} / {peak[1] / 1e9:.2f} GB")
+        print(json.dumps({"lm": name, "dtype": "bfloat16",
+                          "blocks": cfg.num_layers + cfg.enc_layers,
+                          "batch": LM_BATCH, "prompt": LM_PROMPT,
+                          "aux_tokens": transformer.aux_tokens(cfg),
+                          "gen": LM_GEN, "params": n_params,
+                          "gate": XATTN_GATE,
+                          "kernel": {k: res[k] for k in (
+                              "prefill_s", "decode_s", "decode_tok_per_s")},
+                          "plain": {k: res_ref[k] for k in (
+                              "prefill_s", "decode_s", "decode_tok_per_s")},
+                          "decode_step_ms": step_ms,
+                          "prefill_bound_ms": pre_bound,
+                          "decode_step_bound_ms": step_bound,
+                          "peak_bytes": peak, "kernel_calls": launches,
+                          "logit_err": e, "halved_aux_control": e_ctrl,
+                          "token_agreement": agree}))
+        check(e <= XATTN_BF16_TOL, f"{name}: prefill logits, kernel path "
+              f"vs plain path, {e} > {XATTN_BF16_TOL}")
+        check(bool(same[decided].all()), f"{name} bf16: first generated "
+              f"tokens differ from the plain path on decided rows")
+        check(e_ctrl > XATTN_BF16_TOL, f"{name}: halving the stub "
+              f"embeddings moved the logits {e_ctrl} <= {XATTN_BF16_TOL}: "
+              f"the bf16 gate cannot tell a wrong cross attention")
+        del params, res, res_ref, lk, lr, lh, run
+        torch.cuda.empty_cache()
+
+        cfg32 = cut_depth(cfg)
+        calls32 = attention_calls(cfg32)
+        p32 = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg32)
+        set_gates(p32, XATTN_GATE)
+        aux32 = aux.float()
+        res = lm_decode(cfg32, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                        gen=LM_F32_GEN, seed=0, params=p32, aux=aux32)
+        res_ref = lm_decode(cfg32, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                            gen=LM_F32_GEN, seed=0, params=p32, aux=aux32,
+                            impl="ref")
+        lk, lr = lm_gate(name, cfg32, p32, prompts, LM_PROMPT + LM_F32_GEN,
+                         calls32, "[27 xattn] f32", aux=aux32)
+        with torch.no_grad():
+            lh, _ = transformer.prefill(p32, cfg32, prompts, aux=aux32 * 0.5,
+                                        max_len=LM_PROMPT + LM_F32_GEN,
+                                        last_only=True)
+        e_ctrl = scaled_err(lh[:, :cfg.vocab], lk)
+        e = scaled_err(lk, lr)
+        decided = top2_margin(lr) > F32_MARGIN
+        same = res["generated"][:, 0] == res_ref["generated"][:, 0]
+        print(f"[27 xattn] {name} f32 at one unit of each group "
+              f"({cfg32.num_layers + cfg32.enc_layers} blocks, {calls32} "
+              f"attention calls): last-position prefill logits kernel vs "
+              f"plain err {e:.3e} (<= {PATH_TOL}); the halved-embeddings "
+              f"control moves them {e_ctrl:.3e} (> {PATH_TOL}); first token "
+              f"equal on "
+              f"{int(same[decided].sum())}/{int(decided.sum())} rows with "
+              f"top-2 margin > {F32_MARGIN}; prefill s kernel / plain "
+              f"{res['prefill_s']:.4f} / {res_ref['prefill_s']:.4f}")
+        check(e <= PATH_TOL, f"{name} f32: prefill logits, kernel path vs "
+              f"plain path, {e} > {PATH_TOL}")
+        check(e_ctrl > PATH_TOL, f"{name} f32: halving the stub embeddings "
+              f"moved the logits {e_ctrl} <= {PATH_TOL}")
+        check(bool(same[decided].all()), f"{name} f32: first generated "
+              f"tokens differ from the plain path on decided rows")
+        del p32, res, res_ref, lk, lr, lh, prompts, aux, aux32
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_reduced_xattn(data):
+    """28. The reduced seamless-m4t-large-v2 and llama-3.2-vision-90b
+    (f32, d 256, MHA 4/4 at hd 64, 16 frames and 8 patches; gates set)
+    served on the card at ``REDUCED_LM``: attention kernel calls of the
+    main path (counts zeroed just before), prefill logits and first
+    tokens against the plain path. Returns the calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import frontend_embeddings, lm_decode
+    from repro_torch.models import transformer
+
+    batch, prompt, n_gen = REDUCED_LM
+    total = 0
+    for name in XATTN_LM:
+        cfg = get_config(name).reduced()
+        calls = attention_calls(cfg)
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        set_gates(params, XATTN_GATE)
+        counts.reset(fa, ssd)
+        res = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen,
+                        seed=0, params=params)
+        launches = fa.LAUNCHES.total
+        check(launches == calls and ssd.LAUNCHES.total == 0,
+              f"reduced {name}: lm_decode made {launches} attention kernel "
+              f"calls, expected {calls}")
+        total += launches
+        res_ref = lm_decode(cfg, batch=batch, prompt_len=prompt, gen=n_gen,
+                            seed=0, params=params, impl="ref")
+        gk = res["generated"]
+        check(gk.shape == (batch, n_gen) and bool(
+            ((gk >= 0) & (gk < cfg.vocab)).all()),
+              f"reduced {name}: generated tokens of the wrong shape or range")
+        prompts = torch.as_tensor(next(iter(data.lm_batches(
+            cfg.vocab, batch, prompt - 1, 1, 0))), device="cuda")
+        lk, lr = lm_gate(name, cfg, params, prompts, prompt + n_gen, calls,
+                         "[28 reduced xattn]",
+                         aux=frontend_embeddings(cfg, batch, 0, "cuda"))
+        e = scaled_err(lk, lr)
+        decided = top2_margin(lr) > F32_MARGIN
+        same = gk[:, 0] == res_ref["generated"][:, 0]
+        print(f"[28 reduced xattn] {cfg.name} (B {batch}, prompt {prompt}, "
+              f"{transformer.aux_tokens(cfg)} stub embeddings, gen {n_gen}, "
+              f"{cfg.dtype}): {launches} flash_attention calls in prefill; "
+              f"last-position prefill logits kernel vs plain err {e:.3e} "
+              f"(<= {PATH_TOL}); first token equal on "
+              f"{int(same[decided].sum())}/{int(decided.sum())} decided rows; "
+              f"greedy tokens agree "
+              f"{float((gk == res_ref['generated']).float().mean()):.4f}")
+        check(bool(torch.isfinite(lk).all()) and e <= PATH_TOL,
+              f"reduced {name}: prefill logits, kernel vs plain, {e}")
+        check(bool(same[decided].all()), f"reduced {name}: first generated "
+              f"tokens differ from the plain path on decided rows")
     return total
 
 
@@ -2651,15 +3010,18 @@ def main():
     from repro_torch.kernels import registry
     registry.flash_attention.register("nudged", nudged_attention)
     family_calls += phase_moe_lm(data) + phase_reduced_moe(data)
+    # 27-28. the encoder-decoder and vision configs: the main path at
+    # published widths, and the reduced ones ---------------------------------
+    family_calls += phase_xattn_lm(data) + phase_reduced_xattn(data)
     for row in lm_rows:
         if row["name"] == "flash_attention":
             row["launches"] += family_calls
 
-    # 27. isolation --------------------------------------------------------
+    # 29. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[27 isolation] no jax, no repro module loaded")
+    print("[29 isolation] no jax, no repro module loaded")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -465,6 +465,7 @@ def _fit_lm_chapters(cfg, source, *, backend, schedule, num_nodes,
     scored by the same held-out ``train.eval_ce``, so the bit-exactness
     gate extends to the reported CE. ``key``: the root key of the
     negatives (folded by the step number); default ``TorchKey(seed)``."""
+    train_lib.check_supported(cfg)
     seed = getattr(cfg, "seed", 0) or 0
     key_fn = TorchKey if key is None else (lambda _seed: key)
     dev = (None if backend == "executor" and devices is not None

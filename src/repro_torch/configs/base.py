@@ -7,12 +7,13 @@ by *groups*: ``(pattern, repeat)``, where ``pattern`` is a tuple of
 block kinds whose parameters are stacked on a leading ``repeat`` axis,
 as in the reference, so its parameter tree converts one to one.
 
-Only the configs whose blocks the port can run are registered:
-``qwen2-0.5b``, ``tinyllama-1.1b``, ``qwen3-8b`` and ``h2o-danube-3-4b``
-(``attn``), ``mamba2-780m`` (``mamba2``), ``recurrentgemma-2b``
-(``rglru`` and ``local_attn``), and ``deepseek-moe-16b`` and
-``qwen3-moe-235b-a22b`` (``attn`` blocks with MoE MLPs). The vision and
-audio configs wait for their block kinds (``ROADMAP.md`` §1).
+All ten of the reference's LM configs are registered: ``qwen2-0.5b``,
+``tinyllama-1.1b``, ``qwen3-8b`` and ``h2o-danube-3-4b`` (``attn``),
+``mamba2-780m`` (``mamba2``), ``recurrentgemma-2b`` (``rglru`` and
+``local_attn``), ``deepseek-moe-16b`` and ``qwen3-moe-235b-a22b``
+(``attn`` blocks with MoE MLPs), ``seamless-m4t-large-v2`` (a
+bidirectional ``attn`` encoder, then ``xdec`` decoder blocks) and
+``llama-3.2-vision-90b`` (``attn`` and ``cross_attn`` blocks).
 """
 from __future__ import annotations
 
@@ -60,11 +61,13 @@ class FFConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``ModelConfig`` fields that the port's blocks and
-    LM trainers read. ``enc_dec`` is kept so that a config that sets it
-    is refused by name (``NotImplementedError``); the encoder and vision
-    fields wait for their slices."""
+    LM trainers read (all but its ``remat``). With ``enc_dec`` the
+    leading ``enc_layers`` blocks of ``groups`` form a bidirectional
+    encoder over ``enc_seq`` stub frame embeddings and ``num_layers``
+    counts the decoder's; ``vision_tokens`` is the stub patch count that
+    ``cross_attn`` blocks read."""
     name: str
-    arch_type: str                       # dense | moe | ssm | hybrid
+    arch_type: str               # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     n_heads: int
@@ -85,7 +88,13 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     ff: FFConfig = dataclasses.field(default_factory=FFConfig)
-    enc_dec: bool = False                # encoder-decoder: not ported yet
+    # encoder-decoder (audio) ---------------------------------------------
+    enc_dec: bool = False
+    enc_layers: int = 0
+    enc_seq: int = 1024                  # stub frontend frame count
+    # vlm ------------------------------------------------------------------
+    vision_tokens: int = 0               # stub frontend patch count
+    vision_dim: int = 0                  # embedding dim delivered by stub
     dtype: str = "bfloat16"
     source: str = ""                     # citation
 
@@ -104,8 +113,9 @@ class ModelConfig:
         return sum(len(p) * r for p, r in self.groups)
 
     def validate(self) -> None:
-        assert self.layers_in_groups() == self.num_layers, (
-            self.name, self.layers_in_groups(), self.num_layers)
+        assert self.layers_in_groups() == (
+            self.num_layers + (self.enc_layers if self.enc_dec else 0)
+        ), (self.name, self.layers_in_groups(), self.num_layers)
 
     def reduced(self, d_model: int = 256, layers_hint: int = 2
                 ) -> "ModelConfig":
@@ -117,6 +127,10 @@ class ModelConfig:
             n_kv -= 1
         groups = _reduce_groups(self.groups, layers_hint)
         nl = sum(len(p) * r for p, r in groups)
+        enc_l = 0
+        if self.enc_dec:
+            enc_l = nl // 2
+            nl = nl - enc_l
         moe = None
         if self.moe is not None:
             moe = dataclasses.replace(
@@ -136,7 +150,10 @@ class ModelConfig:
             n_heads=n_heads, n_kv=n_kv, d_ff=2 * d_model,
             vocab=min(self.vocab, 512), head_dim=0, groups=groups,
             window=min(self.window, 64) if self.window else None,
-            moe=moe, ssm=ssm, rglru=rglru, dtype="float32")
+            moe=moe, ssm=ssm, rglru=rglru, enc_layers=enc_l,
+            enc_seq=16, vision_tokens=8 if self.vision_tokens else 0,
+            vision_dim=d_model if self.vision_dim else 0,
+            dtype="float32")
 
 
 def _reduce_groups(groups, layers_hint):
@@ -169,9 +186,7 @@ def get_config(name: str) -> ModelConfig:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown config {name!r}; the port registers "
-                       f"{', '.join(list_configs())} (the reference's "
-                       f"other configs wait for their block kinds, "
-                       f"ROADMAP.md §1)") from None
+                       f"{', '.join(list_configs())}") from None
 
 
 def list_configs():
@@ -182,5 +197,6 @@ def list_configs():
 
 def load_all():
     from repro_torch.configs import (  # noqa: F401
-        deepseek_moe_16b, h2o_danube_3_4b, mamba2_780m, qwen2_0_5b,
-        qwen3_8b, qwen3_moe_235b_a22b, recurrentgemma_2b, tinyllama_1_1b)
+        deepseek_moe_16b, h2o_danube_3_4b, llama_3_2_vision_90b,
+        mamba2_780m, qwen2_0_5b, qwen3_8b, qwen3_moe_235b_a22b,
+        recurrentgemma_2b, seamless_m4t_large_v2, tinyllama_1_1b)

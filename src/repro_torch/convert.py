@@ -14,7 +14,11 @@ import torch
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples."""
+    """Apply ``fn`` to every leaf of a tree of dicts, lists and tuples.
+    ``None`` is an empty subtree, as in JAX (an encoder group's decode
+    caches): it stays ``None`` and ``fn`` never sees it."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -34,6 +38,8 @@ def tree_stack(trees):
     """Trees of one structure -> one tree whose leaves are the stacked
     leaves (a new leading axis), as ``jax.vmap`` over an init gives."""
     first = trees[0]
+    if first is None:
+        return None
     if isinstance(first, dict):
         return {k: tree_stack([t[k] for t in trees]) for k in first}
     if isinstance(first, (list, tuple)):

@@ -40,10 +40,10 @@ from repro_torch.models import blocks, transformer
 
 
 def _pattern(cfg):
+    train_lib.check_supported(cfg)
     if len(cfg.groups) != 1:
         raise ValueError("the chapter schedule needs a uniform stack (one "
                          f"group); got {len(cfg.groups)}")
-    train_lib.check_supported(cfg)
     return cfg.groups[0]
 
 

@@ -53,14 +53,17 @@ REF = {"causal": True, "impl": "ref"}   # ctx of a differentiated forward
 
 
 def check_supported(cfg):
-    """The LM trainers run decoder-only stacks (dense or MoE MLPs); an
-    encoder-decoder config names the ``ROADMAP.md`` slice that ports
-    it."""
-    if getattr(cfg, "enc_dec", False):
+    """The LM trainers run decoder-only stacks (dense or MoE MLPs). An
+    encoder-decoder config, or one with ``cross_attn`` blocks (a vision
+    config), trains on stub frontend embeddings that no trainer passes
+    yet: it names the ``ROADMAP.md`` item that ports that training."""
+    kinds = {k for pattern, _ in getattr(cfg, "groups", ()) for k in pattern}
+    if getattr(cfg, "enc_dec", False) or kinds & {"cross_attn", "xdec"}:
         raise NotImplementedError(
-            "encoder-decoder LM training is not ported yet; it waits for "
-            "the vision/audio slice (ROADMAP.md §1: remaining block kinds "
-            "and configs)")
+            f"training {cfg.name!r} is not ported yet: it needs the stub "
+            f"frontend embeddings (aux) and the encoder's chapter, which "
+            f"wait for the encoder-decoder and vision training slice "
+            f"(ROADMAP.md §1: encoder-decoder and vision LM training)")
 
 
 def unit_views(group, r):
@@ -175,7 +178,7 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
     check_supported(cfg)
     perf_opt = cfg.ff.goodness == "perf_opt"
     theta = cfg.ff.theta
-    infos = transformer.group_infos(cfg)
+    infos = transformer.groups_of(cfg)
 
     def step_fn(params, opt_state, batch, step):
         tokens = batch["tokens"]

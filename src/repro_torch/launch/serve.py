@@ -15,22 +15,28 @@ freshly trained layer into the replica that serves ``--traffic`` at
       --arch qwen2-0.5b --batch 4 --prompt-len 64 --gen 32
 
 runs the reduced config on the card (``--full`` for the published
-widths and depth). ``--arch`` is one of the eight registered configs:
+widths and depth). ``--arch`` is one of the ten registered configs:
 ``qwen2-0.5b``, ``tinyllama-1.1b``, ``qwen3-8b``, ``h2o-danube-3-4b``
 (``attn`` blocks; head widths 64, 64, 128, 120; danube's sliding window
 4096), ``mamba2-780m`` (``mamba2``), ``recurrentgemma-2b`` (``rglru``
-and ``local_attn`` blocks, head width 256, local window 2048), and
+and ``local_attn`` blocks, head width 256, local window 2048),
 ``deepseek-moe-16b`` (MHA, 64 experts top-6 and 2 shared) and
 ``qwen3-moe-235b-a22b`` (GQA of 16, 128 experts top-8): ``attn`` blocks
-with MoE MLPs. The prefill goes through the hand-written attention and
-SSD kernels (``kernels/csrc/flash_attention.cu``,
-``kernels/csrc/mamba2_ssd.cu``); the RG-LRU blocks, the MoE MLPs
-(``models/mlp.py``: router, capacity dispatch in prefill, every expert
-over the batch in decode) and decode are plain torch. The SSD kernel is
-compiled for both the reduced mamba2 config (N 16, hd 32, chunk 32) and
-the full one. ``--device cpu`` runs either mode's plain path on the
-CPU. qwen3-moe-235b-a22b at its published depth (94 blocks, ~470 GB in
-bf16) does not fit one card.
+with MoE MLPs, ``seamless-m4t-large-v2`` (12 bidirectional ``attn``
+encoder blocks over 1024 stub audio frames, then 12 ``xdec`` decoder
+blocks) and ``llama-3.2-vision-90b`` (20 units of 4 ``attn`` blocks and
+a ``cross_attn`` block over 1600 stub vision patches). The prefill goes
+through the hand-written attention and SSD kernels
+(``kernels/csrc/flash_attention.cu``, ``kernels/csrc/mamba2_ssd.cu``):
+causal self-attention, the encoder's bidirectional self-attention and
+the cross attention; the RG-LRU blocks, the MoE MLPs (``models/mlp.py``:
+router, capacity dispatch in prefill, every expert over the batch in
+decode) and decode (cross attention included) are plain torch. The SSD
+kernel is compiled for both the reduced mamba2 config (N 16, hd 32,
+chunk 32) and the full one. ``--device cpu`` runs either mode's plain
+path on the CPU. qwen3-moe-235b-a22b at its published depth (94 blocks,
+~470 GB in bf16) and llama-3.2-vision-90b at its (100 blocks, ~175 GB)
+do not fit one card.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ import torch
 from repro_torch import data as data_lib
 from repro_torch.configs import get_config, list_configs
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import common, transformer
 
 
 def _sync(dev):
@@ -50,8 +56,22 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def frontend_embeddings(cfg, batch, seed, device):
+    """The stub frontend's output for ``cfg`` (None for a text-only
+    config): (batch, ``transformer.aux_tokens(cfg)``, d_model) standard
+    normal draws in the config's dtype from a ``torch.Generator`` on
+    ``device`` seeded by ``seed``. The stream differs from the
+    reference's ``jax.random`` draw."""
+    n = transformer.aux_tokens(cfg)
+    if not n:
+        return None
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, n, cfg.d_model), generator=gen,
+                       device=device).to(common.dtype_of(cfg))
+
+
 def lm_decode(cfg, *, batch, prompt_len, gen, seed=0, greedy=True,
-              params=None, device=None, impl="auto"):
+              params=None, aux=None, device=None, impl="auto"):
     """Prefill a batch of prompts, then batched greedy decode against
     the caches.
 
@@ -59,15 +79,21 @@ def lm_decode(cfg, *, batch, prompt_len, gen, seed=0, greedy=True,
     a ``torch.Generator`` seeded by ``seed`` on the device; pass a tree
     (e.g. the reference's, through ``convert.params_from_numpy``) to
     serve given weights. Prompts are ``data.lm_batches(cfg.vocab, batch,
-    prompt_len - 1, 1, seed)``. ``greedy=False`` samples each token from
-    the softmax with a generator seeded by ``seed``. ``impl`` reaches
-    the prefill's kernel ops. Times are host clocks behind
+    prompt_len - 1, 1, seed)``. ``aux``: the stub frontend's embeddings
+    (an encoder-decoder's audio frames, a vision config's patches); when
+    None, ``frontend_embeddings(cfg, batch, seed, device)`` draws them,
+    from a stream other than the reference's ``jax.random`` draw (the
+    tests pass ``aux``). ``greedy=False`` samples each token from the
+    softmax with a generator seeded by ``seed``. ``impl`` reaches the
+    prefill's kernel ops. Times are host clocks behind
     ``torch.cuda.synchronize()``.
     """
     dev = resolve_device(device)
     if params is None:
         params = transformer.init(
             torch.Generator(device=dev).manual_seed(seed), cfg)
+    aux = (frontend_embeddings(cfg, batch, seed, dev) if aux is None
+           else aux.to(dev))
     prompts = torch.as_tensor(next(iter(data_lib.lm_batches(
         cfg.vocab, batch, prompt_len - 1, 1, seed))), device=dev)
     sampler = (None if greedy
@@ -77,7 +103,7 @@ def lm_decode(cfg, *, batch, prompt_len, gen, seed=0, greedy=True,
     with torch.no_grad():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, caches = transformer.prefill(params, cfg, prompts,
+        logits, caches = transformer.prefill(params, cfg, prompts, aux=aux,
                                              max_len=max_len, last_only=True,
                                              impl=impl)
         _sync(dev)
@@ -194,7 +220,7 @@ def main(argv=None):
                    help="trace exporter (the obs exporter registry)")
     lm = ap.add_argument_group("lm mode")
     lm.add_argument("--arch", default=None, choices=list_configs(),
-                    help="LM config name (the eight the port registers)")
+                    help="LM config name (the ten the port registers)")
     lm.add_argument("--full", action="store_true",
                     help="published widths and depth (default: reduced)")
     lm.add_argument("--batch", type=int, default=4)

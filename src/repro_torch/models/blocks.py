@@ -1,19 +1,25 @@
 """Block-level init/apply/prefill/decode dispatch (own copy of
-``repro.models.blocks`` for the kinds the port runs).
+``repro.models.blocks``).
 
 Block kinds: ``attn`` (GQA self-attention, optional sliding window
-``cfg.window``), ``local_attn`` (the same with the recurrentgemma local
-window ``cfg.rglru.window``), ``rglru`` (the RG-LRU recurrent block),
-each followed by its MLP (dense, or MoE when ``cfg.moe`` is set); and
+``cfg.window``; bidirectional when ``ctx["causal"]`` is false, as in the
+encoder, rope kept), ``local_attn`` (the same with the recurrentgemma
+local window ``cfg.rglru.window``), ``rglru`` (the RG-LRU recurrent
+block), ``cross_attn`` (attention from the tokens to ``ctx["aux"]``, the
+vision embeddings or the encoder's output), each followed by its MLP
+(dense, or MoE when ``cfg.moe`` is set); ``xdec`` (the encoder-decoder's
+decoder block: causal self-attention, cross attention, MLP); and
 ``mamba2`` (SSD, followed by an MLP only when ``d_ff`` > 0). Every block
-is pre-norm residual. The MoE's router load-balance loss comes back from
+is pre-norm residual. Cross attention applies no rope and no mask, and
+scales its output by ``tanh(gate)`` (a learned f32 scalar, 0 at init, so
+a fresh model ignores ``aux``); its decode reads K/V computed once from
+``aux`` at prefill. The MoE's router load-balance loss comes back from
 ``block_apply``; decode runs the MLP on (B, 1, d), so T = B takes the
-MoE's dense-local branch. The reference's ``cross_attn`` and ``xdec``
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
-them.
+MoE's dense-local branch.
 
-``ctx`` carries ``impl`` (the kernel ops' ``impl=``, default "auto")
-and, for prefill, ``max_len`` (the decode caches' length).
+``ctx`` carries ``impl`` (the kernel ops' ``impl=``, default "auto"),
+``causal``, ``aux`` (what cross attention reads) and, for prefill,
+``max_len`` (the decode caches' length).
 """
 from __future__ import annotations
 
@@ -21,27 +27,12 @@ import torch
 
 from repro_torch.models import attention, common, mlp, rglru, ssm
 
-_UNPORTED = {
-    "cross_attn": "the vision/audio slice (ROADMAP.md §1: remaining block "
-                  "kinds and configs)",
-    "xdec": "the vision/audio slice (ROADMAP.md §1: remaining block kinds "
-            "and configs)",
-}
-
-
-def _unported(kind):
-    if kind in _UNPORTED:
-        return NotImplementedError(
-            f"block kind {kind!r} is not ported yet; it waits for "
-            f"{_UNPORTED[kind]}")
-    return ValueError(kind)
-
 
 # ---------------------------------------------------------------------------
 # Attention sub-layer
 # ---------------------------------------------------------------------------
 
-def attn_init(gen, cfg):
+def attn_init(gen, cfg, cross=False):
     d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv
     hd = cfg.resolved_head_dim
     dtype = common.dtype_of(cfg)
@@ -59,13 +50,17 @@ def attn_init(gen, cfg):
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((hd,), device=dev)
         p["k_norm"] = torch.zeros((hd,), device=dev)
+    if cross:
+        p["gate"] = torch.zeros((), device=dev)
     return p
 
 
-def _qkv(p, cfg, x):
+def _qkv(p, cfg, x, kv_src=None):
+    """q from ``x``; k and v from ``kv_src`` (``x`` when None)."""
+    kv_src = x if kv_src is None else kv_src
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    k = torch.einsum("btd,dhk->bthk", kv_src, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", kv_src, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -87,8 +82,24 @@ def _attn_seq(p, cfg, x, *, causal, window, impl):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
 
 
-def attn_apply(p, cfg, x, *, causal=True, window=None, impl="auto"):
-    return _attn_seq(p, cfg, x, causal=causal, window=window, impl=impl)[0]
+def _gated(p, y):
+    """Cross attention's output scale: ``tanh(gate)`` in f32, cast to
+    y's dtype before the product, as the reference casts it."""
+    return torch.tanh(p["gate"]).to(y.dtype) * y
+
+
+def attn_apply(p, cfg, x, *, kv_src=None, causal=True, window=None,
+               impl="auto"):
+    """Self-attention over ``x``; with ``kv_src`` (B, T, d), cross
+    attention from ``x`` to it: no rope, no causal mask, gated."""
+    if kv_src is None:
+        return _attn_seq(p, cfg, x, causal=causal, window=window,
+                         impl=impl)[0]
+    q, k, v = _qkv(p, cfg, x, kv_src)
+    out = attention.chunked_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=False,
+                                      window=window, impl=impl)
+    return _gated(p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 def _attn_prefill(p, cfg, x, *, window, max_len, causal=True, impl="auto"):
@@ -137,6 +148,37 @@ def attn_decode(p, cfg, cache, x, pos, *, window=None):
     return torch.einsum("bhk,hkd->bd", y, p["wo"]), cache
 
 
+def cross_decode(p, cfg, cross_kv, x):
+    """Cross attention for one decode token against the K/V that
+    ``precompute_cross_kv`` made at prefill: the plain ``decode_attention``
+    with every slot visible (no kernel)."""
+    q = torch.einsum("bd,dhk->bhk", x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = common.rms_norm(q, p["q_norm"], cfg.norm_eps)
+    y = attention.decode_attention(q, cross_kv["k"], cross_kv["v"],
+                                   cross_kv["kpos"], 2 ** 30)
+    y = torch.einsum("bhk,hkd->bd", y, p["wo"])
+    if "gate" in p:
+        y = _gated(p, y)
+    return y
+
+
+def precompute_cross_kv(p, cfg, aux):
+    """aux: (B, T, d) encoder/vision embeddings -> the decode-side K/V
+    cache {k, v, kpos}."""
+    k = torch.einsum("btd,dhk->bthk", aux, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", aux, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        k = common.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return {"k": k, "v": v,
+            "kpos": torch.arange(aux.shape[1], dtype=torch.int32,
+                                 device=aux.device)}
+
+
 # ---------------------------------------------------------------------------
 # MLP sub-layer dispatch: dense or MoE
 # ---------------------------------------------------------------------------
@@ -171,24 +213,29 @@ def mlp_apply(p, cfg, x):
 
 def block_init(gen, cfg, kind):
     dnorm = torch.zeros((cfg.d_model,), device=gen.device)
-    if kind in ("attn", "local_attn", "rglru"):
+    if kind in ("attn", "local_attn", "rglru", "cross_attn"):
         p = {"norm1": dnorm}
         if kind == "rglru":
             p["rec"] = rglru.init(gen, cfg)
         else:
-            p["attn"] = attn_init(gen, cfg)
+            p["attn"] = attn_init(gen, cfg, cross=kind == "cross_attn")
         m = mlp_init(gen, cfg)
         if m is not None:
             p["norm2"] = dnorm.clone()
             p["mlp"] = m
         return p
+    if kind == "xdec":
+        return {"norm1": dnorm, "attn": attn_init(gen, cfg),
+                "norm_x": dnorm.clone(),
+                "xattn": attn_init(gen, cfg, cross=True),
+                "norm2": dnorm.clone(), "mlp": mlp_init(gen, cfg)}
     if kind == "mamba2":
         p = {"norm1": dnorm, "ssm": ssm.init(gen, cfg)}
         if cfg.d_ff:
             p["norm2"] = dnorm.clone()
             p["mlp"] = mlp_init(gen, cfg)
         return p
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def _window_for(cfg, kind):
@@ -206,13 +253,26 @@ def _mlp_residual(p, cfg, x):
     return x + y, aux
 
 
+def _cross_residual(p, cfg, x, norm, aux, impl):
+    h = common.rms_norm(x, norm, cfg.norm_eps)
+    return x + attn_apply(p, cfg, h, kv_src=aux, impl=impl)
+
+
 def block_apply(p, cfg, kind, x, ctx):
-    """x: (B, S, d). ctx: dict(causal, impl). Returns (x_out, aux_loss)."""
+    """x: (B, S, d). ctx: dict(causal, aux, impl). Returns (x_out,
+    aux_loss)."""
     impl = ctx.get("impl", "auto")
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=ctx.get("causal", True),
                            window=_window_for(cfg, kind), impl=impl)
+    elif kind == "cross_attn":
+        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl)
+    elif kind == "xdec":
+        h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + attn_apply(p["attn"], cfg, h, causal=True, impl=impl)
+        x = _cross_residual(p["xattn"], cfg, x, p["norm_x"], ctx["aux"],
+                            impl)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + ssm.forward(p["ssm"], cfg, h, impl=impl)
@@ -220,7 +280,7 @@ def block_apply(p, cfg, kind, x, ctx):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + rglru.forward(p["rec"], cfg, h)[0]
     else:
-        raise _unported(kind)
+        raise ValueError(kind)
     return _mlp_residual(p, cfg, x)
 
 
@@ -234,6 +294,17 @@ def block_prefill(p, cfg, kind, x, ctx):
                                  window=_window_for(cfg, kind),
                                  max_len=max_len, impl=impl)
         x = x + y
+    elif kind == "cross_attn":
+        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl)
+        cache = precompute_cross_kv(p["attn"], cfg, ctx["aux"])
+    elif kind == "xdec":
+        h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+        y, self_c = _attn_prefill(p["attn"], cfg, h, window=None,
+                                  max_len=max_len, impl=impl)
+        x = _cross_residual(p["xattn"], cfg, x + y, p["norm_x"],
+                            ctx["aux"], impl)
+        cache = {"self": self_c,
+                 "cross": precompute_cross_kv(p["xattn"], cfg, ctx["aux"])}
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = ssm.forward(p["ssm"], cfg, h, return_cache=True,
@@ -245,26 +316,34 @@ def block_prefill(p, cfg, kind, x, ctx):
         cache = {"h": h_T, "conv": conv_tail}
         x = x + y
     else:
-        raise _unported(kind)
+        raise ValueError(kind)
     return _mlp_residual(p, cfg, x)[0], cache
 
 
 def block_cache_init(cfg, kind, batch, max_len, dtype, device):
     KV, hd = cfg.n_kv, cfg.resolved_head_dim
-    if kind in ("attn", "local_attn"):
-        window = _window_for(cfg, kind)
-        length = max_len if window is None else min(window, max_len)
+
+    def kv_cache(length):
         return {"k": torch.zeros((batch, length, KV, hd), dtype=dtype,
                                  device=device),
                 "v": torch.zeros((batch, length, KV, hd), dtype=dtype,
                                  device=device),
                 "kpos": torch.full((length,), -1, dtype=torch.int32,
                                    device=device)}
+
+    if kind in ("attn", "local_attn"):
+        window = _window_for(cfg, kind)
+        return kv_cache(max_len if window is None else min(window, max_len))
+    if kind == "cross_attn":
+        # filled by precompute_cross_kv at prefill
+        return kv_cache(cfg.vision_tokens or cfg.enc_seq)
+    if kind == "xdec":
+        return {"self": kv_cache(max_len), "cross": kv_cache(cfg.enc_seq)}
     if kind == "mamba2":
         return ssm.init_cache(cfg, batch, dtype, device)
     if kind == "rglru":
         return rglru.init_cache(cfg, batch, dtype, device)
-    raise _unported(kind)
+    raise ValueError(kind)
 
 
 def block_decode(p, cfg, kind, cache, x, pos, ctx):
@@ -275,6 +354,15 @@ def block_decode(p, cfg, kind, cache, x, pos, ctx):
         y, cache = attn_decode(p["attn"], cfg, cache, h, pos,
                                window=_window_for(cfg, kind))
         x = x + y
+    elif kind == "cross_attn":
+        h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + cross_decode(p["attn"], cfg, cache, h)
+    elif kind == "xdec":
+        h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+        y, _ = attn_decode(p["attn"], cfg, cache["self"], h, pos)
+        x = x + y
+        h = common.rms_norm(x, p["norm_x"], cfg.norm_eps)
+        x = x + cross_decode(p["xattn"], cfg, cache["cross"], h)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = ssm.decode_step(p["ssm"], cfg, cache, h)
@@ -284,7 +372,7 @@ def block_decode(p, cfg, kind, cache, x, pos, ctx):
         y, cache = rglru.decode_step(p["rec"], cfg, cache, h)
         x = x + y
     else:
-        raise _unported(kind)
+        raise ValueError(kind)
     if "mlp" in p:
         h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
         y, _ = mlp_apply(p["mlp"], cfg, h[:, None])

@@ -1,5 +1,5 @@
 """Top-level model assembly: embedding -> grouped blocks -> norm -> head
-(own copy of ``repro.models.transformer`` for decoder-only models).
+(own copy of ``repro.models.transformer``).
 
 A model is a stack of *groups*; each group is ``(pattern, repeat)`` and
 its parameters are stacked on a leading ``repeat`` axis, as in the
@@ -13,8 +13,14 @@ Three entry points:
   ``serve_step``  — one-token decode against the caches, in place
 
 ``forward`` returns the MoE blocks' router load-balance losses summed
-over every block (0 for dense stacks). Encoder-decoder and vision
-configs wait for their block kinds (``ROADMAP.md`` §1).
+over every block (0 for dense stacks).
+
+Encoder-decoder (``cfg.enc_dec``): the leading groups that fall inside
+``cfg.enc_layers`` form the bidirectional encoder over the stub audio
+embeddings ``aux`` (``encode``); the rest form the decoder, whose
+``xdec`` blocks cross-attend to the encoder's output. Vision
+(``cfg.vision_tokens``): ``cross_attn`` blocks attend to the stub patch
+embeddings passed as ``aux``. Encoder groups hold ``None`` for caches.
 """
 from __future__ import annotations
 
@@ -27,10 +33,23 @@ from repro_torch.models import blocks, common
 
 
 def group_infos(cfg):
-    """(index, pattern, repeat) for each group (the port runs decoder-only
-    models: no encoder groups)."""
+    """(index, pattern, repeat, is_encoder) for each group."""
+    seen = 0
+    out = []
+    for gi, (pattern, repeat) in enumerate(cfg.groups):
+        n = len(pattern) * repeat
+        out.append((gi, pattern, repeat,
+                    bool(cfg.enc_dec) and seen + n <= cfg.enc_layers))
+        seen += n
+    return out
+
+
+def groups_of(cfg, *, encoder=False):
+    """(index, pattern, repeat) of the decoder's groups, or with
+    ``encoder`` the encoder's."""
     return [(gi, pattern, repeat)
-            for gi, (pattern, repeat) in enumerate(cfg.groups)]
+            for gi, pattern, repeat, is_enc in group_infos(cfg)
+            if is_enc == encoder]
 
 
 def _layer(tree, r):
@@ -53,11 +72,13 @@ def init(gen, cfg):
         "final_norm": torch.zeros((cfg.d_model,), device=gen.device),
     }
     groups = []
-    for _, pattern, repeat in group_infos(cfg):
+    for pattern, repeat in cfg.groups:
         def unit(g, pattern=pattern):
             return tuple(blocks.block_init(g, cfg, kind) for kind in pattern)
         groups.append(common.stack_init(gen, repeat, unit))
     params["groups"] = tuple(groups)
+    if cfg.enc_dec:
+        params["enc_norm"] = torch.zeros((cfg.d_model,), device=gen.device)
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init(
             gen, (cfg.d_model, cfg.padded_vocab), dtype)
@@ -92,17 +113,54 @@ def unembed(params, cfg, x):
     return logits
 
 
-def forward(params, cfg, tokens, *, impl="auto"):
-    """tokens: (B, S) integer. Returns (logits (B, S, V) f32, aux_loss)."""
-    x = embed_tokens(params, cfg, tokens)
+def _apply_groups(params, cfg, groups, x, ctx):
+    """x through every unit of ``groups`` ((index, pattern, repeat)
+    triples): (x, the summed router aux losses)."""
     aux_loss = torch.zeros((), device=x.device)
-    ctx = {"causal": True, "impl": impl}
-    for gi, pattern, repeat in group_infos(cfg):
+    for gi, pattern, repeat in groups:
         for r in range(repeat):
             for kind, bp in zip(pattern, _layer(params["groups"][gi], r)):
                 x, a = blocks.block_apply(bp, cfg, kind, x, ctx)
                 aux_loss = aux_loss + a
-    return unembed(params, cfg, x), aux_loss
+    return x, aux_loss
+
+
+def encode(params, cfg, aux_embed, *, impl="auto"):
+    """Run the encoder groups bidirectionally over the stub frame
+    embeddings (B, T, d). Returns (the normed encoder output, aux_loss)."""
+    x, aux_loss = _apply_groups(params, cfg, groups_of(cfg, encoder=True),
+                                aux_embed, {"causal": False, "impl": impl})
+    return common.rms_norm(x, params["enc_norm"], cfg.norm_eps), aux_loss
+
+
+def aux_tokens(cfg):
+    """The stub frontend's embeddings per prompt: ``enc_seq`` audio
+    frames, or ``vision_tokens`` patches; 0 for a text-only config."""
+    return cfg.enc_seq if cfg.enc_dec else cfg.vision_tokens
+
+
+def _cross_source(params, cfg, aux, impl):
+    """What cross attention reads, and the encoder's aux loss: the
+    encoder's output over ``aux`` (encoder-decoder), else ``aux`` itself
+    (the vision embeddings, or None for a decoder-only config)."""
+    if aux_tokens(cfg) and aux is None:
+        raise ValueError(f"{cfg.name} reads stub frontend embeddings: pass "
+                         f"aux=(batch, {aux_tokens(cfg)}, d_model)")
+    if cfg.enc_dec:
+        return encode(params, cfg, aux, impl=impl)
+    return aux, 0.0
+
+
+def forward(params, cfg, tokens, *, aux=None, impl="auto"):
+    """tokens: (B, S) integer; aux: (B, T, d) stub embeddings (audio
+    frames or vision patches). Returns (logits (B, S, V) f32,
+    aux_loss)."""
+    cross_src, enc_loss = _cross_source(params, cfg, aux, impl)
+    x = embed_tokens(params, cfg, tokens)
+    x, aux_loss = _apply_groups(params, cfg, groups_of(cfg), x,
+                                {"causal": True, "aux": cross_src,
+                                 "impl": impl})
+    return unembed(params, cfg, x), enc_loss + aux_loss
 
 
 # ---------------------------------------------------------------------------
@@ -110,13 +168,17 @@ def forward(params, cfg, tokens, *, impl="auto"):
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg, batch, max_len, dtype=None, device=None):
-    """Stacked (repeat-leading) empty caches for every group: zeros, and
-    ``kpos = -1`` for empty slots. On the card unless ``device`` says
-    otherwise (``device="cpu"``)."""
+    """Stacked (repeat-leading) empty caches for every decoder group
+    (``None`` for an encoder group): zeros, and ``kpos = -1`` for empty
+    slots. On the card unless ``device`` says otherwise
+    (``device="cpu"``)."""
     dtype = dtype or common.dtype_of(cfg)
     device = resolve_device(device)
     caches = []
-    for _, pattern, repeat in group_infos(cfg):
+    for _, pattern, repeat, is_enc in group_infos(cfg):
+        if is_enc:
+            caches.append(None)
+            continue
         unit = tuple(blocks.block_cache_init(cfg, kind, batch, max_len, dtype,
                                              device) for kind in pattern)
         caches.append(tree_map(
@@ -128,21 +190,28 @@ def init_caches(cfg, batch, max_len, dtype=None, device=None):
 # Prefill (fills caches) and decode
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg, tokens, *, max_len=None, last_only=False,
-            impl="auto"):
+def prefill(params, cfg, tokens, *, aux=None, max_len=None,
+            last_only=False, impl="auto"):
     """Full forward that also returns filled decode caches.
 
     Returns (logits, caches): logits over all S positions, or only the
-    final position with ``last_only`` (what serving needs). ``max_len``
-    sizes the KV caches (defaults to S; pass S + generation budget for
-    serving). ``impl`` reaches the attention and SSD kernel ops.
+    final position with ``last_only`` (what serving needs). ``aux``: the
+    stub frontend embeddings, encoded first for an encoder-decoder.
+    ``max_len`` sizes the KV caches (defaults to S; pass S + generation
+    budget for serving). ``impl`` reaches the attention and SSD kernel
+    ops.
     """
     B, S = tokens.shape
     max_len = max_len or S
+    cross_src, _ = _cross_source(params, cfg, aux, impl)
     x = embed_tokens(params, cfg, tokens)
-    ctx = {"causal": True, "max_len": max_len, "impl": impl}
+    ctx = {"causal": True, "aux": cross_src, "max_len": max_len,
+           "impl": impl}
     caches = []
-    for gi, pattern, repeat in group_infos(cfg):
+    for gi, pattern, repeat, is_enc in group_infos(cfg):
+        if is_enc:
+            caches.append(None)
+            continue
         layers = []
         for r in range(repeat):
             ucaches = []
@@ -162,7 +231,7 @@ def serve_step(params, cfg, caches, tokens, pos):
     place."""
     x = embed_tokens(params, cfg, tokens)
     ctx = {}
-    for gi, pattern, repeat in group_infos(cfg):
+    for gi, pattern, repeat in groups_of(cfg):
         for r in range(repeat):
             unit_p = _layer(params["groups"][gi], r)
             unit_c = _layer(caches[gi], r)

@@ -137,19 +137,26 @@ def test_simulate_backend_and_facade(task):
 
 
 # The executor backend and train-while-serve (fit(serve=...)) are
-# ported, and so are LM configs with MoE blocks; what the executor still
-# lacks, an encoder-decoder LM config, names its slice under the
-# executor's id.
+# ported, and so are LM configs with MoE blocks; what the LM backends
+# still lack, encoder-decoder and vision training, names its slice.
 @pytest.mark.parametrize("backend,kw,slice_name", [
-    ("executor", {"enc_dec": True}, "vision/audio"),
-    ("pod", {}, "pod")], ids=["executor-executor", "pod-pod"])
+    ("executor", {"enc_dec": True}, "encoder-decoder and vision training"),
+    ("pod", {}, "pod"),
+    ("executor", {"config": "llama-3.2-vision-90b"},
+     "encoder-decoder and vision training"),
+    ("sequential", {"config": "seamless-m4t-large-v2"},
+     "encoder-decoder and vision training")],
+    ids=["executor-executor", "pod-pod", "executor-llama-vision",
+         "sequential-seamless"])
 def test_unported_backends_name_their_slice(backend, kw, slice_name, task):
+    from repro_torch.configs import get_config
     cfg = TConfig(**BASE)
     if kw.get("enc_dec"):
-        from repro_torch.configs import get_config
         cfg = dataclasses.replace(get_config("qwen2-0.5b").reduced(),
                                   enc_dec=True)
         task = None
+    if kw.get("config"):
+        cfg, task = get_config(kw["config"]).reduced(), None
     with pytest.raises(NotImplementedError, match=f"the {slice_name} slice"):
         tapi.fit(cfg, task, backend=backend, device="cpu")
 

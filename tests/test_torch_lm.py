@@ -6,7 +6,8 @@ and every cache leaf), ``serve_step`` and ``launch.serve.lm_decode`` are
 held to the reference's at 1e-4 scaled error (max |port - reference| /
 max |reference|), generated tokens equal where the next token is decided.
 Also the configs, the Markov prompts (bit-identical), the bf16 parameter
-crossing (bit-exact) and the block kinds that are not ported yet."""
+crossing (bit-exact) and the two block kinds ported last, which once
+raised."""
 import dataclasses
 import types
 
@@ -31,7 +32,8 @@ NAMES = ["qwen2-0.5b", "mamba2-780m"]
 # tests/test_torch_lm_families.py and tests/test_torch_moe.py)
 REGISTERED = NAMES + ["tinyllama-1.1b", "qwen3-8b", "h2o-danube-3-4b",
                       "recurrentgemma-2b", "deepseek-moe-16b",
-                      "qwen3-moe-235b-a22b"]
+                      "qwen3-moe-235b-a22b", "seamless-m4t-large-v2",
+                      "llama-3.2-vision-90b"]
 TOL = 1e-4            # scaled error, f32
 BF16_TOL = 2e-2       # scaled error of bf16 logits, ~2.5 bf16 ulps of the max
 B, S, MAX_LEN, STEPS = 2, 40, 48, 4
@@ -106,7 +108,7 @@ def test_configs_match_reference(name, reduce):
 
 def test_unknown_config_names_the_registered_ones():
     with pytest.raises(KeyError, match="qwen2-0.5b"):
-        tget("llama-3.2-vision-90b")
+        tget("no-such-config-7b")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -302,18 +304,29 @@ def test_pad_rows_are_masked():
 
 @pytest.mark.parametrize("kind", ["cross_attn", "xdec"])
 def test_unported_block_kinds_raise(kind):
-    tc = tget("qwen2-0.5b").reduced()
+    """The two kinds that raised ``NotImplementedError`` until their
+    slice now build and run their five functions on a reduced config
+    (their parity is in ``tests/test_torch_vision_audio.py``); an unknown
+    kind raises ``ValueError``."""
+    tc = tget("llama-3.2-vision-90b" if kind == "cross_attn"
+              else "seamless-m4t-large-v2").reduced()
     gen = torch.Generator().manual_seed(0)
-    x = torch.zeros(1, 4, tc.d_model)
-    calls = [
-        lambda: blocks.block_init(gen, tc, kind),
-        lambda: blocks.block_apply({}, tc, kind, x, {}),
-        lambda: blocks.block_prefill({}, tc, kind, x, {}),
-        lambda: blocks.block_cache_init(tc, kind, 1, 8, torch.float32, "cpu"),
-        lambda: blocks.block_decode({}, tc, kind, {}, x[:, 0], 0, {}),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    x, aux = torch.randn(1, 4, tc.d_model), torch.randn(1, 3, tc.d_model)
+    ctx = {"aux": aux, "max_len": 6}
+    p = blocks.block_init(gen, tc, kind)
+    y, loss = blocks.block_apply(p, tc, kind, x, ctx)
+    yp, cache = blocks.block_prefill(p, tc, kind, x, ctx)
+    assert torch.equal(y, yp) and float(loss) == 0.0
+    empty = blocks.block_cache_init(tc, kind, 1, 6, torch.float32, "cpu")
+    cross = empty if kind == "cross_attn" else empty["cross"]
+    assert cross["k"].shape == (1, tc.vision_tokens or tc.enc_seq, tc.n_kv,
+                                tc.resolved_head_dim)
+    assert bool((cross["kpos"] == -1).all())
+    y1, _ = blocks.block_decode(p, tc, kind, cache, x[:, 0], 4, {})
+    assert y1.shape == (1, tc.d_model) and bool(torch.isfinite(y1).all())
+    for call in (lambda: blocks.block_init(gen, tc, "nope"),
+                 lambda: blocks.block_apply(p, tc, "nope", x, ctx)):
+        with pytest.raises(ValueError, match="nope"):
             call()
 
 

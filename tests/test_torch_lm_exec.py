@@ -121,20 +121,25 @@ def test_fit_lm_facade(deterministic):
                  device="cpu")
 
 
-@pytest.mark.parametrize("field", ["moe", "enc_dec"])
+@pytest.mark.parametrize("field", ["moe", "enc_dec", "cross_attn", "xdec"])
 def test_unported_lm_kinds_name_their_slice(field):
-    """An encoder-decoder config names its slice; MoE configs are
-    ported, so every trainer builds for the reduced deepseek-moe-16b."""
+    """An encoder-decoder config, or one with cross-attention blocks,
+    names its slice; MoE configs are ported, so every trainer builds for
+    the reduced deepseek-moe-16b."""
+    from repro_torch.configs import get_config
     makers = (ttrain.make_ff_train_step, ttrain.make_bp_train_step,
               pff_lm.make_block_step, pff_lm.make_head_step)
     if field == "moe":
-        from repro_torch.configs import get_config
         tc = get_config("deepseek-moe-16b").reduced()
         for make in makers:
             assert callable(make(tc))
         return
-    _, tc = _cfgs()
-    tc = dataclasses.replace(tc, enc_dec=True)
+    if field == "enc_dec":
+        _, tc = _cfgs()
+        tc = dataclasses.replace(tc, enc_dec=True)
+    else:        # the vision config (cross_attn), the audio one (xdec)
+        tc = get_config("llama-3.2-vision-90b" if field == "cross_attn"
+                        else "seamless-m4t-large-v2").reduced()
     for make in makers:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make(tc)
