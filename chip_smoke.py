@@ -14,7 +14,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    each kernel's registers, shared memory and spills (``ptxas -v``), and
    the tensor-core instructions in the 3xTF32 kernels' SASS.
 3. Kernel against its plain version, on the card: ``ff_dense`` at the
-   serving shapes and two ragged ones, norm off/on, f32 and bf16, plus a
+   serving shapes, two ragged ones and the training CLI's (phase 30: M
+   16), norm off/on, f32 and bf16, plus a
    row forced all-dead. Errors are scaled by max |plain|. A second call
    at (128, 2000, 2000) and (640, 2000, 2000) must give bit-identical
    outputs, and is held against a float64 truth beside the plain version.
@@ -29,8 +30,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 6. Serving: ``repro_torch.api.serve`` answers 1024 requests; the kernel
    launch count must be 4 per scored batch.
 7. Backward kernel against its plain version: ``ff_dense_bwd`` at the
-   four training shapes and two ragged ones (dx, dw, db scaled by
-   max |plain|), plus an all-dead row whose dg is NaN; a second call at
+   four training shapes, two ragged ones and the CLI's two (dx, dw, db
+   scaled by max |plain|), plus an all-dead row whose dg is NaN; a second call at
    (128, 2000, 2000) must give bit-identical outputs.
 8. Gradients through ``FFDense``/``FFDenseNorm`` against autograd of the
    plain version, under the reference test's two losses.
@@ -61,7 +62,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     of 2048 rows to 1024 frames; MHA 16/16 at hd 64), the
     llama-3.2-vision-90b prefill's two (causal self-attention, and cross
     attention of 2048 rows to 1600 patches; GQA 64/8 at hd 128), and the
-    reduced configs' encoder (16 frames) and cross shapes (Sk 16 and 8);
+    reduced configs' encoder (16 frames) and cross shapes (Sk 16 and 8),
+    and the no-grad forwards of phase 29's training at seq 256 (4 and 16
+    rows of each family's attentions, 4, 8 and 16 of deepseek-moe-16b's);
     a second call must give bit-identical outputs.
 13. SSD kernel against its plain version: ``mamba2_ssd`` at the
     mamba2-780m prefill shape (strong and mild decay), a ragged S,
@@ -174,9 +177,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
     16 frames, 8 patches, gates 1.0) served on the card at
     ``REDUCED_LM``: 3 and 5 attention kernel calls of the main path,
     prefill logits and first tokens against the plain path.
-29. Isolation: no ``jax`` and no ``repro`` module was loaded.
+29. LM training of the families at published widths in bf16 (random
+    weights from seed 0, batch 4, seq 256; ``FAMILY_TRAIN``):
+    seamless-m4t-large-v2 whole, llama-3.2-vision-90b cut to one unit of
+    an ``attn`` and a ``cross_attn`` block, recurrentgemma-2b whole and
+    deepseek-moe-16b at 3 of its 28 blocks, cross-attention gates 1.0,
+    stub embeddings from ``launch.serve.frontend_embeddings``, lr 1e-4:
+    two joint FF steps with random negatives, one AdaptiveNEG step (36 /
+    2 / 8 / 3 attention kernel calls in its no-grad forward) and one
+    backprop step (none), each step's wall time and peak memory; losses
+    finite; every leaf moved (the embedding, each block kind's, the encoder's, the
+    cross attention's; ``enc_norm`` only by backprop, as in the
+    reference); the trained params' eval CE through the kernels and the
+    plain route within 1e-3 (deepseek's routes pinned to the plain
+    route's, the free-running gap printed), beside the last block's mixer
+    dropped and the cross path dropped (gates 0), each beyond it. Then
+    phase 21 at deepseek-moe-16b's 3-block cut: the sequential fit, the
+    executor's all_layers on 4 streams bit-identical to it, the plain
+    route, with phase 21's gates (routes pinned in the same-params gate).
+30. The training CLI, ``launch.train.main(argv)``: ``--paper-mlp``
+    (PAPER_MLP's widths, 2 epochs x 2 splits, its default batch of 8)
+    bit-identical to ``api.fit`` of the same config, one backward kernel
+    call per grad step; ``--arch qwen2-0.5b --full --chapters 2`` on the
+    executor (4 streams), its eval CE equal to phase 21's fit and its
+    checkpoint restoring that fit's params bit for bit; the joint FF step
+    of seamless-m4t-large-v2 at full size, bit-identical to a hand loop
+    of ``make_ff_train_step`` on the same batches and stub frames, its
+    checkpoint restoring, its jsonl trace holding ``train:lm``. The
+    ``[wall]`` line gives phases 29-30's share.
+31. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
-Phases 17-19 and 21's fits run under
+Phases 17-19, 21's fits, the deepseek chapter fit and 30 run under
 ``torch.use_deterministic_algorithms(True)`` with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before CUDA starts.
 
@@ -212,7 +243,11 @@ HBM_BYTES_PER_S = 3.35e12
 # ff_dense tolerances (tests/test_kernels.py), g at 5x y's.
 TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (3e-2, 1.5e-1)}
 SERVING_SHAPES = [(640, 784, 2000), (640, 2000, 2000)]
-CHECK_SHAPES = SERVING_SHAPES + [(100, 333, 257), (16, 64, 64)]
+# the training CLI's paper MLP (phase 30) steps at its default batch of 8
+# (M = 16, positives and negatives)
+CLI_TRAIN_SHAPES = [(16, 784, 2000), (16, 2000, 2000)]
+CHECK_SHAPES = SERVING_SHAPES + [(100, 333, 257), (16, 64, 64)] \
+    + CLI_TRAIN_SHAPES
 PATH_TOL = 1e-4                # whole-path scores, scaled
 TIMING_REPS = 25
 SPIN_CYCLES = 1_000_000        # ~0.5 ms: longer than any call's enqueue
@@ -228,7 +263,8 @@ BWD_REPLACES = "src/repro/kernels/ff_dense_vjp.py:77"
 # (perf_opt, M = B) at the paper's batch of 64.
 TRAIN_SHAPES = [(128, 784, 2000), (128, 2000, 2000), (64, 784, 2000),
                 (64, 2000, 2000)]
-BWD_CHECK_SHAPES = TRAIN_SHAPES + [(100, 333, 257), (16, 64, 64)]
+BWD_CHECK_SHAPES = TRAIN_SHAPES + [(100, 333, 257), (16, 64, 64)] \
+    + CLI_TRAIN_SHAPES
 # max|kernel - plain| / max|plain| for fused grads and the trainer
 # weights: the reference's _scale_err gate (kernels/autotune.py:283) and
 # its ref-vs-fused weight-stream gate (tests/test_ff_dense_vjp.py:216).
@@ -290,6 +326,23 @@ FA_CHECKS = [QWEN_ATTN, (2, 333, 333, 14, 2, 64, True, 128),
     # attention of 200 rows to 16 frames and to 8 patches
     (4, 16, 16, 4, 4, 64, False, None), (4, 200, 16, 4, 4, 64, False, None),
     (4, 200, 8, 4, 4, 64, False, None)]
+# LM training of the families (phases 29 and 21's deepseek chapter fit)
+# calls the kernels in no-grad forwards of seq 256: the adaptive step's 4
+# rows and eval's 16 (the chapter fit's frozen prefixes 8 as well):
+# seamless-m4t-large-v2's encoder over 1024 frames, its decoder's causal
+# self-attention and its cross attention; llama-3.2-vision-90b's self and
+# cross attention to 1600 patches; recurrentgemma-2b's local attention
+# (window 2048 > 256); deepseek-moe-16b's MHA
+FAMILY_TRAIN_ATTN = [
+    shape for B in (4, 16) for shape in (
+        (B, 1024, 1024, 16, 16, 64, False, None),
+        (B, 256, 256, 16, 16, 64, True, None),
+        (B, 256, 1024, 16, 16, 64, False, None),
+        (B, 256, 256, 64, 8, 128, True, None),
+        (B, 256, 1600, 64, 8, 128, False, None),
+        (B, 256, 256, 10, 1, 256, True, 2048))] + [
+    (B, 256, 256, 16, 16, 128, True, None) for B in LM_TRAIN_ROWS]
+FA_CHECKS += FAMILY_TRAIN_ATTN
 # (B, S, H, hd, N, chunk, decay): the mamba2-780m prefill first
 MAMBA_SSD = (4, 2048, 48, 64, 128, 256)
 SSD_CHECKS = [MAMBA_SSD + ("strong",), MAMBA_SSD + ("mild",),
@@ -387,6 +440,45 @@ LM_CE_TOL = 5e-2
 # readings.
 LM_SAME_CE_TOL = 1e-3
 LM_CE_SCALE = 1 + 2.0 ** -6
+# LM training of the families (phase 29): joint FF and backprop steps at
+# published widths in bf16 (batch LM_TRAIN_BATCH, seq LM_SEQ, seed 0),
+# each config cut in depth to fit one card beside its Adam state (bf16
+# params and f32 m and v: 10 bytes a parameter): the cut (None: whole;
+# a pattern: one unit of it; an int: that many units of the one group)
+# and the attention kernel calls of one no-grad forward. seamless-m4t-
+# large-v2 whole (1.280 B params); llama-3.2-vision-90b at one unit of
+# a self-attention and its cross attention (3.81 B; one published unit
+# of 4 + 1 blocks and the 2.1 B outside the stack take ~64 GB before
+# activations); recurrentgemma-2b whole (2.894 B); deepseek-moe-16b at 3
+# of its 28 blocks (2.23 B), which lets phase 21's chapter fit keep two
+# fits' states alive at once. The cross-attention gates are set to
+# XATTN_GATE: at init's 0, tanh(0) keeps the cross path's weights out of
+# every gradient.
+# Their learning rate: at the trainers' default 1e-3 the FF steps blow
+# the llama-3.2-vision-90b cut's goodness up to ~3e4 (d 8192, d_ff
+# 28672) and its eval CE to 20.95, above ln(vocab): a saturated model
+# whose CE no block moves, so the same-params gate's controls read
+# 2.4e-4, under LM_SAME_CE_TOL. At 1e-4 they read 2.9e-3 (PERF.md §6;
+# this rate was chosen after those readings).
+FAMILY_TRAIN_LR = 1e-4
+FAMILY_TRAIN = {"seamless-m4t-large-v2": (None, 36),
+                "llama-3.2-vision-90b": (("attn", "cross_attn"), 2),
+                "recurrentgemma-2b": (None, 8),
+                "deepseek-moe-16b": (3, 3)}
+# phase 21 at deepseek-moe-16b's 3-block cut: 2 chapters, sequential, the
+# executor's all_layers on 4 streams and the plain route
+MOE_CHAPTER_CFG = ("deepseek-moe-16b", 3)
+# Phase 30, the training CLI (launch.train.main) on the card; its
+# paper-MLP run keeps the CLI's other defaults (batch 8, adaptive
+# negatives, the goodness classifier, 1000 test samples)
+CLI_MLP = {"hidden": 2000, "layers": 4, "epochs": 2, "splits": 2,
+           "n_train": FIT_TRAIN}
+CLI_CHAPTERS = ["--arch", "qwen2-0.5b", "--full", "--chapters", "2",
+                "--steps-per-chapter", "2", "--backend", "executor",
+                "--schedule", "all_layers", "--nodes", "4", "--batch", "4",
+                "--seq", "256"]
+CLI_JOINT = ["--arch", "seamless-m4t-large-v2", "--full", "--steps", "2",
+             "--batch", "4", "--seq", "256"]
 
 
 def check(cond, msg):
@@ -2047,20 +2139,39 @@ def phase_train_while_serve(api, data, base_cfg, kernel, vjp, exec_main,
     return launches
 
 
-def mixer_out(params, factor, block=None):
-    """``params`` with the mixer output projection (attention ``wo``, SSD
-    ``out_proj``) of every block, or of ``block`` alone, scaled by
-    ``factor``; the rest shared."""
+def mixer_key(kind):
+    """The (sub-tree, leaf) of a block kind's mixer output projection:
+    attention ``wo`` (an ``xdec`` block's self-attention), the SSD's or
+    the RG-LRU's ``out_proj``."""
+    return {"mamba2": ("ssm", "out_proj"),
+            "rglru": ("rec", "out_proj")}.get(kind, ("attn", "wo"))
+
+
+def mixer_out(params, factor):
+    """``params`` of a one-kind stack (one group of one block kind) with
+    every block's mixer output projection scaled by ``factor``; the rest
+    shared."""
     (blk,), = params["groups"]
     key, leaf = ("attn", "wo") if "attn" in blk else ("ssm", "out_proj")
-    w = blk[key][leaf]
-    if block is None:
-        w = w * factor
-    else:
-        w = w.clone()
-        w[block] *= factor
-    blk = {**blk, key: {**blk[key], leaf: w}}
+    blk = {**blk, key: {**blk[key], leaf: blk[key][leaf] * factor}}
     return {**params, "groups": ((blk,),)}
+
+
+def last_mixer_dropped(cfg, params):
+    """``params`` with the last block's mixer output projection
+    (``mixer_key``) zeroed in its group's last unit, as if one kernel call
+    had returned zeros; the rest shared."""
+    gi = len(cfg.groups) - 1
+    pattern, repeat = cfg.groups[gi]
+    unit = list(params["groups"][gi])
+    blk = unit[-1]
+    key, leaf = mixer_key(pattern[-1])
+    w = blk[key][leaf].clone()
+    w[repeat - 1] = 0
+    unit[-1] = {**blk, key: {**blk[key], leaf: w}}
+    groups = list(params["groups"])
+    groups[gi] = tuple(unit)
+    return {**params, "groups": tuple(groups)}
 
 
 def lm_fit(api, cfg, source, counter, **kw):
@@ -2074,24 +2185,48 @@ def lm_fit(api, cfg, source, counter, **kw):
     return res, counter.LAUNCHES.total, time.perf_counter() - t0
 
 
-def phase_lm_train(api, data, name, *, chapters, executor, dev="cuda"):
-    """21-22. LM chapter training at full width and depth (bf16): the
-    sequential fit through the kernels (no-grad forwards) and through the
-    plain route; for qwen2-0.5b also the executor (all_layers,
-    single_layer on 4 streams, bit-identical to the sequential fit).
-    Returns the main run's (the sequential fit's) kernel calls."""
+def same_params_ce(train, cfg, params, ev, aux=None):
+    """Eval CE of ``params`` through the kernels and through the plain
+    route, with the router's choices of the kernel route pinned to the
+    plain route's in an MoE config (``routing``). Returns (kernel CE,
+    plain CE, the kernel route's free-running CE: the same as the first
+    without MoE)."""
+    ce_free = float(train.eval_ce(params, cfg, ev, aux))
+    if cfg.moe is None:
+        return ce_free, float(train.eval_ce(params, cfg, ev, aux,
+                                            impl="ref")), ce_free
+    T = ev.shape[0] * (ev.shape[1] - 1)
+    with routing(T) as plain_routes:
+        ce_plain = float(train.eval_ce(params, cfg, ev, aux, impl="ref"))
+    with routing(T, replay=plain_routes):
+        ce_kernel = float(train.eval_ce(params, cfg, ev, aux))
+    return ce_kernel, ce_plain, ce_free
+
+
+def phase_lm_train(api, data, name, *, chapters, schedules=(), units=None,
+                   dev="cuda"):
+    """21-22. LM chapter training at full width (bf16), at full depth or
+    cut to ``units`` blocks: the sequential fit through the kernels
+    (no-grad forwards) and through the plain route; on the executor's 4
+    streams each of ``schedules``, bit-identical to the sequential fit.
+    An MoE config's same-params gate pins the kernel route's routes to
+    the plain route's. Returns the main run's (the sequential fit's)
+    kernel calls and its ``FitResult``."""
     from repro_torch.configs import get_config
     from repro_torch.core import pff_lm, train
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
 
     cfg = get_config(name)
+    if units is not None:
+        cfg = cut_units(cfg, units)
     counter = fa if cfg.groups[0][0][0] == "attn" else ssd
     n_blocks = cfg.groups[0][1]
     C, s = chapters, LM_STEPS
     calls = C * s * (sum(range(n_blocks)) + n_blocks) + n_blocks
     phase = 21 if counter is fa else 22
-    tag = f"[{phase} lm-train] {name}"
+    tag = f"[{phase} lm-train] {name}" + (f" ({units} blocks)" if units
+                                          else "")
     source = data.text_source(vocab=cfg.vocab, seq_len=LM_SEQ, seed=0)
     kw = dict(chapters=C, steps_per_chapter=s, batch=LM_TRAIN_BATCH,
               device=dev)
@@ -2105,16 +2240,15 @@ def phase_lm_train(api, data, name, *, chapters, executor, dev="cuda"):
           f"untrained model's {init_ce}")
     out = {"sequential": {"wall_s": seq_s, "makespan_s": seq.makespan,
                           "calls": seq_calls, "eval_ce": seq.eval_ce},
-           "init_eval_ce": init_ce}
+           "init_eval_ce": init_ce, "blocks": n_blocks}
     print(f"{tag} bf16, {C} chapters x {s} steps, batch {LM_TRAIN_BATCH}, "
           f"seq {LM_SEQ}: sequential fit {seq_s:.4f} s (makespan "
           f"{seq.makespan:.4f} s), {seq_calls} kernel calls (expected "
           f"{calls}); eval CE {seq.eval_ce:.6f} vs untrained {init_ce:.6f}")
     # the same params both ways, and the controls
-    ce_kernel = float(train.eval_ce(seq.params, cfg, ev))
-    ce_plain = float(train.eval_ce(seq.params, cfg, ev, impl="ref"))
-    ce_drop = float(train.eval_ce(mixer_out(seq.params, 0.0, n_blocks - 1),
-                                  cfg, ev, impl="ref"))
+    ce_kernel, ce_plain, ce_free = same_params_ce(train, cfg, seq.params, ev)
+    ce_drop = float(train.eval_ce(last_mixer_dropped(cfg, seq.params), cfg,
+                                  ev, impl="ref"))
     ce_scale = float(train.eval_ce(mixer_out(seq.params, LM_CE_SCALE), cfg,
                                    ev, impl="ref"))
     sound, control = abs(ce_kernel - ce_plain), abs(ce_drop - ce_plain)
@@ -2125,21 +2259,27 @@ def phase_lm_train(api, data, name, *, chapters, executor, dev="cuda"):
                           "kernel_vs_plain": sound,
                           "control_vs_plain": control,
                           "limit": LM_SAME_CE_TOL}
+    pinned = ""
+    if cfg.moe is not None:
+        out["same_params"]["eval_ce_kernel_free_running"] = ce_free
+        pinned = (f" (routes pinned to the plain route's; free-running "
+                  f"{ce_free:.6f}, |diff| {abs(ce_free - ce_plain):.3e}, "
+                  f"not gated)")
     print(f"{tag} the fit's params scored both ways: eval CE through the "
           f"kernels {ce_kernel:.6f}, plain route {ce_plain:.6f}, |diff| "
-          f"{sound:.3e} (<= {LM_SAME_CE_TOL}); control, the last block's "
-          f"mixer dropped: {ce_drop:.6f}, |diff| {control:.3e} (> "
+          f"{sound:.3e} (<= {LM_SAME_CE_TOL}){pinned}; control, the last "
+          f"block's mixer dropped: {ce_drop:.6f}, |diff| {control:.3e} (> "
           f"{LM_SAME_CE_TOL}); every mixer output x {LM_CE_SCALE}: "
           f"{ce_scale:.6f}, |diff| {abs(ce_scale - ce_plain):.3e}")
-    check(ce_kernel == seq.eval_ce, f"{name}: eval CE of the fit's params "
-          f"{ce_kernel} differs from the fit's own {seq.eval_ce}")
+    check(ce_free == seq.eval_ce, f"{name}: eval CE of the fit's params "
+          f"{ce_free} differs from the fit's own {seq.eval_ce}")
     check(sound <= LM_SAME_CE_TOL < control, f"{name}: eval CE through the "
           f"kernels vs the plain route on the same params {sound}, the "
           f"control {control}, limit {LM_SAME_CE_TOL}")
-    if executor:
+    if schedules:
         sim = api.simulate(seq, "all_layers", EXEC_NODES)
         sim_sl = api.simulate(seq, "single_layer", EXEC_NODES)
-        for sched in ("all_layers", "single_layer"):
+        for sched in schedules:
             res, n, wall = lm_fit(api, cfg, source, counter,
                                   backend="executor", schedule=sched,
                                   num_nodes=EXEC_NODES, **kw)
@@ -2180,7 +2320,7 @@ def phase_lm_train(api, data, name, *, chapters, executor, dev="cuda"):
           f"{diff} > {LM_CE_TOL}")
     del plain
     print(json.dumps({"lm_train": name, **out}))
-    return seq_calls
+    return seq_calls, seq
 
 
 def joint_ff_steps(data, name, dev="cuda"):
@@ -2235,6 +2375,356 @@ def joint_ff_steps(data, name, dev="cuda"):
               f"forward: {want}); last metrics "
               f"{ {k: round(v, 4) for k, v in metrics[-1].items()} }")
     print(json.dumps({"lm_joint_ff": name, **out}))
+
+
+def family_train_cfg(name):
+    """``name`` at published widths, cut as ``FAMILY_TRAIN`` says."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    cut = FAMILY_TRAIN[name][0]
+    if isinstance(cut, tuple):
+        return dataclasses.replace(cfg, groups=((cut, 1),),
+                                   num_layers=len(cut))
+    if cut is not None:
+        return cut_units(cfg, cut)
+    return cfg
+
+
+def fingerprints(params):
+    """Per leaf of ``params``, its sum and its sum of squares in f64
+    (summed in slices of 2^26 elements): a leaf whose fingerprint changed
+    has changed."""
+    from repro_torch.convert import tree_leaves
+
+    out = []
+    for t in tree_leaves(params):
+        s = q = torch.zeros((), dtype=torch.float64, device=t.device)
+        for c in t.reshape(-1).split(1 << 26):
+            c = c.double()
+            s, q = s + c.sum(), q + (c * c).sum()
+        out.append(torch.stack([s, q]))
+    return torch.stack(out).cpu()
+
+
+def leaf_paths(params):
+    """Each leaf's path ("groups/1/0/xattn/wq"), in ``tree_leaves``
+    order."""
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (str(k),))
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + (str(i),))
+        elif t is not None:
+            out.append("/".join(path))
+    walk(params, ())
+    return out
+
+
+def with_gates(params, value):
+    """``params`` with every cross-attention gate leaf replaced by
+    ``value`` (a new leaf); every other leaf shared."""
+    if isinstance(params, dict):
+        return {k: torch.full_like(v, value) if k == "gate"
+                else with_gates(v, value) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(with_gates(v, value) for v in params)
+    return params
+
+
+def phase_lm_train_families(data, dev="cuda"):
+    """29. LM training of the dense-hybrid, MoE, encoder-decoder and
+    vision families at published widths in bf16, cut as ``FAMILY_TRAIN``
+    says, from seed 0 (the main path: counts zeroed just before each step
+    and read just after): two joint FF steps with random negatives
+    (sumsq), one AdaptiveNEG step (its no-grad forward through the
+    attention kernel: ``attention_calls(cfg)``) and one backprop step
+    (none), on stub embeddings from ``launch.serve.frontend_embeddings``
+    where the config reads them. Losses finite; every leaf of the stack,
+    the embedding and the head moved by the FF steps, and by the
+    backprop step; then the trained params' eval CE through the kernels
+    and the plain route within ``LM_SAME_CE_TOL`` (an MoE config's routes
+    pinned to the plain route's), beside controls that must land beyond
+    it: the last block's mixer dropped and, where the config has one, the
+    cross path dropped (gates 0). Returns the attention kernel calls."""
+    from repro_torch import optim
+    from repro_torch.core import train
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.launch.serve import frontend_embeddings
+    from repro_torch.models import transformer
+
+    total = 0
+    for name, (_, calls) in FAMILY_TRAIN.items():
+        cfg = family_train_cfg(name)
+        check(attention_calls(cfg) == calls, f"{name}: the cut makes "
+              f"{attention_calls(cfg)} attention calls a forward, expected "
+              f"{calls}")
+        tag = f"[29 lm-train-families] {name}"
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        n_gates = set_gates(params, XATTN_GATE)
+        check(n_gates == (1 if transformer.aux_tokens(cfg) else 0),
+              f"{name}: {n_gates} gate leaves")
+        n_params = transformer.param_count(params)
+        opt = optim.adam_init(params)
+        source = data.text_source(vocab=cfg.vocab, seq_len=LM_SEQ, seed=0)
+        blk = torch.as_tensor(source.blocks("train", 4 * LM_TRAIN_BATCH,
+                                            seed=7), device=dev)
+        aux = frontend_embeddings(cfg, LM_TRAIN_BATCH, 0, dev)
+        paths = leaf_paths(params)
+        fp = [fingerprints(params)]
+        steps = []
+        for i, mode in enumerate(("random", "random", "adaptive", "bp")):
+            c = dataclasses.replace(cfg, ff=dataclasses.replace(
+                cfg.ff, goodness="sumsq",
+                neg_mode="random" if mode == "bp" else mode))
+            step = (train.make_bp_train_step(c, lr=FAMILY_TRAIN_LR)
+                    if mode == "bp"
+                    else train.make_ff_train_step(c, lr=FAMILY_TRAIN_LR))
+            batch = {"tokens": blk[i * LM_TRAIN_BATCH:
+                                   (i + 1) * LM_TRAIN_BATCH]}
+            if aux is not None:
+                batch["aux"] = aux
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts.reset(fa, ssd)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch, i + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = fa.LAUNCHES.total
+            want = calls if mode == "adaptive" else 0
+            metrics = {k: float(v) for k, v in m.items()}
+            steps.append({"mode": mode, "wall_s": wall,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "kernel_calls": launched, "metrics": metrics})
+            check(all(np.isfinite(v) for v in metrics.values()),
+                  f"{name} {mode} step: non-finite loss {metrics}")
+            check(launched == want and ssd.LAUNCHES.total == 0,
+                  f"{name} {mode} step: {launched} attention kernel calls "
+                  f"(and {ssd.LAUNCHES.total} SSD), expected {want} and 0")
+            total += launched
+            if mode in ("adaptive", "bp"):
+                fp.append(fingerprints(params))
+            what = "bp" if mode == "bp" else f"{mode} negatives, sumsq"
+            losses = ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+            print(f"{tag} step {i + 1} ({what}): {wall:.4f} s, peak "
+                  f"{steps[-1]['peak_bytes'] / 1e9:.2f} GB, {launched} "
+                  f"attention kernel calls (expected {want}); {losses}")
+        # every leaf but enc_norm moved by the FF steps (enc_norm joins
+        # the head's Adam step with a zero grad), every leaf by backprop
+        ff_still = [p for p, a, b in zip(paths, fp[0], fp[1])
+                    if torch.equal(a, b)]
+        bp_still = [p for p, a, b in zip(paths, fp[1], fp[2])
+                    if torch.equal(a, b)]
+        want_still = ["enc_norm"] if cfg.enc_dec else []
+        check(ff_still == want_still, f"{name}: leaves the FF steps did "
+              f"not move: {ff_still} (expected {want_still})")
+        check(not bp_still, f"{name}: leaves the backprop step did not "
+              f"move: {bp_still}")
+        print(f"{tag} {n_params / 1e9:.3f} B params, {len(paths)} leaves: "
+              f"the FF steps moved all but {want_still} (the embedding, "
+              f"every block kind's weights"
+              f"{', the encoder' if cfg.enc_dec else ''}"
+              f"{', the cross attention' if n_gates else ''}), the "
+              f"backprop step all")
+        # the same params both ways, and the controls
+        ev = torch.as_tensor(source.blocks("val", 16, seed=321), device=dev)
+        aux_ev = frontend_embeddings(cfg, 16, 1, dev)
+        counts.reset(fa, ssd)
+        ce_kernel, ce_plain, ce_free = same_params_ce(train, cfg, params, ev,
+                                                      aux_ev)
+        ev_calls = fa.LAUNCHES.total
+        want_ev = calls * (2 if cfg.moe is not None else 1)
+        check(ev_calls == want_ev, f"{name}: the kernel route's evals made "
+              f"{ev_calls} attention kernel calls, expected {want_ev}")
+        ce_drop = float(train.eval_ce(last_mixer_dropped(cfg, params), cfg,
+                                      ev, aux_ev, impl="ref"))
+        controls = {"last_mixer_dropped": ce_drop}
+        if n_gates:
+            controls["cross_path_dropped"] = float(train.eval_ce(
+                with_gates(params, 0.0), cfg, ev, aux_ev, impl="ref"))
+        sound = abs(ce_kernel - ce_plain)
+        gaps = {k: abs(v - ce_plain) for k, v in controls.items()}
+        pinned = ""
+        if cfg.moe is not None:
+            pinned = (f" (routes pinned to the plain route's; free-running "
+                      f"{ce_free:.6f}, |diff| {abs(ce_free - ce_plain):.3e},"
+                      f" not gated)")
+        print(f"{tag} the trained params scored both ways (16 x {LM_SEQ} "
+              f"val tokens): eval CE through the kernels {ce_kernel:.6f}, "
+              f"plain route {ce_plain:.6f}, |diff| {sound:.3e} (<= "
+              f"{LM_SAME_CE_TOL}){pinned}; controls "
+              + "; ".join(f"{k} {controls[k]:.6f}, |diff| {gaps[k]:.3e} (> "
+                          f"{LM_SAME_CE_TOL})" for k in controls))
+        peak = max(st["peak_bytes"] for st in steps)
+        print(json.dumps({"lm_train_family": name, "params": n_params,
+                          "blocks": sum(len(p) * r for p, r in cfg.groups),
+                          "batch": LM_TRAIN_BATCH, "seq": LM_SEQ,
+                          "aux_tokens": transformer.aux_tokens(cfg),
+                          "steps": steps, "peak_bytes": peak,
+                          "eval_ce_kernel": ce_kernel,
+                          "eval_ce_plain": ce_plain,
+                          "eval_ce_kernel_free_running": ce_free,
+                          "controls": controls, "kernel_vs_plain": sound,
+                          "limit": LM_SAME_CE_TOL}))
+        check(sound <= LM_SAME_CE_TOL, f"{name}: eval CE through the "
+              f"kernels vs the plain route on the same params {sound} > "
+              f"{LM_SAME_CE_TOL}")
+        for k, gap in gaps.items():
+            check(gap > LM_SAME_CE_TOL, f"{name}: control {k} moved eval "
+                  f"CE {gap} <= {LM_SAME_CE_TOL}: the gate cannot see it")
+        del params, opt, aux, aux_ev, blk, ev
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
+    """30. The training CLI (``launch.train.main``) on the card, each mode
+    against the library call it wraps: ``--paper-mlp`` (the MLP at full
+    width through the ff_dense kernels; params and test accuracy
+    bit-identical to ``api.fit`` of the same ``FFMLPConfig``, one backward
+    call per grad step), ``--arch qwen2-0.5b --full --chapters 2`` on the
+    executor (eval CE equal to phase 21's sequential fit, its checkpoint
+    restoring bit-identical to that fit's params) and the joint FF step
+    of seamless-m4t-large-v2 at full size (params bit-identical to a hand
+    loop of ``make_ff_train_step`` on the same batches and stub frames;
+    its checkpoint restores; its trace holds the ``train:lm`` span).
+    Returns the paper-MLP run's (forward, backward) kernel calls."""
+    import tempfile
+
+    from repro_torch import checkpoint, optim
+    from repro_torch.configs import get_config
+    from repro_torch.configs.ff_mlp import FFMLPConfig
+    from repro_torch.core import pff_lm, train
+    from repro_torch.kernels import counts
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.serve import frontend_embeddings
+    from repro_torch.models import transformer
+    from repro_torch.obs import export as obs_export
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def cli(argv):
+        t0 = time.perf_counter()
+        res = train_cli.main(argv + ["--device", dev])
+        sync()
+        return res, time.perf_counter() - t0
+
+    tag = "[30 train-cli]"
+    out = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+    # --paper-mlp ----------------------------------------------------------
+    mlp_argv = ["--paper-mlp"] + [
+        a for k, v in CLI_MLP.items() for a in ("--" + k.replace("_", "-"),
+                                                str(v))]
+    torch.use_deterministic_algorithms(True)
+    counts.reset(kernel, vjp)
+    got, cli_s = cli(mlp_argv)
+    fwd, bwd = kernel.LAUNCHES.total, vjp.LAUNCHES.total
+    n_layers, n_train = CLI_MLP["layers"], CLI_MLP["n_train"]
+    cfg = FFMLPConfig(layer_sizes=(784,) + (CLI_MLP["hidden"],) * n_layers,
+                      epochs=CLI_MLP["epochs"], splits=CLI_MLP["splits"],
+                      neg_mode="adaptive", classifier="goodness",
+                      goodness_fn="sumsq", batch_size=8, seed=0)
+    grad_steps = (cfg.splits * n_layers * (cfg.epochs // cfg.splits)
+                  * -(-n_train // cfg.batch_size))
+    t0 = time.perf_counter()
+    want = api.fit(cfg, data.mnist_like(seed=0, n_train=n_train,
+                                        n_test=1000), device=dev)
+    sync()
+    api_s = time.perf_counter() - t0
+    check(got.cfg == cfg, f"--paper-mlp: the CLI built {got.cfg}")
+    bit_equal = pff_lm.lm_params_bit_equal
+    check(got.test_acc == want.test_acc
+          and bit_equal(got.params, want.params),
+          f"--paper-mlp: params or test acc ({got.test_acc}) differ from "
+          f"api.fit's ({want.test_acc})")
+    check(bwd == grad_steps and fwd >= grad_steps, f"--paper-mlp: {bwd} "
+          f"backward and {fwd} forward kernel calls for {grad_steps} grad "
+          f"steps")
+    out["paper_mlp"] = {"cli_s": cli_s, "api_fit_s": api_s,
+                        "test_acc": got.test_acc, "ff_dense_calls": fwd,
+                        "ff_dense_bwd_calls": bwd, "grad_steps": grad_steps}
+    print(f"{tag} {' '.join(mlp_argv)}: test acc {got.test_acc:.4f}, params "
+          f"and test acc bit-identical to api.fit ({api_s:.3f} s; the CLI "
+          f"{cli_s:.3f} s); {bwd} ff_dense_bwd calls for {grad_steps} grad "
+          f"steps, {fwd} ff_dense calls")
+    del got, want
+    # --arch qwen2-0.5b --chapters 2 on the executor ------------------------
+    ck = os.path.join(tmp.name, "qwen.npz")
+    got, cli_s = cli(CLI_CHAPTERS + ["--ckpt", ck])
+    torch.use_deterministic_algorithms(False)
+    back, step = checkpoint.restore(ck, qwen_fit.params, strict=True)
+    os.remove(ck)
+    check(got.eval_ce == qwen_fit.eval_ce
+          and bit_equal(got.params, qwen_fit.params),
+          f"--chapters: eval CE {got.eval_ce} or params differ from "
+          f"api.fit's ({qwen_fit.eval_ce})")
+    check(step == 4 and bit_equal(back, qwen_fit.params), "--chapters: "
+          "the checkpoint does not restore the fit's params")
+    out["chapters"] = {"cli_s": cli_s, "makespan_s": got.makespan,
+                       "eval_ce": got.eval_ce}
+    print(f"{tag} {' '.join(CLI_CHAPTERS)} --ckpt: eval CE "
+          f"{got.eval_ce:.6f}, equal to api.fit's (phase 21), params "
+          f"bit-identical; the checkpoint (step {step}) restores them bit "
+          f"for bit; {cli_s:.3f} s (makespan {got.makespan:.4f} s)")
+    del got, back
+    # --arch seamless-m4t-large-v2 --full: the joint FF step -----------------
+    ck = os.path.join(tmp.name, "seamless.npz")
+    trace = os.path.join(tmp.name, "seamless.jsonl")
+    torch.use_deterministic_algorithms(True)
+    got, cli_s = cli(CLI_JOINT + ["--ckpt", ck, "--trace", trace,
+                                  "--trace-format", "jsonl"])
+    cfg = got["cfg"]
+    check(cfg == get_config("seamless-m4t-large-v2"), f"--arch seamless: "
+          f"the CLI trained {cfg.name} at other sizes than published")
+    params = transformer.init(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+    opt = optim.adam_init(params)
+    step_fn = train.make_ff_train_step(cfg, lr=1e-3)
+    aux = frontend_embeddings(cfg, 4, 0, dev)
+    for i, tok in enumerate(data.lm_batches(cfg.vocab, 4, LM_SEQ, 2, 0)):
+        params, opt, _ = step_fn(params, opt, {
+            "tokens": torch.as_tensor(tok, device=dev), "aux": aux}, i + 1)
+    torch.use_deterministic_algorithms(False)
+    check(bit_equal(got["params"], params)
+          and bit_equal(got["opt_state"], opt), "--arch seamless-m4t-large-"
+          "v2: params or Adam state differ from the hand loop's")
+    metrics = got["metrics"]
+    check(len(metrics) == 2 and all(np.isfinite(v) for m in metrics
+                                    for v in m.values()),
+          f"--arch seamless-m4t-large-v2: metrics {metrics}")
+    del got, opt
+    back, step = checkpoint.restore(ck, params, strict=True)
+    ck_bytes = os.path.getsize(ck)
+    os.remove(ck)
+    check(step == 2 and bit_equal(back, params), "--arch seamless: the "
+          "checkpoint does not restore the trained params")
+    spans = [sp["name"] for sp in obs_export.load_jsonl(trace)["spans"]]
+    check("train:lm" in spans and "checkpoint:save" in spans,
+          f"--arch seamless: trace spans {spans}")
+    out["joint"] = {"cli_s": cli_s, "metrics": metrics, "spans": spans,
+                    "checkpoint_bytes": ck_bytes}
+    print(f"{tag} {' '.join(CLI_JOINT)} --ckpt --trace (jsonl): params and "
+          f"Adam state bit-identical to a hand loop of make_ff_train_step "
+          f"on the same batches and stub frames; the checkpoint "
+          f"({ck_bytes / 1e9:.2f} GB, step {step}) restores "
+          f"them; trace spans {spans}; {cli_s:.3f} s")
+    del params, back, aux
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_cli": out}))
+    return fwd, bwd
 
 
 def main():
@@ -2992,12 +3482,15 @@ def main():
         # the bit-exact executor gates run deterministic; the joint steps
         # and mamba2 (no bit-exact gate) do not
         torch.use_deterministic_algorithms(name == "qwen2-0.5b")
-        lm_train_calls[op] = phase_lm_train(
+        lm_train_calls[op], fit = phase_lm_train(
             api, data, name, chapters=LM_CHAPTERS[name],
-            executor=name == "qwen2-0.5b")
+            schedules=(("all_layers", "single_layer")
+                       if name == "qwen2-0.5b" else ()))
         torch.use_deterministic_algorithms(False)
         if name == "qwen2-0.5b":
+            qwen_fit = fit          # phase 30's CLI run is held to it
             joint_ff_steps(data, name)
+        del fit
         torch.cuda.empty_cache()
     for row in lm_rows:
         row["launches"] += lm_train_calls[row["name"]]
@@ -3017,11 +3510,40 @@ def main():
         if row["name"] == "flash_attention":
             row["launches"] += family_calls
 
-    # 29. isolation --------------------------------------------------------
+    # 29. LM training of the families at published widths, and
+    # deepseek-moe-16b's chapter fit (phase 21's gates, 3 blocks) --------
+    t_new = time.perf_counter()
+    family_calls = phase_lm_train_families(data)
+    name, units = MOE_CHAPTER_CFG
+    torch.use_deterministic_algorithms(True)
+    moe_calls, fit = phase_lm_train(api, data, name, chapters=2,
+                                    schedules=("all_layers",), units=units)
+    torch.use_deterministic_algorithms(False)
+    del fit
+    torch.cuda.empty_cache()
+    t_29 = time.perf_counter() - t_new
+    # 30. the training CLI on the card ---------------------------------------
+    counts.reset(fa)
+    cli_fwd, cli_bwd = phase_train_cli(api, data, qwen_fit, kernel, vjp)
+    cli_attn = fa.LAUNCHES.total
+    del qwen_fit
+    for row in lm_rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += family_calls + moe_calls + cli_attn
+    for row in fwd_rows:
+        row["launches"] += cli_fwd
+    for row in bwd_rows:
+        row["launches"] += cli_bwd
+    t_new = time.perf_counter() - t_new
+    print(f"[wall] phases 29-30 took {t_new:.1f} s (29 and the deepseek "
+          f"chapter fit {t_29:.1f} s, 30 {t_new - t_29:.1f} s) of "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 31. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[29 isolation] no jax, no repro module loaded")
+    print("[31 isolation] no jax, no repro module loaded")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

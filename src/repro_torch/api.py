@@ -464,8 +464,10 @@ def _fit_lm_chapters(cfg, source, *, backend, schedule, num_nodes,
     the same source through the same ``chapter_batches`` stream and are
     scored by the same held-out ``train.eval_ce``, so the bit-exactness
     gate extends to the reported CE. ``key``: the root key of the
-    negatives (folded by the step number); default ``TorchKey(seed)``."""
-    train_lib.check_supported(cfg)
+    negatives (folded by the step number); default ``TorchKey(seed)``.
+    A config that reads stub frontend embeddings is refused
+    (``pff_lm.check_chapter_config``)."""
+    pff_lm.check_chapter_config(cfg)
     seed = getattr(cfg, "seed", 0) or 0
     key_fn = TorchKey if key is None else (lambda _seed: key)
     dev = (None if backend == "executor" and devices is not None

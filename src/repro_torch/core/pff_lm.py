@@ -39,8 +39,27 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks, transformer
 
 
+def check_chapter_config(cfg):
+    """The chapter schedule trains blocks on token embeddings alone. An
+    encoder-decoder config, or one with cross-attention blocks (a vision
+    config), reads stub frontend embeddings that the schedule does not
+    take, as the reference's does not (``repro/core/pff_lm.py:46`` builds
+    one group, and its ctx at :61 has no "aux"): such a config is
+    refused, and trains by the joint step instead."""
+    kinds = {k for pattern, _ in cfg.groups for k in pattern}
+    if cfg.enc_dec or kinds & {"cross_attn", "xdec"}:
+        raise ValueError(
+            f"the chapter schedule takes no stub frontend embeddings (aux), "
+            f"which {cfg.name!r} reads (an encoder, or cross-attention "
+            f"blocks), and the reference's chapter schedule cannot train it "
+            f"either: train it with the joint step, core.train."
+            f"make_ff_train_step / make_bp_train_step with batch['aux'], or "
+            f"`python -m repro_torch.launch.train --arch {cfg.name}` "
+            f"without --chapters")
+
+
 def _pattern(cfg):
-    train_lib.check_supported(cfg)
+    check_chapter_config(cfg)
     if len(cfg.groups) != 1:
         raise ValueError("the chapter schedule needs a uniform stack (one "
                          f"group); got {len(cfg.groups)}")

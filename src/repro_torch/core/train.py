@@ -30,6 +30,21 @@ A forward that needs no gradient (AdaptiveNEG's, ``eval_ce``) runs under
 CUDA kernels on the card), the knob that lets a whole fit run the plain
 route for comparison.
 
+Stub frontend embeddings: an encoder-decoder config (``cfg.enc_dec``)
+reads audio frames and a vision config (``cross_attn`` blocks) image
+patches, each a ``batch["aux"]`` of shape (B, T, d_model) passed to
+every trainer and to ``eval_ce(aux=)`` as the reference's
+``core/train.py`` takes it (:109, :131-133, :145-147, :329-339, :352).
+Nothing in either package computes them: the training CLI
+(``launch.train``, as ``repro/launch/train.py:126-140``) draws them once
+with ``launch.serve.frontend_embeddings`` and feeds the same tensor every
+step. The joint FF step FF-trains the encoder's units first, over
+``aux`` (doubled with the negatives), bidirectionally, then the decoder
+cross-attends to ``rms_norm(encoder output, enc_norm)``; a vision config
+cross-attends to ``aux`` itself (reference :215-237). The chapter
+schedule (``core.pff_lm``) takes no stub embeddings, as the reference's
+does not (``repro/core/pff_lm.py:46``, :61): it refuses these configs.
+
 Random draws come from ``key_fn(seed)`` (default ``core.rng.TorchKey``),
 folded by the step number as the reference folds its jax key; the tests
 pass a jax-backed key to reproduce the reference's negatives. Params and
@@ -50,20 +65,7 @@ from repro_torch.models import blocks, common, transformer
 AUX_WEIGHT = 0.01      # router load-balance weight (local per block)
 CE_CHUNK = 512         # sequence chunk for vocab-logit computation
 REF = {"causal": True, "impl": "ref"}   # ctx of a differentiated forward
-
-
-def check_supported(cfg):
-    """The LM trainers run decoder-only stacks (dense or MoE MLPs). An
-    encoder-decoder config, or one with ``cross_attn`` blocks (a vision
-    config), trains on stub frontend embeddings that no trainer passes
-    yet: it names the ``ROADMAP.md`` item that ports that training."""
-    kinds = {k for pattern, _ in getattr(cfg, "groups", ()) for k in pattern}
-    if getattr(cfg, "enc_dec", False) or kinds & {"cross_attn", "xdec"}:
-        raise NotImplementedError(
-            f"training {cfg.name!r} is not ported yet: it needs the stub "
-            f"frontend embeddings (aux) and the encoder's chapter, which "
-            f"wait for the encoder-decoder and vision training slice "
-            f"(ROADMAP.md §1: encoder-decoder and vision LM training)")
+ENC_REF = {"causal": False, "impl": "ref"}   # the encoder's, bidirectional
 
 
 def unit_views(group, r):
@@ -123,6 +125,11 @@ def _ce_chunked(h, w_unembed, labels, mask, softcap=0.0):
     Returns summed CE (summed mask weight is the caller's).
     """
     B, S, d = h.shape
+    if tuple(labels.shape) != (B, S):
+        # the reference's chunk reshape fails on such inputs too (perf_opt
+        # scores an encoder's frames against the token labels)
+        raise ValueError(f"labels {tuple(labels.shape)} do not match the "
+                         f"features' (batch, positions) {(B, S)}")
     c = min(CE_CHUNK, S)
     labels = labels.long()
     if S % c:
@@ -171,14 +178,14 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
     """Returns step_fn(params, opt_state, batch, step) ->
     (params, opt_state, metrics), params and state updated in place.
 
-    batch: {"tokens": (B, S+1) integer tensor}. opt_state:
-    ``optim.adam_init(params)``. ``impl`` routes the no-grad forward of
-    AdaptiveNEG (``cfg.ff.neg_mode == "adaptive"``).
+    batch: {"tokens": (B, S+1) integer tensor, optional "aux": (B, T, d)
+    stub frontend embeddings}. opt_state: ``optim.adam_init(params)``.
+    ``impl`` routes the no-grad forward of AdaptiveNEG
+    (``cfg.ff.neg_mode == "adaptive"``).
     """
-    check_supported(cfg)
     perf_opt = cfg.ff.goodness == "perf_opt"
     theta = cfg.ff.theta
-    infos = transformer.groups_of(cfg)
+    n_units = sum(r for _, _, r, _ in transformer.group_infos(cfg))
 
     def step_fn(params, opt_state, batch, step):
         tokens = batch["tokens"]
@@ -186,6 +193,7 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
         S = S1 - 1
         dev = tokens.device
         pos_tok, labels = tokens[:, :-1], tokens[:, 1:]
+        aux_in = batch.get("aux")
         key = key_fn(seed).fold_in(step)
         metrics = {}
 
@@ -199,7 +207,7 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
                 # AdaptiveNEG cost the paper reports), no grad: kernels
                 with torch.no_grad():
                     logits0, _ = transformer.forward(params, cfg, pos_tok,
-                                                     impl=impl)
+                                                     aux=aux_in, impl=impl)
                 neg_tok = ff.adaptive_corrupt_tokens(key, pos_tok, logits0)
                 del logits0
             else:
@@ -210,6 +218,8 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
             is_pos = torch.cat([torch.ones((B,), device=dev),
                                 torch.zeros((B,), device=dev)])
             lab_all = torch.cat([labels, labels], dim=0)
+        if aux_in is not None and x_tok.shape[0] != aux_in.shape[0]:
+            aux_in = torch.cat([aux_in, aux_in], dim=0)
 
         embed_sg = params["embed"].detach()
         ce_mask = is_pos[:, None] * torch.ones((1, S), device=dev)
@@ -228,53 +238,73 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
         metrics["loss_embed"] = emb_l.detach()
         x = h.detach()
 
-        # ---- the stack: each unit's grad and Adam update, in order ------
+        # ---- the stacks: each unit's grad and Adam update, in order ------
         ff_losses = []
-        g_pos_sum = torch.zeros((), device=dev)
-        g_neg_sum = torch.zeros((), device=dev)
+        g_sums = [torch.zeros((), device=dev), torch.zeros((), device=dev)]
         npos = torch.clamp(is_pos.sum(), min=1.0)
         nneg = torch.clamp((1 - is_pos).sum(), min=1.0)
-        for gi, pattern, repeat in infos:
-            group_loss = torch.zeros((), device=dev)
-            for r in range(repeat):
-                unit = unit_views(params["groups"][gi], r)
-                up = trainable(unit)
-                with torch.enable_grad():
-                    h = x
-                    total = torch.zeros((), device=dev)
-                    gp = torch.zeros((), device=dev)
-                    gn = torch.zeros((), device=dev)
-                    for kind, bp in zip(pattern, up):
-                        h_sg = h.detach()
-                        y, moe_aux = blocks.block_apply(bp, cfg, kind, h_sg,
-                                                        REF)
-                        if perf_opt:
-                            loss = _local_ce(y, embed_sg, lab_all, ce_mask)
-                        else:
-                            loss, g = _block_ff_loss(y - h_sg, is_pos,
-                                                     theta)
-                            gm = g.detach().mean(1)
-                            gp = gp + (gm * is_pos).sum() / npos
-                            gn = gn + (gm * (1 - is_pos)).sum() / nneg
-                        total = total + loss + AUX_WEIGHT * moe_aux
-                        h = y
-                    grads = grads_of(total, up)
-                adam_leaves(unit, grads,
-                            unit_views(opt_state["m"]["groups"][gi], r),
-                            unit_views(opt_state["v"]["groups"][gi], r),
-                            lr=lr, step=step)
-                x = h.detach()
-                group_loss = group_loss + total.detach()
-                g_pos_sum = g_pos_sum + gp / len(pattern)
-                g_neg_sum = g_neg_sum + gn / len(pattern)
-            ff_losses.append(group_loss)
+
+        def train_units(groups, x, ctx):
+            for gi, pattern, repeat in groups:
+                group_loss = torch.zeros((), device=dev)
+                for r in range(repeat):
+                    unit = unit_views(params["groups"][gi], r)
+                    up = trainable(unit)
+                    with torch.enable_grad():
+                        h = x
+                        total = torch.zeros((), device=dev)
+                        gp = torch.zeros((), device=dev)
+                        gn = torch.zeros((), device=dev)
+                        for kind, bp in zip(pattern, up):
+                            h_sg = h.detach()
+                            y, moe_aux = blocks.block_apply(bp, cfg, kind,
+                                                            h_sg, ctx)
+                            if perf_opt:
+                                loss = _local_ce(y, embed_sg, lab_all,
+                                                 ce_mask)
+                            else:
+                                loss, g = _block_ff_loss(y - h_sg, is_pos,
+                                                         theta)
+                                gm = g.detach().mean(1)
+                                gp = gp + (gm * is_pos).sum() / npos
+                                gn = gn + (gm * (1 - is_pos)).sum() / nneg
+                            total = total + loss + AUX_WEIGHT * moe_aux
+                            h = y
+                        grads = grads_of(total, up)
+                    adam_leaves(unit, grads,
+                                unit_views(opt_state["m"]["groups"][gi], r),
+                                unit_views(opt_state["v"]["groups"][gi], r),
+                                lr=lr, step=step)
+                    x = h.detach()
+                    group_loss = group_loss + total.detach()
+                    g_sums[0] = g_sums[0] + gp / len(pattern)
+                    g_sums[1] = g_sums[1] + gn / len(pattern)
+                ff_losses.append(group_loss)
+            return x
+
+        # the encoder first (encoder-decoder), FF-trained over the stub
+        # frames; the decoder cross-attends to its normed output, a
+        # vision config's blocks to the embeddings themselves
+        cross_src = aux_in
+        if cfg.enc_dec:
+            xe = train_units(transformer.groups_of(cfg, encoder=True),
+                             aux_in, ENC_REF)
+            with torch.no_grad():
+                cross_src = common.rms_norm(xe, params["enc_norm"],
+                                            cfg.norm_eps)
+        x = train_units(transformer.groups_of(cfg), x,
+                        {**REF, "aux": cross_src})
 
         # ---- head: the paper's softmax layer (local CE) -----------------
         # CE on the positive half only (negatives carry no next-token
         # signal). For tied embeddings the table IS the softmax layer, so
-        # it receives this grad too.
+        # it receives this grad too. ``enc_norm`` joins the head's Adam
+        # step with a zero grad (the CE does not read it), as in the
+        # reference, which leaves it unchanged.
         head_keys = ["final_norm"] + ([] if cfg.tie_embeddings
                                       else ["lm_head"])
+        if cfg.enc_dec:
+            head_keys.append("enc_norm")
         x_pos_h = x if perf_opt else x[:B]
         hp = trainable({k: params[k] for k in head_keys})
         if cfg.tie_embeddings:
@@ -293,12 +323,11 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
                     {k: opt_state["v"][k] for k in head_keys},
                     lr=lr, step=step)
 
-        n_units = sum(r for _, _, r in infos)
         metrics.update(
             loss_ff=sum(ff_losses) / max(len(ff_losses), 1),
             loss_ce=ce_l.detach(),
-            goodness_pos=g_pos_sum / n_units,
-            goodness_neg=g_neg_sum / n_units,
+            goodness_pos=g_sums[0] / n_units,
+            goodness_neg=g_sums[1] / n_units,
         )
         return params, opt_state, metrics
 
@@ -311,15 +340,17 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
 
 def make_bp_train_step(cfg, *, lr=1e-3):
     """Standard end-to-end cross-entropy training step, through the plain
-    route (every forward here is differentiated)."""
-    check_supported(cfg)
+    route (every forward here is differentiated). batch as
+    ``make_ff_train_step`` takes it, its "aux" passed to the forward."""
 
     def step_fn(params, opt_state, batch, step):
         tokens = batch["tokens"]
         inp, labels = tokens[:, :-1], tokens[:, 1:]
         tp = trainable(params)
         with torch.enable_grad():
-            logits, aux_l = transformer.forward(tp, cfg, inp, impl="ref")
+            logits, aux_l = transformer.forward(tp, cfg, inp,
+                                                aux=batch.get("aux"),
+                                                impl="ref")
             lp = torch.log_softmax(logits, dim=-1)
             ce = -lp.gather(-1, labels.long()[..., None])[..., 0]
             loss = torch.mean(ce) + AUX_WEIGHT * aux_l
@@ -335,12 +366,14 @@ def make_bp_train_step(cfg, *, lr=1e-3):
 # Eval
 # ---------------------------------------------------------------------------
 
-def eval_ce(params, cfg, tokens, *, impl="auto"):
-    """Mean next-token CE of ``tokens`` (B, S+1) under ``params``: one
-    no-grad forward (``impl`` routes its attention / SSD)."""
+def eval_ce(params, cfg, tokens, aux=None, *, impl="auto"):
+    """Mean next-token CE of ``tokens`` (B, S+1) under ``params``, with
+    the stub embeddings ``aux`` (B, T, d) where the config reads them:
+    one no-grad forward (``impl`` routes its attention / SSD)."""
     with torch.no_grad():
         inp, labels = tokens[:, :-1], tokens[:, 1:]
-        logits, _ = transformer.forward(params, cfg, inp, impl=impl)
+        logits, _ = transformer.forward(params, cfg, inp, aux=aux,
+                                        impl=impl)
         lp = torch.log_softmax(logits, dim=-1)
         ce = -lp.gather(-1, labels.long()[..., None])[..., 0]
         return torch.mean(ce)

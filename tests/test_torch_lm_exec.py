@@ -123,15 +123,17 @@ def test_fit_lm_facade(deterministic):
 
 @pytest.mark.parametrize("field", ["moe", "enc_dec", "cross_attn", "xdec"])
 def test_unported_lm_kinds_name_their_slice(field):
-    """An encoder-decoder config, or one with cross-attention blocks,
-    names its slice; MoE configs are ported, so every trainer builds for
-    the reduced deepseek-moe-16b."""
+    """Every trainer builds for the reduced deepseek-moe-16b. An
+    encoder-decoder config, or one with cross-attention blocks, builds
+    the joint FF and backprop steps (they take the stub embeddings), and
+    the chapter makers refuse it by name: the reference's chapter
+    schedule takes no stub embeddings either."""
     from repro_torch.configs import get_config
-    makers = (ttrain.make_ff_train_step, ttrain.make_bp_train_step,
-              pff_lm.make_block_step, pff_lm.make_head_step)
+    joint = (ttrain.make_ff_train_step, ttrain.make_bp_train_step)
+    chapter = (pff_lm.make_block_step, pff_lm.make_head_step)
     if field == "moe":
         tc = get_config("deepseek-moe-16b").reduced()
-        for make in makers:
+        for make in joint + chapter:
             assert callable(make(tc))
         return
     if field == "enc_dec":
@@ -140,8 +142,11 @@ def test_unported_lm_kinds_name_their_slice(field):
     else:        # the vision config (cross_attn), the audio one (xdec)
         tc = get_config("llama-3.2-vision-90b" if field == "cross_attn"
                         else "seamless-m4t-large-v2").reduced()
-    for make in makers:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for make in joint:
+        assert callable(make(tc))
+    for make in chapter:
+        with pytest.raises(ValueError, match="takes no stub frontend "
+                           "embeddings.*launch.train"):
             make(tc)
 
 
