@@ -205,9 +205,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
     of ``make_ff_train_step`` on the same batches and stub frames, its
     checkpoint restoring, its jsonl trace holding ``train:lm``. The
     ``[wall]`` line gives phases 29-30's share.
-31. Isolation: no ``jax`` and no ``repro`` module was loaded.
+31. The pod path (``core.pff_pod``, ``sharding``, ``models.
+    ring_attention``, the expert-parallel MoE) under an NCCL process
+    group of world size 1 (its init time printed; every mesh axis has
+    size 1, so no collective runs): ``api.fit(backend="pod",
+    num_nodes=1)`` of qwen2-0.5b whole and deepseek-moe-16b at 3 of its
+    28 blocks, bf16, batch 4, seq 256, 4 steps: no kernel launched, the
+    loss and every leaf finite, every group leaf moved, ``embed`` and the
+    head unchanged, bit-identical to the phase's copy of the tests'
+    oracle loop; its step times and peak memory beside the joint FF
+    step's on the same config. Ring attention at qwen2-0.5b's prefill
+    shape (4, 2048, 14/2, 64) in f32 within 2e-5 of the plain attention
+    (one rank: one local block); the expert-parallel MoE at model 1
+    bit-identical to ``NO_DIST`` at deepseek-moe-16b's published width in
+    both branches; ``torchrun --standalone --nproc_per_node 1 -m
+    repro_torch.launch.train --arch qwen2-0.5b --full --backend pod
+    --nodes 1 --steps 2`` exits 0.
+32. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
-Phases 17-19, 21's fits, the deepseek chapter fit and 30 run under
+Phases 17-19, 21's fits, the deepseek chapter fit, 30 and 31's pod fits
+and MoE run under
 ``torch.use_deterministic_algorithms(True)`` with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before CUDA starts.
 
@@ -219,6 +236,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -479,6 +497,27 @@ CLI_CHAPTERS = ["--arch", "qwen2-0.5b", "--full", "--chapters", "2",
                 "--seq", "256"]
 CLI_JOINT = ["--arch", "seamless-m4t-large-v2", "--full", "--steps", "2",
              "--batch", "4", "--seq", "256"]
+
+# Phase 31, the pod path (core.pff_pod) on the one card, under an NCCL
+# process group of world size 1: api.fit(backend="pod", num_nodes=1) of
+# qwen2-0.5b whole and of deepseek-moe-16b at phase 29's cut of 3 of its
+# 28 blocks (the units' losses carry the router's aux loss), bf16,
+# POD_STEPS steps of POD_BATCH x POD_SEQ tokens at api.fit's default lr
+# 1e-3; ring attention at qwen2-0.5b's prefill shape (B, S, H, KV, hd) in
+# f32, held to RING_TOL of the plain attention (the reference's ring
+# test's limit); the expert-parallel MoE at model 1 at deepseek-moe-16b's
+# published width, (B, S) giving T = 1024 > 64 top_k (sorted) and T = 64
+# (dense-local); then the training CLI's pod mode under torchrun. One card
+# gives every mesh axis size 1, so no collective runs and nothing is sent.
+POD_CFGS = (("qwen2-0.5b", None), ("deepseek-moe-16b", 3))
+POD_BATCH, POD_SEQ, POD_STEPS = 4, 256, 4
+RING_SHAPE = (4, 2048, 14, 2, 64)
+RING_TOL = 2e-5
+POD_MOE_BS = ((4, 256), (4, 16))
+POD_CLI = ["-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+           "--arch", "qwen2-0.5b", "--full", "--backend", "pod", "--nodes",
+           "1", "--steps", "2"]
 
 
 def check(cond, msg):
@@ -2727,6 +2766,195 @@ def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
     return fwd, bwd
 
 
+def phase_pod(api, data, fa, dev="cuda"):
+    """31. The pod path on the card under an NCCL group of world size 1
+    (``POD_CFGS``): each config's ``api.fit(backend="pod", num_nodes=1)``
+    with its step wall times, peak memory and no kernel launched; the
+    loss and every leaf finite, every group leaf moved, ``embed`` and
+    the head unchanged, the run bit-identical on the same card to
+    ``tests/torch_gloo_ranks.pod_oracle``, the oracle loop the CPU tests
+    hold the 4-rank layouts to; the joint FF step's times on the same config. Then ring
+    attention, the expert-parallel MoE at model 1 and the CLI under
+    torchrun. Returns the phase's wall time."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core import pff_lm, train as train_lib
+    from repro_torch.kernels import counts, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mlp, ring_attention
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_gloo_ranks import pod_oracle
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    one = torch.ones(1, device=dev)
+    dist.all_reduce(one)               # the communicator exists from here
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(float(one) == 1.0, "an all_reduce over one rank changed its input")
+    print(f"[31 pod] NCCL group of world size 1: init and first all_reduce "
+          f"{init_s:.4f} s; every mesh axis has size 1, so no collective "
+          f"runs and nothing is sent")
+    out = {"nccl_init_s": init_s}
+    try:
+        torch.use_deterministic_algorithms(True)
+        for name, units in POD_CFGS:
+            cfg = get_config(name)
+            if units is not None:
+                cfg = cut_units(cfg, units)
+            batches = [torch.as_tensor(t, device=dev) for t in
+                       data.lm_batches(cfg.vocab, POD_BATCH, POD_SEQ,
+                                       POD_STEPS)]
+            marks = []
+
+            def timed(marks=marks, batches=batches):
+                for b in batches:
+                    marks.append(time.perf_counter())
+                    yield b
+                marks.append(time.perf_counter())
+
+            counts.reset(fa)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = api.fit(cfg, timed(), backend="pod", num_nodes=1,
+                          steps=POD_STEPS, batch=POD_BATCH, seq=POD_SEQ,
+                          device=dev)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = [b - a for a, b in zip(marks, marks[1:])]
+            losses = [l for _, l in res.history]
+            check(fa.LAUNCHES.total == 0, f"{name}: the pod fit launched "
+                  f"{fa.LAUNCHES.total} attention kernels (its forwards are "
+                  f"differentiated, so plain)")
+            check(len(losses) == POD_STEPS and all(
+                math.isfinite(l) for l in losses), f"{name}: pod losses "
+                f"{losses}")
+            check(all(bool(torch.isfinite(t.float()).all())
+                      for t in tree_leaves(res.params)),
+                  f"{name}: a non-finite leaf after the pod fit")
+            init = pff_lm.init_params(cfg, 0, dev)
+            moved = [not torch.equal(a, b) for a, b in zip(
+                tree_leaves(res.params["groups"]),
+                tree_leaves(init["groups"]))]
+            check(all(moved), f"{name}: {moved.count(False)} of "
+                  f"{len(moved)} group leaves did not move")
+            head = ["embed", "final_norm"] + (
+                [] if cfg.tie_embeddings else ["lm_head"])
+            check(all(torch.equal(res.params[k], init[k]) for k in head),
+                  f"{name}: the pod fit changed {head}")
+            want = [float(l) for l in pod_oracle(cfg, init, batches,
+                                                  lr=1e-3)]
+            check(want == losses and pff_lm.lm_params_bit_equal(
+                res.params, init), f"{name}: the pod fit differs from the "
+                f"oracle loop (losses {losses} vs {want})")
+            del res, init
+            torch.cuda.empty_cache()
+            params = pff_lm.init_params(cfg, 0, dev)
+            opt = optim.adam_init(params)
+            step = train_lib.make_ff_train_step(cfg, lr=1e-3)
+            joint = []
+            for i, tok in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, _ = step(params, opt, {"tokens": tok}, i + 1)
+                torch.cuda.synchronize()
+                joint.append(time.perf_counter() - t0)
+            del params, opt
+            torch.cuda.empty_cache()
+            cut = "" if units is None else f" ({units} blocks)"
+            print(f"[31 pod] {name}{cut} bf16 (B {POD_BATCH}, S {POD_SEQ}, "
+                  f"{POD_STEPS} steps): "
+                  f"pod step s {[round(t, 4) for t in steps]} vs the joint "
+                  f"FF step s {[round(t, 4) for t in joint]}; makespan "
+                  f"{sum(steps):.4f} s; peak {peak:.2f} GB; losses "
+                  f"{[round(l, 5) for l in losses]}; 0 kernel launches; "
+                  f"{len(moved)} group leaves moved, embed and head "
+                  f"unchanged; bit-identical to the oracle loop")
+            out[name] = {"pod_step_s": steps, "joint_ff_step_s": joint,
+                         "peak_gb": peak, "losses": losses}
+        torch.use_deterministic_algorithms(False)
+
+        # ring attention at qwen2-0.5b's prefill shape, one rank
+        B, S, H, KV, hd = RING_SHAPE
+        gen = torch.Generator(device=dev).manual_seed(31)
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev)
+        k, v = (torch.randn((B, S, KV, hd), generator=gen, device=dev)
+                for _ in range(2))
+        ring_mesh = make_mesh((1,), ("seq",))
+        times = {}
+        for label, fn in (
+                ("ring", lambda: ring_attention.ring_attention(
+                    q, k, v, mesh=ring_mesh, axis="seq", causal=True)),
+                ("plain", lambda: ops.flash_attention(q, k, v, causal=True,
+                                                      impl="ref"))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times[label] = (time.perf_counter() - t0) * 1e3
+            times[label + "_out"] = res
+        err = float((times["ring_out"] - times["plain_out"]).abs().max())
+        print(f"[31 ring] {RING_SHAPE} f32 causal on the NCCL group's one "
+              f"rank (the ring is one local block; nothing is sent): max "
+              f"abs err vs the plain attention {err:.3e} (<= {RING_TOL}); "
+              f"{times['ring']:.3f} ms vs plain {times['plain']:.3f} ms")
+        check(err <= RING_TOL, f"ring attention err {err} > {RING_TOL}")
+        out["ring"] = {"max_abs_err": err, "ms": times["ring"],
+                       "plain_ms": times["plain"]}
+        del q, k, v, times
+
+        # the expert-parallel MoE at model 1, published width
+        torch.use_deterministic_algorithms(True)
+        cfg = get_config("deepseek-moe-16b")
+        p = mlp.moe_init(gen, cfg.moe, cfg.d_model, torch.bfloat16)
+        dist_ = mlp.Dist(make_mesh((1, 1), ("data", "model")), ("data",),
+                         "model", "data")
+        for B, S in POD_MOE_BS:
+            x = torch.randn((B, S, cfg.d_model), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            y0, a0 = mlp.moe_apply(p, x, cfg.moe, cfg.act)
+            y1, a1 = mlp.moe_apply(p, x, cfg.moe, cfg.act, dist_)
+            branch = ("dense-local" if B * S <= 64 * cfg.moe.top_k
+                      else "sorted")
+            same = torch.equal(y0, y1) and torch.equal(a0, a1)
+            print(f"[31 moe] deepseek-moe-16b published width, T {B * S} "
+                  f"({branch}): expert-parallel at model 1 vs NO_DIST "
+                  f"bit-identical {same}")
+            check(same, f"expert-parallel MoE at model 1 ({branch}) differs "
+                  f"from NO_DIST")
+        del p
+        torch.use_deterministic_algorithms(False)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # the training CLI's pod mode under torchrun (a process of its own)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")
+               + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, *POD_CLI], capture_output=True,
+                         text=True, env=env, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, f"torchrun ... --backend pod exited "
+          f"{cli.returncode}:\n{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+    last = cli.stdout.strip().splitlines()[-1]
+    print(f"[31 pod cli] torchrun --standalone --nproc_per_node 1 -m "
+          f"repro_torch.launch.train {' '.join(POD_CLI[7:])}: exit 0 in "
+          f"{cli_s:.1f} s: {last}")
+    out["cli_s"] = cli_s
+    print(json.dumps({"pod": out}))
+    return time.perf_counter() - t_phase
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3539,11 +3767,16 @@ def main():
           f"chapter fit {t_29:.1f} s, 30 {t_new - t_29:.1f} s) of "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
-    # 31. isolation --------------------------------------------------------
+    # 31. the pod path on the card ---------------------------------------
+    pod_s = phase_pod(api, data, fa)
+    print(f"[wall] phase 31 took {pod_s:.1f} s of "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 32. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[31 isolation] no jax, no repro module loaded")
+    print("[32 isolation] no jax, no repro module loaded")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -49,8 +49,17 @@ hot-published into the serving replica), or from a fixed snapshot:
 
 All of it runs on ``cuda`` unless ``device="cpu"`` is passed. Strategy
 variation (negatives, goodness objective, classifier) is config-driven
-through the registries re-exported here. The ``pod`` backend comes with
-a later slice; it raises ``NotImplementedError`` until then.
+through the registries re-exported here.
+
+The ``pod`` backend (beyond-paper) trains an LM config's one stacked
+group as a pipeline over ``num_nodes`` stages, one process each
+(``core.pff_pod`` on ``torch.distributed``): under ``torchrun
+--nproc_per_node N`` with the default group initialized, or in this
+process alone when ``num_nodes == 1``:
+
+    res = api.fit(get_config("qwen2-0.5b"), backend="pod", num_nodes=1,
+                  steps=4, batch=4, seq=256)
+    res.history, res.makespan, res.params
 """
 from __future__ import annotations
 
@@ -59,10 +68,12 @@ import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import data as data_lib
 from repro_torch.convert import tree_map
-from repro_torch.core import ff_mlp, pff, pff_exec, pff_lm, strategies
+from repro_torch.core import ff_mlp, pff, pff_exec, pff_lm, pff_pod
+from repro_torch.core import strategies
 from repro_torch.core import train as train_lib
 from repro_torch.core.rng import TorchKey
 from repro_torch.core.faults import (        # noqa: F401  re-exported
@@ -74,6 +85,7 @@ from repro_torch.core.strategies import (    # noqa: F401  re-exported
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import registry as kernel_registry
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import engine as serve_engine
 from repro_torch.serve.engine import ServeConfig       # noqa: F401  re-export
@@ -87,11 +99,6 @@ __all__ = ["fit", "simulate", "serve", "FitResult", "ServeResult",
            "FaultPlan", "ResilienceConfig"]
 
 BACKENDS = ("sequential", "simulate", "executor", "federated", "pod")
-
-# the slice of the port each backend not ported yet comes with
-_PENDING_BACKENDS = {
-    "pod": "the pod slice (core/pff_pod.py on torch.distributed)",
-}
 
 
 @dataclasses.dataclass
@@ -166,8 +173,8 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
         num_nodes=1, probe_every=0, verbose=False, profile=False,
         devices=None, overlap=True, resilience=None, resume_from=None,
         serve=None, trace=None, comm_time=0.0, device=None,
-        key=None, chapters=4, steps_per_chapter=8, batch=8, seq=64,
-        lr=1e-3, head_lr=None, impl="auto") -> FitResult:
+        key=None, steps=40, chapters=4, steps_per_chapter=8, batch=8,
+        seq=64, lr=1e-3, head_lr=None, impl="auto") -> FitResult:
     """Train ``cfg`` on ``task`` with the chosen backend.
 
     sequential  the canonical chapter-schedule trainer (times every
@@ -185,6 +192,16 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
                 ``"sequential"`` when ``num_nodes == 1``) on
                 ``num_nodes`` simulated nodes; ``comm_time`` is the
                 per-DAG-edge cross-node hand-off cost.
+    pod         an LM config's one stacked group as a pipeline of
+                ``num_nodes`` stages, one process each
+                (``core.pff_pod``), for ``steps`` steps of ``batch`` x
+                ``seq`` tokens (``task``: an iterable of (batch, seq+1)
+                token blocks, default ``data.lm_batches``). The stages
+                are the processes of the default group (``torchrun
+                --nproc_per_node num_nodes``); with no group,
+                ``num_nodes`` must be 1. ``FitResult.params`` is the
+                whole model (the stage rows gathered), ``history`` the
+                per-step (step, FF loss).
 
     probe_every/verbose: chapter-level accuracy probes.
     profile: executor: synchronize after every task and return per-task
@@ -222,10 +239,6 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
-    if backend in _PENDING_BACKENDS:
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet: it comes with "
-            f"{_PENDING_BACKENDS[backend]}")
     if (resilience is not None or resume_from is not None) \
             and backend != "executor":
         raise ValueError(
@@ -240,6 +253,14 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
     if serve is not None and not isinstance(serve, ServeConfig):
         raise TypeError(f"serve= expects an api.ServeConfig, got "
                         f"{type(serve).__name__}")
+    if backend == "pod":
+        tracer = obs_trace.as_tracer(trace)
+        with tracer.span("fit:pod", num_nodes=num_nodes, steps=steps):
+            fres = _fit_pod(cfg, task, num_nodes=num_nodes, steps=steps,
+                            batch=batch, seq=seq, lr=lr, verbose=verbose,
+                            device=device, key=key)
+        fres.trace = tracer if tracer.enabled else None
+        return fres
     if hasattr(cfg, "groups"):
         if backend not in ("sequential", "executor"):
             raise ValueError(
@@ -453,6 +474,63 @@ def serve(cfg, task=None, *, traffic=None, source=None, params=None,
     return _run_combined(cfg, ex, sconfig, source=source,
                          resume_from=resume_from, schedule=schedule,
                          num_nodes=num_nodes, tracer=tracer)
+
+
+def _fit_pod(cfg, task, *, num_nodes, steps, batch, seq, lr, verbose,
+             device, key) -> FitResult:
+    """The pod-pipeline backend (LM configs): a (num_nodes, 1, 1) mesh
+    of (stage, data, model) over the default process group, or no mesh
+    for one stage without a group. Every rank initializes the whole
+    model from the config's seed, keeps its stage's rows, trains them,
+    and gathers the stacked group back at the end."""
+    if not hasattr(cfg, "groups"):
+        raise ValueError(
+            "backend=\"pod\" expects a transformer LM config "
+            "(repro_torch.configs.get_config(...)); FF-MLP configs run on "
+            "the sequential/federated/executor/simulate backends")
+    stages = num_nodes
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        if dist.get_world_size() != stages:
+            raise ValueError(
+                f"pod backend: num_nodes={stages} stages, but the default "
+                f"process group has {dist.get_world_size()} processes")
+        mesh = mesh_lib.make_mesh((stages, 1, 1), ("stage", "data", "model"))
+    elif stages == 1:
+        mesh = None
+    else:
+        raise RuntimeError(
+            f"pod backend with num_nodes={stages} needs one process per "
+            f"stage: launch with torchrun --nproc_per_node {stages} and "
+            f"call torch.distributed.init_process_group first")
+    seed = getattr(cfg, "seed", 0) or 0
+    key_fn = TorchKey if key is None else (lambda _seed: key)
+    step_fn = pff_pod.make_pff_pod_step(cfg, mesh, lr=lr, seed=seed,
+                                        key_fn=key_fn)
+    params = pff_lm.init_params(cfg, seed, dev)
+    params["groups"] = (pff_pod.stage_rows(params["groups"][0], mesh),)
+    opt = pff_pod.init_opt_state(params)
+    inflight = pff_pod.init_inflight(cfg, batch, seq, mesh, device=dev)
+    batches = (task if task is not None
+               else data_lib.lm_batches(cfg.vocab, batch, seq, steps))
+    history = []
+    t0 = time.perf_counter()
+    for i, tokens in enumerate(batches):
+        params, opt, inflight, m = step_fn(
+            params, opt, {"tokens": torch.as_tensor(tokens, device=dev)},
+            inflight, i + 1)
+        history.append((i + 1, float(m["loss_ff"])))
+        if verbose and (i + 1) % 10 == 0:
+            print(f"  pod step {i + 1}: FF loss {history[-1][1]:.4f}")
+    params["groups"] = (pff_pod.gather_stage_rows(params["groups"][0],
+                                                  mesh),)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    makespan = time.perf_counter() - t0
+    return FitResult(backend="pod", cfg=cfg, params=params,
+                     schedule="pod_pipeline", num_nodes=stages,
+                     history=history, makespan=makespan, device=str(dev),
+                     raw=history)
 
 
 def _fit_lm_chapters(cfg, source, *, backend, schedule, num_nodes,

@@ -22,11 +22,19 @@ Three modes, on the card unless ``--device cpu``:
     streams (``--backend executor --schedule ...``). The schedule takes
     no stub embeddings and refuses the encoder-decoder and vision configs
     (``core.pff_lm.check_chapter_config``).
+  * ``--arch <id> --backend pod``: ``api.fit``'s pod pipeline
+    (``core.pff_pod``) over ``--nodes`` stages for ``--steps`` steps on
+    the synthetic LM corpus, one process a stage: run it under
+    ``torchrun --nproc_per_node <nodes>`` when ``--nodes`` > 1 (the
+    default group is initialized here from torchrun's environment, NCCL
+    on the card, gloo with ``--device cpu``, each rank on
+    ``cuda:LOCAL_RANK``); rank 0 prints and saves. ``--paper-mlp
+    --backend pod`` raises ``ValueError``, as ``api.fit`` does.
 
 ``--ckpt`` saves the trained params in ``repro_torch.checkpoint``'s
 format (the reference's: either package restores the other's files);
 ``--trace`` records the run (``repro_torch.obs``) and exports it in
-``--trace-format``. ``--backend pod`` raises as ``api.fit`` does.
+``--trace-format``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --paper-mlp \\
@@ -37,14 +45,19 @@ Examples:
       --arch seamless-m4t-large-v2 --full --steps 2 --batch 4 --seq 256
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --chapters 4 --backend executor --schedule single_layer --nodes 4
+  PYTHONPATH=src torchrun --standalone --nproc_per_node 2 \\
+      -m repro_torch.launch.train --arch qwen2-0.5b --full --backend pod \\
+      --nodes 2 --steps 4 --batch 4 --seq 256
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import api, checkpoint, data as data_lib, optim
 from repro_torch.configs import get_config, list_configs
@@ -121,11 +134,46 @@ def run_lm_chapters(args, cfg):
     return res
 
 
+def run_lm_pod(args, cfg):
+    """``--arch --backend pod``: ``api.fit``'s pod pipeline over
+    ``--nodes`` stages; returns its ``FitResult``. Under torchrun (its
+    ``WORLD_SIZE`` in the environment) the default process group is
+    initialized here and destroyed after."""
+    dev = resolve_device(args.device)
+    own_group = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if own_group:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        t0 = time.time()
+        res = api.fit(cfg, None, backend="pod", num_nodes=args.nodes,
+                      steps=args.steps, batch=args.batch, seq=args.seq,
+                      lr=args.lr, verbose=True,
+                      trace=args.tracer if args.tracer.enabled else None,
+                      device=dev)
+        wall = time.time() - t0
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(f"\n[pod] stages={res.num_nodes}: steps "
+                  f"{len(res.history)} FF loss {res.history[-1][1]:.4f} "
+                  f"makespan={res.makespan:.2f}s wall={wall:.1f}s")
+            if args.ckpt:
+                checkpoint.save(args.ckpt, res.params, step=args.steps,
+                                tracer=args.tracer)
+                print("saved", args.ckpt)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    return res
+
+
 def run_lm(args):
-    """``--arch``: the chapter schedule with ``--chapters``, else the
-    joint FF (or backprop) step for ``--steps`` steps. The joint mode
-    returns ``{"cfg", "params", "opt_state", "metrics"}`` (the last a list
-    of each step's metrics as floats)."""
+    """``--arch``: the pod pipeline with ``--backend pod``, the chapter
+    schedule with ``--chapters``, else the joint FF (or backprop) step
+    for ``--steps`` steps. The joint mode returns ``{"cfg", "params",
+    "opt_state", "metrics"}`` (the last a list of each step's metrics as
+    floats)."""
     tracer = args.tracer
     cfg = get_config(args.arch)
     if not args.full:
@@ -133,6 +181,8 @@ def run_lm(args):
     if args.neg_mode:
         cfg = dataclasses.replace(
             cfg, ff=dataclasses.replace(cfg.ff, neg_mode=args.neg_mode))
+    if args.backend == "pod":
+        return run_lm_pod(args, cfg)
     if args.chapters:
         return run_lm_chapters(args, cfg)
     dev = resolve_device(args.device)
@@ -178,10 +228,11 @@ def main(argv=None):
     # when strategies are (un)registered
     ap.add_argument("--backend", default="sequential",
                     choices=list(api.BACKENDS),
-                    help="api.fit backend (--paper-mlp, --chapters): "
-                         "sequential trainer, event simulator, the "
-                         "executor on CUDA streams, federated shards, or "
-                         "the pod pipeline (not ported yet: raises)")
+                    help="api.fit backend (--paper-mlp, --chapters, and "
+                         "pod with --arch): sequential trainer, event "
+                         "simulator, the executor on CUDA streams, "
+                         "federated shards, or the pod pipeline (one "
+                         "process a stage: torchrun when --nodes > 1)")
     ap.add_argument("--schedule", default="all_layers",
                     choices=list(pff_dag.SCHEDULES))
     ap.add_argument("--neg-mode", default=None,

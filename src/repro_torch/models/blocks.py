@@ -18,8 +18,11 @@ a fresh model ignores ``aux``); its decode reads K/V computed once from
 MoE's dense-local branch.
 
 ``ctx`` carries ``impl`` (the kernel ops' ``impl=``, default "auto"),
-``causal``, ``aux`` (what cross attention reads) and, for prefill,
-``max_len`` (the decode caches' length).
+``causal``, ``aux`` (what cross attention reads), ``dist`` (the MoE's
+expert parallelism, ``mlp.Dist``; default ``mlp.NO_DIST``),
+``q_offset`` (``block_apply``: the first position of self-attention's
+rope and mask) and, for prefill, ``max_len`` (the decode caches'
+length).
 """
 from __future__ import annotations
 
@@ -69,16 +72,19 @@ def _qkv(p, cfg, x, kv_src=None):
     return q, k, v
 
 
-def _attn_seq(p, cfg, x, *, causal, window, impl):
-    """Self-attention over the whole sequence (positions from 0): the
-    output and the roped k and v."""
+def _attn_seq(p, cfg, x, *, causal, window, impl, q_offset=0):
+    """Self-attention over the whole sequence, its positions from
+    ``q_offset``: the output and the roped k and v. As in the reference,
+    the offset shifts the rope of q and k and the queries' mask
+    positions; the keys' mask positions start at 0."""
     q, k, v = _qkv(p, cfg, x)
-    pos = torch.arange(x.shape[1], device=x.device)
+    pos = q_offset + torch.arange(x.shape[1], device=x.device)
     q = common.apply_rope(q, pos[None], cfg.rope_theta)
     k = common.apply_rope(k, pos[None], cfg.rope_theta)
     out = attention.chunked_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal,
-                                      window=window, impl=impl)
+                                      window=window, q_offset=q_offset,
+                                      impl=impl)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
 
 
@@ -89,12 +95,13 @@ def _gated(p, y):
 
 
 def attn_apply(p, cfg, x, *, kv_src=None, causal=True, window=None,
-               impl="auto"):
-    """Self-attention over ``x``; with ``kv_src`` (B, T, d), cross
-    attention from ``x`` to it: no rope, no causal mask, gated."""
+               impl="auto", q_offset=0):
+    """Self-attention over ``x`` (positions from ``q_offset``); with
+    ``kv_src`` (B, T, d), cross attention from ``x`` to it: no rope, no
+    causal mask, gated."""
     if kv_src is None:
         return _attn_seq(p, cfg, x, causal=causal, window=window,
-                         impl=impl)[0]
+                         impl=impl, q_offset=q_offset)[0]
     q, k, v = _qkv(p, cfg, x, kv_src)
     out = attention.chunked_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=False,
@@ -196,13 +203,14 @@ def moe_wrap_init(gen, cfg):
     return mlp.moe_init(gen, cfg.moe, cfg.d_model, common.dtype_of(cfg))
 
 
-def mlp_apply(p, cfg, x):
+def mlp_apply(p, cfg, x, dist=mlp.NO_DIST):
     """Returns (y, aux_loss): the MoE's router load-balance loss, 0 for
-    the dense MLP."""
+    the dense MLP. ``dist``: the MoE's expert parallelism (``mlp.Dist``;
+    x is then this rank's batch shard)."""
     if p is None:
         return torch.zeros_like(x), torch.zeros((), device=x.device)
     if cfg.moe is not None:
-        return mlp.moe_apply(p, x, cfg.moe, cfg.act)
+        return mlp.moe_apply(p, x, cfg.moe, cfg.act, dist)
     return mlp.dense_mlp_apply(p, x, cfg.act), torch.zeros((),
                                                             device=x.device)
 
@@ -244,12 +252,12 @@ def _window_for(cfg, kind):
     return cfg.window
 
 
-def _mlp_residual(p, cfg, x):
+def _mlp_residual(p, cfg, x, dist=mlp.NO_DIST):
     """The block's MLP sub-layer: (x_out, aux_loss)."""
     if "mlp" not in p:
         return x, torch.zeros((), device=x.device)
     h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
-    y, aux = mlp_apply(p["mlp"], cfg, h)
+    y, aux = mlp_apply(p["mlp"], cfg, h, dist)
     return x + y, aux
 
 
@@ -259,18 +267,21 @@ def _cross_residual(p, cfg, x, norm, aux, impl):
 
 
 def block_apply(p, cfg, kind, x, ctx):
-    """x: (B, S, d). ctx: dict(causal, aux, impl). Returns (x_out,
-    aux_loss)."""
+    """x: (B, S, d). ctx: dict(causal, aux, impl, dist, q_offset).
+    Returns (x_out, aux_loss)."""
     impl = ctx.get("impl", "auto")
+    q_off = ctx.get("q_offset", 0)
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=ctx.get("causal", True),
-                           window=_window_for(cfg, kind), impl=impl)
+                           window=_window_for(cfg, kind), impl=impl,
+                           q_offset=q_off)
     elif kind == "cross_attn":
         x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl)
     elif kind == "xdec":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + attn_apply(p["attn"], cfg, h, causal=True, impl=impl)
+        x = x + attn_apply(p["attn"], cfg, h, causal=True, impl=impl,
+                           q_offset=q_off)
         x = _cross_residual(p["xattn"], cfg, x, p["norm_x"], ctx["aux"],
                             impl)
     elif kind == "mamba2":
@@ -281,7 +292,7 @@ def block_apply(p, cfg, kind, x, ctx):
         x = x + rglru.forward(p["rec"], cfg, h)[0]
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, cfg, x)
+    return _mlp_residual(p, cfg, x, ctx.get("dist", mlp.NO_DIST))
 
 
 def block_prefill(p, cfg, kind, x, ctx):
@@ -317,7 +328,7 @@ def block_prefill(p, cfg, kind, x, ctx):
         x = x + y
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, cfg, x)[0], cache
+    return _mlp_residual(p, cfg, x, ctx.get("dist", mlp.NO_DIST))[0], cache
 
 
 def block_cache_init(cfg, kind, batch, max_len, dtype, device):
@@ -375,6 +386,7 @@ def block_decode(p, cfg, kind, cache, x, pos, ctx):
         raise ValueError(kind)
     if "mlp" in p:
         h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
-        y, _ = mlp_apply(p["mlp"], cfg, h[:, None])
+        y, _ = mlp_apply(p["mlp"], cfg, h[:, None],
+                         ctx.get("dist", mlp.NO_DIST))
         x = x + y[:, 0]
     return x, cache

@@ -12,10 +12,21 @@ package). Two branches, chosen from the token count T (a Python int):
                into a fixed per-expert capacity C; a token's choice past
                C (by stable sort order) is dropped.
 
-Nothing on either branch reads a value back to the host. ``Dist`` exists
-in its disabled form only, and nothing takes one yet: expert parallelism
-(``all_to_all`` over a model axis) waits for the pod slice
-(``ROADMAP.md`` §1).
+Nothing on either branch reads a value back to the host.
+
+Expert parallelism (``Dist`` enabled: a mesh and a model axis): each
+rank runs the body on its own batch shard of the tokens, with the
+experts split over the model axis and the expert weights' d_model over
+the fsdp axis (ZeRO), as the reference's ``shard_map`` body does:
+the weights are all-gathered over the fsdp axis; the dense-local branch
+runs the rank's experts over every token and sums over the model axis;
+the sorted branch sends each expert's capacity rows to the rank that
+holds it and back (``all_to_all_single``); the shared experts run
+tensor-parallel (their ff split over the model axis, summed); the
+router's aux loss is averaged over the batch axes. The expert-parallel
+body runs forward only: its collectives carry no backward, so it raises
+under autograd (a grad-enabled call whose input or params need grads)
+rather than hand back wrong gradients; differentiate with ``NO_DIST``.
 """
 from __future__ import annotations
 
@@ -25,32 +36,37 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import sharding
+from repro_torch.convert import tree_leaves
 from repro_torch.models import common
 
 
 # ---------------------------------------------------------------------------
-# Distribution context (disabled only on one card)
+# Distribution context threaded through the model
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Dist:
-    """Names of mesh axes; None disables explicit collectives. The port
-    runs on one card: an enabled ``Dist`` (a mesh and a model axis)
-    raises ``NotImplementedError`` until the pod slice."""
+    """Names of mesh axes (a ``DeviceMesh``'s); None disables explicit
+    collectives (one process)."""
     mesh: object = None
     batch_axes: Tuple[str, ...] = ()     # axes sharding the batch/token dim
     model_axis: Optional[str] = None     # tensor/expert-parallel axis
     fsdp_axis: Optional[str] = None      # axis sharding expert d_model (ZeRO)
 
-    def __post_init__(self):
-        if self.enabled:
-            raise NotImplementedError(
-                "expert parallelism over a mesh is not ported yet; it waits "
-                "for the pod slice (ROADMAP.md §1: the pod path)")
-
     @property
     def enabled(self):
         return self.mesh is not None and self.model_axis is not None
+
+    def model_size(self):
+        return (sharding.axis_size(self.mesh, self.model_axis)
+                if self.enabled else 1)
+
+    def constrain_batch(self, x):
+        """The identity. The reference pins an activation's batch dim to
+        the data axes so GSPMD keeps it sharded; here no compiler
+        reshards anything, and each rank already holds its batch shard."""
+        return x
 
 
 NO_DIST = Dist()
@@ -176,32 +192,95 @@ def _expert_ffn(wi, wg, wo, tokens, act_name):
     return torch.bmm(h, wo)
 
 
-def _moe_local(p, x, moe, act_name):
-    """x: (T, d) tokens -> (y (T, d), aux)."""
+def _moe_local(p, x, moe, act_name, dist=NO_DIST):
+    """x: (T, d) tokens -> (y (T, d), aux). With ``dist`` enabled, x is
+    this rank's token shard and p holds its shards: wi/wg (E_local,
+    d_local, ff), wo (E_local, ff, d_local), the shared experts' ff
+    slice."""
     T, d = x.shape
+    if dist.enabled and torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, *tree_leaves(p)]):
+        raise RuntimeError(
+            "the expert-parallel MoE runs forward only: its all_gather, "
+            "all_reduce and all_to_all_single carry no backward, so its "
+            "gradients would be wrong; differentiate it with NO_DIST or "
+            "call it under torch.no_grad()")
     gate, eids, aux = _router(p, x, moe)
+    mesh, ma, fa = dist.mesh, dist.model_axis, dist.fsdp_axis
     wi, wg, wo = p["wi"], p["wg"], p["wo"]
+    if dist.enabled and fa is not None:
+        wi = sharding.all_gather(wi, mesh, fa, dim=1)
+        wg = sharding.all_gather(wg, mesh, fa, dim=1)
+        wo = sharding.all_gather(wo, mesh, fa, dim=2)
     if T <= 64 * moe.top_k:
-        # dense-local experts: (T, E) gates, every expert over every token
+        # dense-local experts: (T, E_local) gates of this rank's experts,
+        # each over every token
+        e_l = wi.shape[0]
+        shard = sharding.axis_index(mesh, ma) if dist.enabled else 0
         gates_full = torch.zeros((T, moe.num_experts), device=x.device
                                  ).scatter(1, eids, gate)
-        h = _expert_ffn(wi, wg, wo, x.expand(moe.num_experts, T, d),
-                        act_name)                          # (E, T, d)
+        gates = gates_full[:, shard * e_l:(shard + 1) * e_l]
+        h = _expert_ffn(wi, wg, wo, x.expand(e_l, T, d),
+                        act_name)                          # (E_l, T, d)
         with full_f32():
-            y = torch.einsum("etd,te->td", h.float(), gates_full)
+            y = torch.einsum("etd,te->td", h.float(), gates)
+        if dist.enabled:
+            y = sharding.psum(y, mesh, ma)
         y = y.to(x.dtype)
     else:
         cap = _capacity(T, moe.top_k, moe.num_experts, moe.capacity_factor)
         buf, meta = _sorted_dispatch(x, eids, moe.num_experts, cap)
-        y = _combine(_expert_ffn(wi, wg, wo, buf, act_name), meta, T,
-                     moe.top_k, gate)
+        if dist.enabled:
+            # each expert's rows to the rank holding it: (n_model, E_l,
+            # C, d), leading dim the destination, then the source
+            n_model = dist.model_size()
+            e_l = moe.num_experts // n_model
+            buf = sharding.all_to_all(buf.reshape(n_model, e_l, cap, d),
+                                      mesh, ma)
+            tokens = buf.transpose(0, 1).reshape(e_l, n_model * cap, d)
+            out = _expert_ffn(wi, wg, wo, tokens, act_name)
+            out = out.reshape(e_l, n_model, cap, d).transpose(0, 1)
+            buf_out = sharding.all_to_all(out, mesh, ma).reshape(
+                moe.num_experts, cap, d)
+        else:
+            buf_out = _expert_ffn(wi, wg, wo, buf, act_name)
+        y = _combine(buf_out, meta, T, moe.top_k, gate)
     if "shared" in p:
-        y = y + dense_mlp_apply(p["shared"], x, act_name)
+        # the shared experts run tensor-parallel: ff split on the model axis
+        ys = dense_mlp_apply(p["shared"], x, act_name)
+        if dist.enabled:
+            ys = sharding.psum(ys, mesh, ma)
+        y = y + ys
+    if dist.enabled:
+        for axis in dist.batch_axes:
+            aux = sharding.pmean(aux, mesh, axis)
     return y, aux
 
 
-def moe_apply(p, x, moe, act_name):
-    """x: (B, S, d). Returns (y, aux_loss)."""
+def moe_specs(p, dist):
+    """The specs of the MoE's params under ``dist`` (the reference's
+    ``moe_apply`` in_specs): experts on the model axis, their d_model on
+    the fsdp axis, the shared experts' ff on the model axis."""
+    ma, fa = dist.model_axis, dist.fsdp_axis
+    specs = {"router": (None, None), "wi": (ma, fa, None),
+             "wg": (ma, fa, None), "wo": (ma, None, fa)}
+    if "shared" in p:
+        specs["shared"] = {"wi": (None, ma), "wg": (None, ma),
+                           "wo": (ma, None)}
+    return specs
+
+
+def moe_apply(p, x, moe, act_name, dist=NO_DIST):
+    """x: (B, S, d): the whole batch, or with ``dist`` enabled this
+    rank's batch shard, p the full params (each rank takes its shards).
+    Returns (y, aux_loss) for x's tokens; aux averaged over the batch
+    axes."""
     d = x.shape[-1]
-    y, aux = _moe_local(p, x.reshape(-1, d), moe, act_name)
+    if dist.enabled:
+        specs = moe_specs(p, dist)
+        p = {k: ({kk: sharding.local_shard(vv, specs[k][kk], dist.mesh)
+                  for kk, vv in v.items()} if isinstance(v, dict)
+                 else sharding.local_shard(v, specs[k], dist.mesh))
+             for k, v in p.items()}
+    y, aux = _moe_local(p, x.reshape(-1, d), moe, act_name, dist)
     return y.reshape(x.shape), aux

@@ -1,0 +1,339 @@
+"""Logical-to-mesh sharding rules (the port of ``repro.sharding``), and
+the per-rank collectives that take the place of ``shard_map``'s.
+
+Single-pod production mesh: ``(data=16, model=16)``. Multi-pod:
+``(pod=2, data=16, model=16)``: the batch shards on ``(pod, data)`` and
+parameters exactly as single-pod (replicated over ``pod``). The PFF pod
+mode instead uses a ``stage`` axis as the pipeline-stage axis
+(``core.pff_pod``).
+
+Parameter rules are name-based over the tree path, with a divisibility
+guard: a mesh axis that does not divide its dim is dropped (the dim is
+replicated), so every config gets a spec (KV = 4 heads cannot shard over
+model = 16; h2o-danube's head_dim 120 cannot either).
+
+Conventions (a group's leading ``R`` axis, the stacked units, is never
+sharded):
+  embed (V, d)            -> (model, data)        vocab-parallel + FSDP
+  lm_head (d, V)          -> (data, model)
+  attn wq (R, d, H, hd)   -> (-, data, model, -)  head-parallel + FSDP
+  attn wk/wv (R, d,KV,hd) -> (-, data, model, -)
+  attn wo (R, H, hd, d)   -> (-, model, -, data)
+  mlp wi/wg (R, d, ff)    -> (-, data, model)
+  mlp wo (R, ff, d)       -> (-, model, data)
+  moe wi/wg (R, E, d, ff) -> (-, model, data, -)  expert-parallel + ZeRO
+  moe wo (R, E, ff, d)    -> (-, model, -, data)
+  ssm/rglru projections   -> (-, data, model) ; out_proj (-, model, data)
+  norms / scalars         -> replicated
+
+A spec is a tuple with one entry per dim of the ``PartitionSpec``'s:
+``None``, an axis name, or a tuple of names (the dim split over their
+product, the first name major). ``param_specs`` returns the params' tree
+with a spec in place of each tensor.
+
+Torch has no GSPMD: nothing compiles a global program from specs, so
+the reference's ``shard_map`` and ``shardings()`` have no counterpart.
+Each rank runs the per-rank body itself on its own block of a tensor
+(``local_shard``, what a ``shard_map`` in_spec does to an argument) and
+calls the collectives below on the mesh's axis groups: ``all_reduce``
+for ``psum``/``pmean``, ``all_gather_into_tensor`` for ``all_gather``,
+``all_to_all_single`` for ``all_to_all``, ``batch_isend_irecv`` for
+``ppermute``. A mesh is a ``torch.distributed.device_mesh.DeviceMesh``,
+or, where no collective runs (the rules, ``local_shard`` given its
+coordinates), any object with a ``.shape`` mapping of axis sizes. On an
+axis of size 1 no collective is called: each one is the identity there,
+and a point-to-point send to itself is not.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+
+# ---------------------------------------------------------------------------
+# Meshes
+# ---------------------------------------------------------------------------
+
+def _is_device_mesh(mesh):
+    return hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "get_group")
+
+
+def axis_names(mesh):
+    """The mesh's axis names, in order."""
+    if _is_device_mesh(mesh):
+        return tuple(mesh.mesh_dim_names)
+    return tuple(mesh.axis_names)
+
+
+def axis_sizes(mesh):
+    """{axis name: size} of a ``DeviceMesh`` or of any object with a
+    ``.shape`` mapping; ``{}`` for ``None`` (one process, no mesh)."""
+    if mesh is None:
+        return {}
+    if _is_device_mesh(mesh):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def axis_size(mesh, axis):
+    """The size of ``axis`` (1 for an axis the mesh does not have)."""
+    return axis_sizes(mesh).get(axis, 1)
+
+
+def axis_index(mesh, axis):
+    """This process's coordinate along ``axis`` (0 on a size-1 axis)."""
+    if axis_size(mesh, axis) == 1:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def axis_group(mesh, axis):
+    """The process group of ``axis`` through this process, or ``None``
+    on a size-1 axis, where no collective runs."""
+    if axis_size(mesh, axis) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+# ---------------------------------------------------------------------------
+# Rules
+# ---------------------------------------------------------------------------
+
+def _names(entry):
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _fit(spec, shape, mesh):
+    """Drop axis names that don't divide the dim; None-pad to rank."""
+    sizes = axis_sizes(mesh)
+    names = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, name in zip(shape, names):
+        if name is None:
+            out.append(None)
+            continue
+        size = math.prod(sizes[n] for n in _names(name))
+        out.append(name if dim % size == 0 else None)
+    return tuple(out)
+
+
+# desired spec by the path's first key; checked before the group rules
+_RULES = [
+    ("embed",      lambda: ("model", "data")),
+    ("lm_head",    lambda: ("data", "model")),
+    ("final_norm", lambda: (None,)),
+    ("enc_norm",   lambda: (None,)),
+]
+
+_GROUP_LEAF = {
+    "wq":       (None, "data", "model", None),
+    "wk":       (None, "data", "model", None),
+    "wv":       (None, "data", "model", None),
+    "wo":       None,   # context-dependent: attn (R,H,hd,d) vs mlp (R,ff,d)
+    "wi":       None,   # mlp (R,d,ff) vs moe (R,E,d,ff)
+    "wg":       None,
+    "bq":       (None, "model", None),
+    "bk":       (None, "model", None),
+    "bv":       (None, "model", None),
+    "q_norm":   (None, None),
+    "k_norm":   (None, None),
+    "gate":     (None,),
+    "router":   (None, None, None),
+    "in_proj":  (None, "data", "model"),
+    "conv_w":   (None, None, "model"),
+    "A_log":    (None, None),
+    "D":        (None, None),
+    "dt_bias":  (None, None),
+    "norm":     (None, "model"),
+    "out_proj": (None, "model", "data"),
+    "x_branch": (None, "data", "model"),
+    "gate_branch": (None, "data", "model"),
+    "w_a":      (None, "data", "model"),
+    "w_x":      (None, "data", "model"),
+    "lambda":   (None, "model"),
+    "norm1":    (None, None),
+    "norm2":    (None, None),
+    "norm_x":   (None, None),
+}
+
+
+def _leaf_spec(path_names, shape):
+    name = path_names[-1]
+    if name in ("wi", "wg"):
+        if len(shape) == 4:                       # moe (R, E, d, ff)
+            return (None, "model", "data", None)
+        return (None, "data", "model")            # dense (R, d, ff)
+    if name == "wo":
+        if len(shape) == 4:                       # attn (R, H, hd, d) and
+            return (None, "model", None, "data")  # moe (R, E, ff, d) alike
+        return (None, "model", "data")            # mlp (R, ff, d)
+    if name in _GROUP_LEAF and _GROUP_LEAF[name] is not None:
+        return _GROUP_LEAF[name]
+    return tuple(None for _ in shape)
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path names, leaf)`` over a tree of dicts, lists and tuples
+    (``None`` stays ``None``), keys and indices as strings."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_specs(params, mesh):
+    """The params' tree with each tensor's spec in its place (Adam's m
+    and v take the same)."""
+    def spec_for(names, leaf):
+        for key, make_spec in _RULES:
+            if names and names[0] == key:
+                return _fit(make_spec(), leaf.shape, mesh)
+        return _fit(_leaf_spec(names, leaf.shape), leaf.shape, mesh)
+
+    return _map_with_path(spec_for, params)
+
+
+def batch_axes(mesh):
+    """Mesh axes that shard the batch dimension."""
+    return ("pod", "data") if "pod" in axis_names(mesh) else ("data",)
+
+
+def data_spec(mesh, rank, batch_dim=0):
+    """Spec for a batch-dim-sharded tensor of the given rank."""
+    ba = batch_axes(mesh)
+    dims = [None] * rank
+    dims[batch_dim] = ba if len(ba) > 1 else ba[0]
+    return tuple(dims)
+
+
+def cache_specs_tree(caches, mesh, *, seq_axis_model=False):
+    """Specs for decode caches.
+
+    KV caches (R, B, S, KV, hd): batch -> data axes; with
+    ``seq_axis_model`` S shards on 'model' (batch-1 long context, where
+    the batch cannot use the data axis). SSM/RG-LRU states (R, B, ...):
+    batch -> data, trailing dims on model where divisible.
+    """
+    ba = batch_axes(mesh)
+    b_name = ba if len(ba) > 1 else ba[0]
+
+    def spec_for(_, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) >= 3:
+            want = [None, b_name]
+            if len(shape) == 5:                      # (R, B, S, KV, hd)
+                want += ["model" if seq_axis_model else None,
+                         None if seq_axis_model else "model", None]
+            elif len(shape) == 4:                    # (R, B, H, ...) state
+                want += ["model", None]
+            else:
+                want += [None] * (len(shape) - 2)
+            return _fit(want[:len(shape)], shape, mesh)
+        return (None,) * len(shape)
+
+    return _map_with_path(spec_for, caches)
+
+
+def local_shard(t, spec, mesh, coords=None):
+    """This rank's block of the full tensor ``t`` under ``spec`` (a view):
+    what a ``shard_map`` in_spec gives the body. ``coords`` ({axis:
+    index}) names another rank's block; by default this process's
+    coordinates in ``mesh``."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx, n = 0, 1
+        for name in _names(entry):
+            c = (coords[name] if coords is not None
+                 else axis_index(mesh, name))
+            size = axis_size(mesh, name)
+            idx, n = idx * size + c, n * size
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                             f"split over {entry} ({n} ways)")
+        step = t.shape[dim] // n
+        t = t.narrow(dim, idx * step, step)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Collectives over one mesh axis (each the identity on a size-1 axis)
+# ---------------------------------------------------------------------------
+
+def psum(t, mesh, axis):
+    """Sum of ``t`` over ``axis``, in place (``lax.psum``)."""
+    group = axis_group(mesh, axis)
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def pmean(t, mesh, axis):
+    """Mean of ``t`` over ``axis``, in place, in ``t``'s dtype
+    (``lax.pmean``: the sum, then divided by the axis size)."""
+    n = axis_size(mesh, axis)
+    if n > 1:
+        psum(t, mesh, axis).div_(n)
+    return t
+
+
+def all_gather(t, mesh, axis, dim=0):
+    """The blocks of ``t`` over ``axis`` concatenated on ``dim`` in rank
+    order (``lax.all_gather(tiled=True)``)."""
+    group = axis_group(mesh, axis)
+    if group is None:
+        return t
+    n = axis_size(mesh, axis)
+    part = t.movedim(dim, 0).contiguous()
+    out = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, part, group=group)
+    return out.movedim(0, dim)
+
+
+def all_to_all(t, mesh, axis):
+    """``t``'s leading dim (one block per rank of ``axis``) exchanged:
+    block i goes to rank i, and block j of the result came from rank j
+    (``lax.all_to_all(split_axis=0, concat_axis=0)``)."""
+    group = axis_group(mesh, axis)
+    if group is None:
+        return t
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def shift(t, mesh, axis):
+    """``t`` sent to the next rank of ``axis`` (wrapping round) and the
+    previous rank's received in its place (``lax.ppermute`` by +1). On a
+    size-1 axis ``t`` itself comes back: nothing is sent."""
+    group = axis_group(mesh, axis)
+    if group is None:
+        return t
+    return ring_shift(t, group)
+
+
+def ring_shift(t, group):
+    """``shift`` over a process group: to group rank i + 1, from i - 1,
+    translated to global ranks for the point-to-point ops."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, t, nxt, group),
+        dist.P2POp(dist.irecv, out, prv, group)])
+    for r in reqs:
+        r.wait()
+    return out

@@ -137,16 +137,17 @@ def test_simulate_backend_and_facade(task):
 
 
 # The executor backend and train-while-serve (fit(serve=...)) are
-# ported, and so are LM configs with MoE blocks; the pod backend names
-# its slice, and the LM backends (the chapter schedule) refuse a config
-# that reads stub frontend embeddings, as the reference's schedule takes
-# none, naming the joint step that trains it.
+# ported, and so are LM configs with MoE blocks and the pod backend,
+# which refuses an MLP config as the reference's does; the LM backends
+# (the chapter schedule) refuse a config that reads stub frontend
+# embeddings, as the reference's schedule takes none, naming the joint
+# step that trains it.
 _NO_AUX = "takes no stub frontend embeddings"
 
 
 @pytest.mark.parametrize("backend,kw,slice_name", [
     ("executor", {"enc_dec": True}, _NO_AUX),
-    ("pod", {}, "the pod slice"),
+    ("pod", {}, "pod"),
     ("executor", {"config": "llama-3.2-vision-90b"}, _NO_AUX),
     ("sequential", {"config": "seamless-m4t-large-v2"}, _NO_AUX)],
     ids=["executor-executor", "pod-pod", "executor-llama-vision",
@@ -160,8 +161,7 @@ def test_unported_backends_name_their_slice(backend, kw, slice_name, task):
         task = None
     if kw.get("config"):
         cfg, task = get_config(kw["config"]).reduced(), None
-    exc = NotImplementedError if backend == "pod" else ValueError
-    with pytest.raises(exc, match=slice_name):
+    with pytest.raises(ValueError, match=slice_name):
         tapi.fit(cfg, task, backend=backend, device="cpu")
 
 

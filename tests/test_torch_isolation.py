@@ -30,8 +30,10 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), leaked, ",".join(names))
-sys.exit(1 if leaked else 0)
+import torch.distributed as dist
+grouped = dist.is_available() and dist.is_initialized()
+print(len(names), leaked, grouped, ",".join(names))
+sys.exit(1 if leaked or grouped else 0)
 """
 
 _FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|repro)(?:[.\s,]|$)",
@@ -59,6 +61,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     # the MoE slice's modules
     assert {"repro_torch.models.mlp", "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.configs.qwen3_moe_235b_a22b"} <= names
+    # the pod slice's modules (none of them creates a process group)
+    assert {"repro_torch.sharding", "repro_torch.models.ring_attention",
+            "repro_torch.core.pff_pod", "repro_torch.launch.mesh"} <= names
 
 
 def test_no_source_line_imports_jax_or_repro():
@@ -105,6 +110,10 @@ def test_entry_points_do_not_carry_on_on_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.fit(get_config("qwen2-0.5b").reduced(), None, chapters=1,
                 steps_per_chapter=1, seq=8)
+    # the pod pipeline
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.fit(get_config("qwen2-0.5b").reduced(), backend="pod",
+                num_nodes=1, steps=1, batch=2, seq=8)
 
 
 def test_init_caches_defaults_to_cuda_and_raises_without_it(monkeypatch):

@@ -5,7 +5,7 @@ of ``core.train.make_ff_train_step``), bit for bit; its checkpoints
 restore in both packages (the reference's ``repro.checkpoint`` reads the
 port's file and the other way round); ``--trace`` exports the run's
 spans; the registries' choices reject a bogus value; ``--backend pod``
-and the card-less default device raise."""
+with ``--paper-mlp`` and the card-less default device raise."""
 import jax
 import numpy as np
 import pytest
@@ -57,7 +57,8 @@ def test_paper_mlp_equals_api_fit_and_traces(tmp_path, capsys):
 
 
 def test_pod_backend_and_the_default_device_raise():
-    with pytest.raises(NotImplementedError, match="the pod slice"):
+    # the pod pipeline takes LM configs only, as the reference's CLI says
+    with pytest.raises(ValueError, match="pod"):
         _main(*PAPER_MLP_ARGS[:1], "--backend", "pod", *PAPER_MLP_ARGS[3:])
     if torch.cuda.is_available():
         return          # the default device is the card, which is here

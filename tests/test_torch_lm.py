@@ -331,17 +331,21 @@ def test_unported_block_kinds_raise(kind):
 
 
 def test_moe_mlp_raises():
-    """The MoE MLP is ported (``mlp_init`` builds the reference's tree);
-    what it still refuses is expert parallelism over a mesh, an enabled
-    ``Dist``, which names the pod slice."""
+    """The MoE MLP is ported (``mlp_init`` builds the reference's tree),
+    and so is expert parallelism: an enabled ``Dist`` (a mesh and a
+    model axis) constructs and reads the model axis's size; one without
+    a model axis stays disabled."""
     from repro_torch.models import mlp
     tc = tget("deepseek-moe-16b").reduced()
     p = blocks.mlp_init(torch.Generator().manual_seed(0), tc)
     assert set(p) == {"router", "wi", "wg", "wo", "shared"}
-    assert not mlp.NO_DIST.enabled
+    assert not mlp.NO_DIST.enabled and mlp.NO_DIST.model_size() == 1
     assert not mlp.Dist(mesh=object()).enabled
-    with pytest.raises(NotImplementedError, match="pod slice"):
-        mlp.Dist(mesh=object(), model_axis="model")
+    mesh = type("M", (), {"shape": {"data": 2, "model": 4}})()
+    d = mlp.Dist(mesh=mesh, batch_axes=("data",), model_axis="model")
+    assert d.enabled and d.model_size() == 4
+    x = torch.ones(2, 3)
+    assert d.constrain_batch(x) is x
 
 
 def test_cli_lm_mode_on_the_cpu(capsys):
