@@ -221,14 +221,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
     both branches; ``torchrun --standalone --nproc_per_node 1 -m
     repro_torch.launch.train --arch qwen2-0.5b --full --backend pod
     --nodes 1 --steps 2`` exits 0.
-32. Isolation: no ``jax`` and no ``repro`` module was loaded.
+32. The ``ff_dense`` autotuner (``kernels.autotune``): ``tune_ff_dense``
+    over the main path's f32 buckets (M 128 and 640, K 784 and 2000, N
+    2000, norm off and on) into a table of the phase's own, each (bn, S)
+    tile timed through a forward + backward step (CUDA events, L2
+    flushed) and gated at 1e-4 against the plain version (no candidate
+    may fail it); per bucket the winner's and the default tile's step
+    times beside the plain version's and the bound, and the forward
+    alone at both tiles. Then, under that table: ``ops.ff_dense``
+    (``impl="auto"`` and ``"cuda"``) launches the tuned tile
+    (``ff_dense.TILE_LAUNCHES``); a poisoned entry and a corrupt file
+    each warn and launch the default tile; phase 11's PAPER_MLP fit
+    launches the tuned tiles and lands within ``ACC_BAND`` of the plain
+    fit's accuracy; the executor's all_layers fit of phase 17's cell is
+    bit-identical to the sequential fit; the grad step's wall time with
+    and without the table, in turns.
+33. The dry run (``launch.dryrun``, ``launch.op_analysis``): qwen2-0.5b's
+    prefill at (4, 2048) and its FF train step at (4, 256) traced on fake
+    tensors, then run on the card's plain route: the peak memory net of
+    what was allocated before the call against the predicted temp bytes,
+    within ``DRYRUN_MEM_FACTOR`` either way; and ``python -m
+    repro_torch.launch.dryrun --all`` over every applicable config x
+    input shape on this host's CPU (in ``DRYRUN_JOBS`` processes, beside
+    the rest of the phase), its wall time printed.
+34. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
-Phases 17-19, 21's fits, the deepseek chapter fit, 30 and 31's pod fits
-and MoE run under
+Phases 1-31 run the kernels at their default tiles: ``main`` points
+``REPRO_TORCH_TUNE_TABLE`` at an empty table of the run's own, whatever
+``~/.cache`` holds. Phases 17-19, 21's fits, the deepseek chapter fit,
+30 and 31's pod fits and MoE and 32's executor pair run under
 ``torch.use_deterministic_algorithms(True)`` with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before CUDA starts.
 
-The second-to-last line is the kernels JSON; the last line is
+The second-to-last line is the kernels JSON (the ``ff_dense`` rows of
+the tuned shapes also carry ``tuned_tile`` and ``tuned_ms``, the
+forward's time at phase 32's winner); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -239,9 +266,11 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -514,6 +543,22 @@ POD_BATCH, POD_SEQ, POD_STEPS = 4, 256, 4
 RING_SHAPE = (4, 2048, 14, 2, 64)
 RING_TOL = 2e-5
 POD_MOE_BS = ((4, 256), (4, 16))
+# Phase 32, the ff_dense autotuner: the main path's f32 buckets (training
+# M 128 and serving M 640, the first layer's K 784 and the hidden layers'
+# 2000, N 2000: kernels.autotune.MAIN_PATH_SHAPES), norm off and on,
+# tuned into a table of the phase's own, which then steers phase 11's
+# fit and phase 17's executor cell.
+TUNE_SHAPES = [(M, K, 2000) for M in (128, 640) for K in (784, 2000)]
+# Phase 33, the dry run: qwen2-0.5b's prefill at (LM_BATCH, LM_PROMPT)
+# and FF train step at (LM_TRAIN_BATCH, LM_SEQ) traced on fake tensors,
+# then run on the card's plain route: the measured peak net of what was
+# allocated before the call, over the predicted temp bytes, within
+# DRYRUN_MEM_FACTOR either way (PERF.md §6; the factor was fixed there
+# before any reading). dryrun --all runs beside them, in DRYRUN_JOBS
+# processes on the host's CPU (one core left to this process).
+DRYRUN_MEM_FACTOR = 1.5
+DRYRUN_JOBS = 7
+DRYRUN_TIMEOUT = 900
 POD_CLI = ["-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
            "--arch", "qwen2-0.5b", "--full", "--backend", "pod", "--nodes",
@@ -650,7 +695,8 @@ def tile_times(kernel, x, w, b, flush):
     """The whole call (norm off) at each block width gemm_split is built
     for, and which one ``_fwd_tile`` picks, as a printable string."""
     M, N = x.shape[0], w.shape[1]
-    times = {bn: time_ms(lambda: kernel._launch(x, w, b, False, bn=bn), flush)
+    times = {bn: time_ms(lambda: kernel._launch(x, w, b, False,
+                                                tile=(bn, None)), flush)
              for bn in kernel.FWD_BNS}
     K = x.shape[1]
     return (", ".join(f"{bn} columns {ms:.4f} ms "
@@ -2955,6 +3001,338 @@ def phase_pod(api, data, fa, dev="cuda"):
     return time.perf_counter() - t_phase
 
 
+def use_table(path):
+    """Point ops.ff_dense's tuning-table lookup at ``path``."""
+    from repro_torch.kernels import autotune
+    os.environ["REPRO_TORCH_TUNE_TABLE"] = path
+    autotune.invalidate_cache()
+
+
+def grad_step(gen):
+    """One sumsq grad step at TRAIN_SHAPES[1], the training shape of
+    layers 1-3 (forward and backward kernels, then Adam), as a closure
+    returning the grads, and its params, Adam state and learning rate."""
+    from repro_torch import optim
+    from repro_torch.core import ff_mlp
+
+    M, K, N = TRAIN_SHAPES[1]
+    xb = ff_mlp._norm(torch.randn(M, K, generator=gen)).cuda()
+    lp = {"w": (torch.randn(K, N, generator=gen) * K ** -0.5).cuda(),
+          "b": torch.zeros(N, device="cuda")}
+    opt, lr0 = optim.adam_init(lp), torch.tensor(1e-3)
+
+    def step():
+        g = ff_mlp._grad(ff_mlp._ff_layer_loss, lp, xb, 2.0, 0.0, "auto")
+        optim.adam_update(lp, g, opt, lr=lr0, step=1)
+        return g
+    return step, lp, opt, lr0
+
+
+def wall_ms(step, steps=50):
+    """(wall ms, host enqueue ms) per call of ``step`` over ``steps``
+    back to back, after 5 warm-up calls."""
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps, enqueue_ms
+
+
+def phase_tuner(api, data, kernel, vjp, gen, rows, plain_acc, tmp,
+                background):
+    """32. The ff_dense autotuner on the card: ``tune_ff_dense`` over the
+    main path's f32 buckets (``TUNE_SHAPES``, norm off and on) into a
+    table in ``tmp``; per bucket the winner's and the default tile's step
+    times beside the plain version's and the bound, and the forward alone
+    at both tiles; every candidate within the 1e-4 gate. Then, with that
+    table: ``ops.ff_dense`` (auto and a forced cuda) launches the tuned
+    tile; a poisoned entry and a corrupt file warn and launch the default
+    tile; the PAPER_MLP fit of phase 11 within ACC_BAND of the plain
+    fit's accuracy (``plain_acc``); the executor's all_layers fit of
+    phase 17's cell bit-identical to the sequential fit. The grad step's
+    wall time with and without the table is read before the rest, which
+    reads no host time and runs after ``background()`` (phase 33's
+    ``dryrun --all`` starts there). Annotates the ff_dense rows of the
+    tuned shapes with the tuned tile's forward time. Returns the fits'
+    (ff_dense, ff_dense_bwd) calls."""
+    import warnings
+
+    from repro_torch.configs.ff_mlp import PAPER_MLP
+    from repro_torch.core import pff_exec
+    from repro_torch.kernels import autotune, counts, ops
+
+    empty = os.environ["REPRO_TORCH_TUNE_TABLE"]
+    table = os.path.join(tmp, "tuned.json")
+    use_table(table)
+    t0 = time.perf_counter()
+    tune_rows = autotune.tune_ff_dense(TUNE_SHAPES, norms=(False, True),
+                                       device="cuda", verbose=False)
+    tune_s = time.perf_counter() - t0
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    winners = {}
+    for r in tune_rows:
+        M, K, N, norm = r["M"], r["K"], r["N"], r["norm"]
+        w = r["winner"]
+        check(r["n_rejected"] == 0, f"tuner: candidates over the "
+              f"{autotune.ERR_GATE} gate at {r['key']}: {r['rejected']}")
+        check(w is not None and w["impl"] == "cuda",
+              f"tuner: bucket {r['key']} has no CUDA winner: {w}")
+        errs = [max(m["err"], m["grad_err"]) for m in r["measured"]]
+        check(max(errs) <= GRAD_TOL, f"tuner: error {max(errs)} at "
+              f"{r['key']}")
+        tiles = {m["tile"]: m["time_s"] * 1e3 for m in r["measured"]
+                 if m["impl"] == "cuda"}
+        default, tile = tuple(r["default_tile"]), (w["bn"], w["splits"])
+        check(default in tiles, f"tuner: default tile {default} not "
+              f"measured at {r['key']}")
+        x, wt, b = make_inputs(gen, M, K, N, torch.float32)
+        fwd = {t: time_ms(lambda: kernel.ff_dense(x, wt, b, norm=norm,
+                                                   tile=t), flush)
+               for t in (tile, default)}
+        fwd_bound = bound(M, K, N, norm)[0]
+        step_bound = fwd_bound + bwd_bound(M, K, N)[0]
+        winners[(M, K, N, norm)] = {"tile": tile, "default": default,
+                                    "inputs": (x, wt, b)}
+        print(f"[32 tune] ff_dense {(M, K, N)} norm={norm} (forward + "
+              f"backward step): winner (bn, S) {tile} "
+              f"{w['time_s'] * 1e3:.4f} ms, default {default} "
+              f"{tiles[default]:.4f} ms, plain {w['ref_time_s'] * 1e3:.4f} "
+              f"ms, bound {step_bound:.4f} ms; forward alone: tuned "
+              f"{fwd[tile]:.4f} ms, default {fwd[default]:.4f} ms, bound "
+              f"{fwd_bound:.4f} ms; {r['n_candidates']} candidates, "
+              f"{r['n_rejected']} rejected, max error {max(errs):.3e} "
+              f"(<= {GRAD_TOL})")
+        print(json.dumps({"tune": r["key"], "step_ms": [
+            [t[0], t[1], ms] for t, ms in sorted(tiles.items())],
+            "plain_ms": w["ref_time_s"] * 1e3}))
+        for row in rows:
+            if (row["name"] == "ff_dense" and row["norm"] == norm
+                    and tuple(row["shape"]) == (M, K, N)):
+                row["tuned_tile"] = list(tile)
+                row["tuned_ms"] = fwd[tile]
+    del flush
+    check(len(autotune.TuneTable.open(table)) == len(tune_rows)
+          == 2 * len(TUNE_SHAPES), "the tuner did not write every bucket")
+    print(f"[32 tune] {len(tune_rows)} buckets tuned in {tune_s:.1f} s")
+
+    # the lookup's host cost: the grad step without and with the table
+    walls = {}
+    for label, path in (("no table", empty), ("tuned", table),
+                        ("tuned", table), ("no table", empty)):
+        use_table(path)
+        walls.setdefault(label, []).append(wall_ms(grad_step(gen)[0])[0])
+    print(f"[32 step] sumsq grad step {TRAIN_SHAPES[1]}, ms wall per step "
+          f"over 50 (in turns): no table {walls['no table']}, tuned table "
+          f"{walls['tuned']} (tile "
+          f"{winners[TRAIN_SHAPES[1] + (False,)]['tile']})")
+    use_table(table)
+    # no host time is read from here on: the dry run may start beside it
+    background()
+
+    def launched(impl, bucket):
+        x, wt, b = winners[bucket]["inputs"]
+        kernel.TILE_LAUNCHES.reset()
+        before = kernel.LAUNCHES.total
+        ops.ff_dense(x, wt, b, impl=impl, norm=bucket[3])
+        torch.cuda.synchronize()
+        check(kernel.LAUNCHES.total == before + 1,
+              f"ops.ff_dense(impl={impl!r}) did not launch the kernel")
+        return kernel.TILE_LAUNCHES.by_thread
+
+    # the table steers ops.ff_dense to the tuned tile
+    for bucket, wv in winners.items():
+        for impl in ("auto", "cuda"):
+            got = launched(impl, bucket)
+            check(got == {wv["tile"]: 1}, f"ops.ff_dense(impl={impl!r}) at "
+                  f"{bucket} launched {got}, the table says {wv['tile']}")
+    print(f"[32 tune] ops.ff_dense (auto and cuda) launched each bucket's "
+          f"tuned tile: {[(b, wv['tile']) for b, wv in winners.items()]}")
+    # a poisoned entry and a corrupt file: warn, default tile, kernel runs
+    bucket = TRAIN_SHAPES[1] + (False,)
+    poisoned = autotune.TuneTable.open(table)
+    poisoned.path = os.path.join(tmp, "poisoned.json")
+    poisoned.put(autotune.key_for("ff_dense", *bucket[:3], torch.float32,
+                                  "cuda", False), {"impl": "ref"})
+    poisoned.save()
+    with open(os.path.join(tmp, "corrupt.json"), "w") as f:
+        f.write("{ not json")
+    for name, msg in (("poisoned.json", "poisoned tuning-table entry"),
+                      ("corrupt.json", "poisoned kernel tuning table")):
+        use_table(os.path.join(tmp, name))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = launched("auto", bucket)
+        check(any(msg in str(c.message) for c in caught),
+              f"{name}: no {msg!r} warning")
+        check(got == {winners[bucket]["default"]: 1},
+              f"{name}: launched {got}, not the default tile")
+        print(f"[32 tune] {name}: warned ({msg}), launched the default "
+              f"tile {winners[bucket]['default']}")
+    use_table(table)
+
+    # the main path under the table: phase 11's fit, phase 17's cell
+    fit_task = data.mnist_like(seed=0, n_train=FIT_TRAIN, n_test=FIT_TEST)
+    base = dataclasses.replace(PAPER_MLP, epochs=2, splits=2)
+    n_layers = len(base.layer_sizes) - 1
+    grad_steps = (base.splits * n_layers * (base.epochs // base.splits)
+                  * -(-FIT_TRAIN // base.batch_size))
+    counts.reset(kernel, vjp)
+    kernel.TILE_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = api.fit(base, fit_task, backend="sequential")
+    fit_s = time.perf_counter() - t0
+    calls = [kernel.LAUNCHES.total, vjp.LAUNCHES.total]
+    used = kernel.TILE_LAUNCHES.by_thread
+    check(calls[1] == grad_steps, f"tuned fit: {calls[1]} backward calls "
+          f"for {grad_steps} grad steps")
+    for K in (784, 2000):
+        tile = winners[(TRAIN_SHAPES[0][0], K, 2000, False)]["tile"]
+        check(used.get(tile, 0) > 0, f"tuned fit: tile {tile} of K {K} "
+              f"never launched: {used}")
+    check(abs(res.test_acc - plain_acc) <= ACC_BAND,
+          f"tuned fit: test_acc {res.test_acc} vs plain {plain_acc}")
+    print(f"[32 fit] PAPER_MLP (phase 11's adaptive negatives, goodness) "
+          f"under the tuned table: test_acc {res.test_acc:.4f} (plain path "
+          f"{plain_acc:.4f}, <= {ACC_BAND} apart); {calls[1]} backward "
+          f"calls for {grad_steps} grad steps, {calls[0]} forward calls by "
+          f"tile {dict(sorted(used.items()))}; fit {fit_s:.3f} s")
+    cfg = dataclasses.replace(PAPER_MLP, epochs=EXEC_EPOCHS,
+                              splits=EXEC_SPLITS)
+    torch.use_deterministic_algorithms(True)
+    counts.reset(kernel, vjp)
+    seq = api.fit(cfg, fit_task, backend="sequential")
+    calls[0] += kernel.LAUNCHES.total
+    calls[1] += vjp.LAUNCHES.total
+    counts.reset(kernel, vjp)
+    ex = api.fit(cfg, fit_task, backend="executor", num_nodes=EXEC_NODES,
+                 schedule="all_layers")
+    torch.use_deterministic_algorithms(False)
+    check(pff_exec.params_bit_equal(seq.params, ex.params)
+          and seq.test_acc == ex.test_acc,
+          "tuned table: the executor's all_layers fit differs from the "
+          "sequential fit")
+    print(f"[32 executor] all_layers on {EXEC_NODES} streams under the "
+          f"tuned table: bit-identical to the sequential fit (test_acc "
+          f"{ex.test_acc:.4f}, makespan {ex.makespan:.4f} s)")
+    calls[0] += kernel.LAUNCHES.total
+    calls[1] += vjp.LAUNCHES.total
+
+    use_table(empty)
+    return calls
+
+
+def start_dryrun_all(tmp):
+    """``python -m repro_torch.launch.dryrun --all`` in DRYRUN_JOBS
+    processes on the host's CPU, in the background (no card: its
+    environment hides it); returns (process, its log file, start)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log = open(os.path.join(tmp, "dryrun_all.log"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS)], env=env, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, log, t0
+
+
+def stop_dryrun_all(job):
+    """Kill the job's process group (the dry run and its pool's
+    workers) if it still runs, and close its log."""
+    proc, log, _ = job
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    log.close()
+
+
+def phase_dryrun(job):
+    """33. The dry run against the card: for qwen2-0.5b's prefill at
+    (LM_BATCH, LM_PROMPT) and its FF train step at (LM_TRAIN_BATCH,
+    LM_SEQ), ``dryrun.analyze_combo``'s predicted temp bytes (peak -
+    arguments) against the same call run on the card's plain route
+    (``torch.cuda.max_memory_allocated`` after a reset, net of what was
+    allocated before the call), within DRYRUN_MEM_FACTOR either way;
+    then ``dryrun --all`` (``job``, from ``start_dryrun_all``, started
+    in phase 32) waited for, every combo traced, its wall time printed.
+    Returns the phase's wall time."""
+    from repro_torch import optim
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import train as train_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    arch = "qwen2-0.5b"
+    cfg = get_config(arch)
+    for kind, (B, S) in (("prefill", (LM_BATCH, LM_PROMPT)),
+                         ("train", (LM_TRAIN_BATCH, LM_SEQ))):
+        res = dryrun.analyze_combo(arch, InputShape(f"chip_smoke_{kind}",
+                                                    S, B, kind))
+        mem = res["memory"]
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        tokens = torch.randint(
+            0, cfg.vocab, (B, S + (kind == "train")),
+            generator=torch.Generator(device="cuda").manual_seed(1),
+            device="cuda", dtype=torch.int32)
+        if kind == "prefill":
+            def fn():
+                return transformer.prefill(params, cfg, tokens,
+                                           last_only=True, impl="ref")
+        else:
+            step_fn = train_lib.make_ff_train_step(cfg, impl="ref")
+            opt = optim.adam_init(params)
+
+            def fn():
+                return step_fn(params, opt, {"tokens": tokens}, 1)
+        fn()                            # first-use allocations (cuBLAS)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - before
+        predicted = mem["temp_size_in_bytes"]
+        ratio = measured / predicted
+        print(f"[33 dryrun] {arch} {kind} (B {B}, S {S}) on the plain "
+              f"route: predicted temp {predicted / 2 ** 30:.4f} GiB (peak "
+              f"{mem['peak_size_in_bytes'] / 2 ** 30:.4f} - arguments "
+              f"{mem['argument_size_in_bytes'] / 2 ** 30:.4f}), measured "
+              f"{measured / 2 ** 30:.4f} GiB over the "
+              f"{before / 2 ** 30:.4f} GiB allocated before the call: "
+              f"measured / predicted {ratio:.4f} (within "
+              f"{DRYRUN_MEM_FACTOR}x either way); traced in "
+              f"{res['trace_s']} s: {res['op_flops_total']:.4e} flops "
+              f"(model {res['model_flops']:.4e}), "
+              f"{res['op_bytes_total']:.4e} bytes, bottleneck "
+              f"{res['bottleneck']} (compute {res['compute_term_s']:.4f} "
+              f"s, memory {res['memory_term_s']:.4f} s)")
+        check(1 / DRYRUN_MEM_FACTOR <= ratio <= DRYRUN_MEM_FACTOR,
+              f"dry run {arch} {kind}: measured / predicted temp "
+              f"{ratio:.4f} outside {DRYRUN_MEM_FACTOR}x")
+        del params, tokens, fn, out
+        torch.cuda.empty_cache()
+
+    proc, log, t_all = job
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    all_s = time.perf_counter() - t_all
+    log.seek(0)
+    lines = log.read().splitlines()
+    ok = [ln for ln in lines if ln.startswith("OK ")]
+    check(rc == 0 and lines and lines[-1].startswith("all "),
+          f"dryrun --all exited {rc}:\n" + "\n".join(lines[-20:]))
+    slowest = max(ok, key=lambda ln: float(ln.rsplit("(trace ", 1)[1][:-2]))
+    print(f"[33 dryrun] python -m repro_torch.launch.dryrun --all --jobs "
+          f"{DRYRUN_JOBS}: {lines[-1]}, {len(ok)} OK, in {all_s:.1f} s wall "
+          f"on this host's CPU (slowest: {slowest})")
+    return time.perf_counter() - t_phase
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2967,6 +3345,18 @@ def main():
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phases 1-31 run the kernels at their default tiles, whatever a
+    # tuning table in ~/.cache holds: an empty table of this run's own
+    # (inherited by the processes it starts); phase 32 tunes its own
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(t_start, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run(t_start, tmp):
+    use_table(os.path.join(tmp, "empty.json"))
 
     from repro_torch import api, data, optim
     from repro_torch.configs.ff_mlp import PAPER_MLP
@@ -3320,31 +3710,15 @@ def main():
     # One sumsq grad step at (128, 2000, 2000), the training shape of
     # layers 1-3: device time of Adam's update (the kernels' are above),
     # and the wall time of 50 steps run back to back.
-    M, K, N = TRAIN_SHAPES[1]
-    xb = ff_mlp._norm(torch.randn(M, K, generator=gen)).cuda()
-    lp = {"w": (torch.randn(K, N, generator=gen) * K ** -0.5).cuda(),
-          "b": torch.zeros(N, device="cuda")}
-    opt, lr0 = optim.adam_init(lp), torch.tensor(1e-3)
-
-    def step():
-        g = ff_mlp._grad(ff_mlp._ff_layer_loss, lp, xb, 2.0, 0.0, "auto")
-        optim.adam_update(lp, g, opt, lr=lr0, step=1)
-        return g
+    step, lp, opt, lr0 = grad_step(gen)
     g_step = step()
     adam_ms = time_ms(
         lambda: optim.adam_update(lp, g_step, opt, lr=lr0, step=1), flush)
     step_dev_ms = time_ms(step, flush, spin=STEP_SPIN_CYCLES)
-    for _ in range(5):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(50):
-        step()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 50
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / 50
-    print(f"[9 step] sumsq grad step {(M, K, N)}: {step_ms:.4f} ms wall "
-          f"per step over 50 (host enqueue {enqueue_ms:.4f} ms); one step's "
+    step_ms, enqueue_ms = wall_ms(step)
+    print(f"[9 step] sumsq grad step {TRAIN_SHAPES[1]}: {step_ms:.4f} ms "
+          f"wall per step over 50 (host enqueue {enqueue_ms:.4f} ms); one "
+          f"step's "
           f"device time {step_dev_ms:.4f} ms (cold L2); Adam update "
           f"{adam_ms:.4f} ms on the card; kernels: forward "
           f"{fwd_step_ms:.4f} ms + backward {bwd_rows[1]['ms']:.4f} "
@@ -3420,7 +3794,7 @@ def main():
     grad_steps = (base.splits * n_layers * (base.epochs // base.splits)
                   * -(-FIT_TRAIN // base.batch_size))
     p0 = ff_mlp.init(base, TorchKey(base.seed), "cuda")
-    train_launches = {}
+    train_launches, plain_acc = {}, {}
     for label, cfg in (
             ("adaptive negatives, goodness", base),
             ("perf_opt goodness, perf_opt_all",
@@ -3437,6 +3811,7 @@ def main():
         res_ref = api.fit(dataclasses.replace(cfg, kernel_impl="ref"),
                           fit_task, backend="sequential")
         ref_s = time.perf_counter() - t0
+        plain_acc[label] = res_ref.test_acc
         leaves = [lp[k] for lp in res.params["layers"] for k in ("w", "b")]
         check(all(bool(torch.isfinite(t).all()) for t in leaves),
               f"{label}: non-finite params after the fit")
@@ -3772,11 +4147,33 @@ def main():
     print(f"[wall] phase 31 took {pod_s:.1f} s of "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
-    # 32. isolation --------------------------------------------------------
+    # 32. the ff_dense autotuner and the table behind impl="auto"; 33. the
+    # dry run against the card, its --all started during 32 ---------------
+    t_new = time.perf_counter()
+    job = []
+    try:
+        tune_fwd, tune_bwd = phase_tuner(
+            api, data, kernel, vjp, gen, rows,
+            plain_acc["adaptive negatives, goodness"], tmp,
+            lambda: job.append(start_dryrun_all(tmp)))
+        print(f"[wall] phase 32 took {time.perf_counter() - t_new:.1f} s "
+              f"of {time.perf_counter() - t_start:.1f} s so far")
+        dry_s = phase_dryrun(job[0])
+    finally:
+        for j in job:
+            stop_dryrun_all(j)
+    for row in fwd_rows:
+        row["launches"] += tune_fwd
+    for row in bwd_rows:
+        row["launches"] += tune_bwd
+    print(f"[wall] phase 33 took {dry_s:.1f} s of "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 34. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[32 isolation] no jax, no repro module loaded")
+    print("[34 isolation] no jax, no repro module loaded")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -14,6 +14,10 @@ All ten of the reference's LM configs are registered: ``qwen2-0.5b``,
 (``attn`` blocks with MoE MLPs), ``seamless-m4t-large-v2`` (a
 bidirectional ``attn`` encoder, then ``xdec`` decoder blocks) and
 ``llama-3.2-vision-90b`` (``attn`` and ``cross_attn`` blocks).
+
+The reference's four input shapes (``INPUT_SHAPES``) and the archs that
+may run ``long_500k`` (``SUBQUADRATIC``) are copied for the dry run
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -168,6 +172,30 @@ def _reduce_groups(groups, layers_hint):
     if not out:
         out = [(("attn",), layers_hint)]
     return tuple(out)
+
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's assigned four, for the dry run)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+# Archs allowed to run long_500k (sub-quadratic sequence mixing).
+SUBQUADRATIC = {"mamba2-780m", "recurrentgemma-2b", "h2o-danube-3-4b"}
 
 
 _REGISTRY = {}

@@ -22,7 +22,10 @@ class FFMLPConfig:
     peer_w: float = 0.0             # Hinton's peer-normalization weight
     kernel_impl: str = "auto"       # "auto" or a name in the port's
     #                                 kernels.registry.ff_dense
-    #                                 (cuda | ref; validated by api.serve)
+    #                                 (cuda | ref; validated by api.serve);
+    #                                 on the card "auto" and "cuda" launch
+    #                                 the tuning table's tile where one is
+    #                                 recorded (kernels.autotune)
     seed: int = 0
 
 

@@ -6,7 +6,9 @@ name. ``LAUNCHES += 1`` on a module global is a read, an add and a
 write, and train-while-serve launches the MLP kernels from the training
 thread and the serving thread at once; ``bump`` does the update under a
 lock, so no call is lost between threads. The total is the sum of the
-per-thread counts, so the two cannot drift apart.
+per-thread counts, so the two cannot drift apart. A counter may be
+keyed by something else than the thread: ``ff_dense.TILE_LAUNCHES``
+counts calls by the ``(bn, S)`` tile they launched (``bump(key)``).
 """
 from __future__ import annotations
 
@@ -14,17 +16,20 @@ import threading
 
 
 class Counter:
-    """Launched calls of one kernel, by thread name."""
+    """Launched calls of one kernel, by thread name (or by the caller's
+    key)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._by_thread = {}
 
-    def bump(self):
-        """Count one launched call on this thread."""
-        name = threading.current_thread().name
+    def bump(self, key=None):
+        """Count one launched call under ``key``, by default this
+        thread's name."""
+        if key is None:
+            key = threading.current_thread().name
         with self._lock:
-            self._by_thread[name] = self._by_thread.get(name, 0) + 1
+            self._by_thread[key] = self._by_thread.get(key, 0) + 1
 
     def reset(self):
         with self._lock:
@@ -37,7 +42,7 @@ class Counter:
 
     @property
     def by_thread(self) -> dict:
-        """A copy of thread name -> calls."""
+        """A copy of thread name (or key) -> calls."""
         with self._lock:
             return dict(self._by_thread)
 

@@ -19,10 +19,12 @@ there.
 
 ``ff_dense_vjp(x, w, b)`` and ``ff_dense_norm_vjp(x, w, b)`` are the
 reference's two custom_vjps: the forward is the ``ff_dense`` kernel
-(``kernels.ff_dense.ff_dense``, norm off / on), the backward is
-``ff_dense_bwd``. The norm backward folds its cotangents into the same
-kernel's ``(dy_out, dg)`` form with O(M*N) elementwise work, exactly as
-the reference's ``_ff_dense_norm_vjp_bwd`` does.
+(``kernels.ff_dense.ff_dense``, norm off / on, at the caller's ``tile``,
+as the reference's custom_vjps carry their ``blocks``), the backward is
+``ff_dense_bwd`` at its own split. The norm backward folds its
+cotangents into the same kernel's ``(dy_out, dg)`` form with O(M*N)
+elementwise work, exactly as the reference's ``_ff_dense_norm_vjp_bwd``
+does.
 """
 from __future__ import annotations
 
@@ -170,8 +172,8 @@ class FFDense(torch.autograd.Function):
     cotangents (sumsq with peer_w = 0 uses no y)."""
 
     @staticmethod
-    def forward(ctx, x, w, b):
-        y, g = ff_dense_kernel.ff_dense(x, w, b)
+    def forward(ctx, x, w, b, tile):
+        y, g = ff_dense_kernel.ff_dense(x, w, b, tile=tile)
         ctx.save_for_backward(x, w, y)
         ctx.b_dtype = b.dtype
         return y, g
@@ -181,7 +183,7 @@ class FFDense(torch.autograd.Function):
         x, w, y = ctx.saved_tensors
         dx, dw, db = ff_dense_bwd(x, w, y, dy_out.contiguous(),
                                   dg.contiguous())
-        return dx, dw, db.to(ctx.b_dtype)
+        return dx, dw, db.to(ctx.b_dtype), None
 
 
 class FFDenseNorm(torch.autograd.Function):
@@ -198,8 +200,8 @@ class FFDenseNorm(torch.autograd.Function):
     materialized zero)."""
 
     @staticmethod
-    def forward(ctx, x, w, b):
-        yn, g = ff_dense_kernel.ff_dense(x, w, b, norm=True)
+    def forward(ctx, x, w, b, tile):
+        yn, g = ff_dense_kernel.ff_dense(x, w, b, norm=True, tile=tile)
         ctx.save_for_backward(x, w, yn, g)
         ctx.b_dtype = b.dtype
         return yn, g
@@ -216,15 +218,16 @@ class FFDenseNorm(torch.autograd.Function):
         dg_eff = dg - rowdot * u * u / (2.0 * s)
         dy_out_eff = dyn * u[:, None]
         dx, dw, db = ff_dense_bwd(x, w, y, dy_out_eff, dg_eff.contiguous())
-        return dx, dw, db.to(ctx.b_dtype)
+        return dx, dw, db.to(ctx.b_dtype), None
 
 
-def ff_dense_vjp(x, w, b):
-    """Differentiable fused FF layer: (y (M, N), goodness (M,))."""
-    return FFDense.apply(x, w, b)
+def ff_dense_vjp(x, w, b, tile=None):
+    """Differentiable fused FF layer: (y (M, N), goodness (M,)); the
+    forward at ``tile = (bn, S)`` (None: the kernel's default)."""
+    return FFDense.apply(x, w, b, tile)
 
 
-def ff_dense_norm_vjp(x, w, b):
+def ff_dense_norm_vjp(x, w, b, tile=None):
     """Differentiable fused FF layer with the norm epilogue:
     (yn (M, N) length-normalized, RAW goodness (M,))."""
-    return FFDenseNorm.apply(x, w, b)
+    return FFDenseNorm.apply(x, w, b, tile)

@@ -4,7 +4,10 @@ the port: ``ff_dense``, ``flash_attention`` and ``mamba2_ssd``.
 
 Impl contracts:
   ff_dense         ``fn(x, w, b, *, norm) -> (y, g)``, differentiable
-                   with respect to x, w and b;
+                   with respect to x, w and b; an impl registered
+                   ``tunable`` (the CUDA kernel) also takes ``tile=(bn,
+                   S)``, an autotuned tile, passed only when there is
+                   one;
   flash_attention  ``fn(q, k, v, *, causal, window) -> out``;
   mamba2_ssd       ``fn(xbar, dA, b, c, *, chunk) -> (y, hT)``.
 
@@ -14,7 +17,8 @@ else the fallback. On ``"cuda"`` that is the hand-written kernel (for
 ``ff_dense`` the kernel pair ``ff_dense_vjp`` / ``ff_dense_norm_vjp``:
 the forward kernel, with the backward kernel as its gradient); on the
 CPU the plain oracle. ``impl="cuda"`` on a CPU tensor raises. Unknown
-names raise ``ValueError`` listing the registered choices.
+names raise ``ValueError`` listing the registered choices. The tuning
+table (``kernels.autotune``) is read by ``ops``, not here.
 """
 from __future__ import annotations
 
@@ -28,10 +32,12 @@ from repro_torch.kernels import mamba2_ssd as ssd, ref
 @dataclasses.dataclass(frozen=True)
 class KernelImpl:
     """One named implementation of an op; ``preferred(platform)`` True
-    makes it ``"auto"``'s choice on that platform."""
+    makes it ``"auto"``'s choice on that platform. ``tunable``: the
+    autotuner sweeps its tiles (its fn honors ``tile=``)."""
     name: str
     fn: Callable
     preferred: Callable[[str], bool]
+    tunable: bool = False
 
 
 class KernelRegistry:
@@ -42,7 +48,8 @@ class KernelRegistry:
         self.fallback = fallback
         self._entries = {}
 
-    def register(self, name, fn, *, preferred=None, overwrite=False):
+    def register(self, name, fn, *, preferred=None, tunable=False,
+                 overwrite=False):
         if name == "auto":
             raise ValueError(f"'auto' is the {self.op} resolver keyword, "
                              "not a registrable impl name")
@@ -52,9 +59,13 @@ class KernelRegistry:
                 "(pass overwrite=True to replace)")
         if preferred is None:
             preferred = lambda platform: False          # noqa: E731
-        impl = KernelImpl(name, fn, preferred)
+        impl = KernelImpl(name, fn, preferred, tunable)
         self._entries[name] = impl
         return impl
+
+    def unregister(self, name):
+        """Remove an impl (no-op if absent): tests and experiments."""
+        self._entries.pop(name, None)
 
     def get(self, name) -> KernelImpl:
         try:
@@ -84,6 +95,12 @@ class KernelRegistry:
         """Valid ``impl=`` strings, for error messages."""
         return ("auto",) + self.names()
 
+    def tunable_names(self):
+        return tuple(n for n in self.names() if self._entries[n].tunable)
+
+    def __contains__(self, name):
+        return name in self._entries
+
 
 def _on_cuda(platform):
     return platform == "cuda"
@@ -100,11 +117,11 @@ flash_attention = KernelRegistry("flash_attention", fallback="ref")
 mamba2_ssd = KernelRegistry("mamba2_ssd", fallback="ref")
 
 
-def _ff_dense_cuda(x, w, b, *, norm):
+def _ff_dense_cuda(x, w, b, *, norm, tile=None):
     _needs_cuda("ff_dense", x)
     fused = (ff_dense_vjp.ff_dense_norm_vjp if norm
              else ff_dense_vjp.ff_dense_vjp)
-    return fused(x, w, b)
+    return fused(x, w, b, tile)
 
 
 def _ff_dense_ref(x, w, b, *, norm):
@@ -123,7 +140,7 @@ def _mamba2_ssd_cuda(xbar, dA, b, c, *, chunk):
     return ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk)
 
 
-ff_dense.register("cuda", _ff_dense_cuda, preferred=_on_cuda)
+ff_dense.register("cuda", _ff_dense_cuda, preferred=_on_cuda, tunable=True)
 ff_dense.register("ref", _ff_dense_ref)
 flash_attention.register("cuda", _flash_attention_cuda, preferred=_on_cuda)
 flash_attention.register("ref", ref.flash_attention_ref)

@@ -1,0 +1,169 @@
+"""Fake-tensor input stand-ins for every (arch x input-shape) pair (the
+port of ``repro.launch.specs``).
+
+The reference lowers against ``jax.ShapeDtypeStruct``s. The port traces
+against fake tensors (``torch._subclasses.fake_tensor``): each has a
+shape, a dtype and a device but no storage, and every aten op on it runs
+only its shape logic, so nothing here allocates memory. Stand-ins that
+meet in one trace must come from one ``FakeTensorMode``: the caller
+passes its ``mode`` (``new_mode()`` makes one), or each call makes its
+own.
+
+Torch tensors carry no sharding. With a ``mesh`` each function returns
+``(stand-ins, specs)``: the tree of tuple specs from the port's
+``sharding`` rules beside the tree of stand-ins, ``_fit``-ed to the
+shapes as the reference's ``_sds`` does. ``local=True`` gives each
+stand-in its rank-0 shard's shape instead of the global one
+(``sharding.local_shard``'s arithmetic). A mesh is a ``DeviceMesh`` or a
+sizes-only ``SizesMesh``; no process group is needed.
+
+``decode_input_specs`` returns the decode position as a Python int (the
+last slot of a ``seq_len``-deep cache): the port's ``serve_step`` takes
+an int where the reference's takes an int32 scalar.
+"""
+from __future__ import annotations
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch import optim, sharding
+from repro_torch.configs.base import SUBQUADRATIC
+from repro_torch.convert import tree_map
+from repro_torch.models import common, transformer
+
+
+class SizesMesh:
+    """A mesh of axis sizes only (``{"data": 16, "model": 16}``), for the
+    rules and the dry run: no devices, no process group."""
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+
+
+# the reference's production meshes (``launch/mesh.py``), as sizes
+PRODUCTION_MESHES = {"pod1": {"data": 16, "model": 16},
+                     "pod2": {"pod": 2, "data": 16, "model": 16}}
+
+
+def new_mode():
+    """A ``FakeTensorMode`` for stand-ins and the traces that read them;
+    real tensors made inside a traced step (constants) are let in."""
+    return FakeTensorMode(allow_non_fake_inputs=True)
+
+
+def _fake(mode, shape, dtype):
+    with mode:
+        return torch.empty(tuple(shape), dtype=dtype)
+
+
+def _placed(mode, tree, specs, mesh, local):
+    """``tree`` of stand-ins, each replaced by a fresh stand-in of its
+    rank-0 shard's shape when ``local``."""
+    if not local:
+        return tree
+    coords = {a: 0 for a in sharding.axis_names(mesh)}
+    flat = leaves_with_specs(tree, specs)
+    shards = {id(t): _fake(mode, sharding.local_shard(t, s, mesh,
+                                                      coords).shape, t.dtype)
+              for t, s in flat}
+    return tree_map(lambda t: shards[id(t)], tree)
+
+
+def leaves_with_specs(tree, specs):
+    """(leaf, spec) pairs of a tree of stand-ins and its tree of specs
+    (``None`` subtrees are empty)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [p for k in tree for p in leaves_with_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [p for t, s in zip(tree, specs) for p in leaves_with_specs(t, s)]
+    return [(tree, specs)]
+
+
+def _result(mode, tree, specs, mesh, local):
+    if mesh is None:
+        return tree
+    return _placed(mode, tree, specs, mesh, local), specs
+
+
+def aux_shape(cfg, batch):
+    """Stub-frontend embedding shape for audio/vlm archs (else None)."""
+    if cfg.enc_dec:
+        return (batch, cfg.enc_seq, cfg.d_model)
+    if cfg.vision_tokens:
+        return (batch, cfg.vision_tokens, cfg.vision_dim or cfg.d_model)
+    return None
+
+
+def _inputs(cfg, B, S, mesh, mode):
+    """({tokens (B, S) int32, aux?}, their specs or None)."""
+    out = {"tokens": _fake(mode, (B, S), torch.int32)}
+    ash = aux_shape(cfg, B)
+    if ash is not None:
+        out["aux"] = _fake(mode, ash, common.dtype_of(cfg))
+    if mesh is None:
+        return out, None
+    specs = {k: sharding._fit(sharding.data_spec(mesh, t.dim()), t.shape,
+                              mesh)
+             for k, t in out.items()}
+    return out, specs
+
+
+def train_input_specs(cfg, shape, mesh=None, *, mode=None, local=False):
+    """The batch dict of the FF/BP train step: tokens (B, S+1) and the
+    stub embeddings where the config reads them."""
+    mode = mode or new_mode()
+    batch, specs = _inputs(cfg, shape.global_batch, shape.seq_len + 1,
+                           mesh, mode)
+    return _result(mode, batch, specs, mesh, local)
+
+
+def prefill_input_specs(cfg, shape, mesh=None, *, mode=None, local=False):
+    """{tokens (B, S), aux?} of ``transformer.prefill``."""
+    mode = mode or new_mode()
+    batch, specs = _inputs(cfg, shape.global_batch, shape.seq_len, mesh,
+                           mode)
+    return _result(mode, batch, specs, mesh, local)
+
+
+def decode_input_specs(cfg, shape, mesh=None, *, mode=None, local=False):
+    """(caches, tokens (B,), pos) of ``serve_step`` with a seq_len-deep
+    cache; pos = seq_len - 1, an int."""
+    mode = mode or new_mode()
+    B, S = shape.global_batch, shape.seq_len
+    caches = tree_map(lambda t: _fake(mode, t.shape, t.dtype),
+                      transformer.cache_specs(cfg, B, S))
+    tokens = _fake(mode, (B,), torch.int32)
+    out = (caches, tokens, S - 1)
+    if mesh is None:
+        return out
+    specs = (sharding.cache_specs_tree(caches, mesh,
+                                       seq_axis_model=(B == 1)),
+             sharding._fit(sharding.data_spec(mesh, 1), (B,), mesh), ())
+    placed = _placed(mode, (caches, tokens), specs[:2], mesh, local)
+    return placed + (S - 1,), specs
+
+
+def param_specs_abstract(cfg, mesh=None, with_opt=True, seed=0, *,
+                         mode=None, local=False):
+    """(params, Adam state or None) as stand-ins: the port's own
+    ``transformer.init`` under the mode, and ``optim.adam_init``'s f32
+    zeros, as the reference's are."""
+    mode = mode or new_mode()
+    with mode:
+        params = transformer.init(torch.Generator().manual_seed(seed), cfg)
+        opt = optim.adam_init(params) if with_opt else None
+    if mesh is None:
+        return params, opt
+    pspecs = sharding.param_specs(params, mesh)
+    specs = (pspecs, {"m": pspecs, "v": pspecs} if with_opt else None)
+    return _placed(mode, (params, opt), specs, mesh, local), specs
+
+
+def combo_is_applicable(cfg, shape_name):
+    """long_500k only for sub-quadratic sequence mixing."""
+    if shape_name == "long_500k" and cfg.name not in SUBQUADRATIC:
+        return False
+    return True

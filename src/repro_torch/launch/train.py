@@ -245,7 +245,11 @@ def main(argv=None):
                     choices=list(kernel_registry.ff_dense.choices()),
                     help="ops.ff_dense impl (choices live from the kernel "
                          "registry): auto = the CUDA kernel on the card, "
-                         "the plain version on the CPU")
+                         "at the tuning table's measured tile per shape "
+                         "when populated (python -m "
+                         "repro_torch.kernels.autotune / "
+                         "REPRO_TORCH_TUNE_TABLE), else its default "
+                         "tile; the plain version on the CPU")
     ap.add_argument("--nodes", type=int, default=4)
     ap.add_argument("--hidden", type=int, default=500)
     ap.add_argument("--layers", type=int, default=4)

@@ -8,6 +8,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 from repro_torch.convert import tree_leaves, tree_map
 
@@ -72,9 +73,16 @@ def _rope_inv(head_dim, theta, device):
 
 def apply_rope(x, positions, theta):
     """x: (..., S, H, hd); positions: (..., S) integer. Half-split (not
-    interleaved) rotation in f32, cast back to x's dtype."""
+    interleaved) rotation in f32, cast back to x's dtype.
+
+    Under a dispatch mode (the dry run's fake tensors, its op recorder)
+    the frequencies are made anew and not cached: a cached fake tensor
+    would stand in for the real one in every later call."""
     hd = x.shape[-1]
-    inv = _rope_inv(hd, theta, x.device)
+    if is_in_torch_dispatch_mode():
+        inv = torch.as_tensor(rope_freqs(hd, theta), device=x.device)
+    else:
+        inv = _rope_inv(hd, theta, x.device)
     ang = positions[..., None].float() * inv                   # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                         # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]

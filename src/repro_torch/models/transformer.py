@@ -186,6 +186,13 @@ def init_caches(cfg, batch, max_len, dtype=None, device=None):
     return tuple(caches)
 
 
+def cache_specs(cfg, batch, max_len, dtype=None):
+    """``init_caches`` on the ``meta`` device: the caches' shapes and
+    dtypes without storage (the reference's ShapeDtypeStruct tree), for
+    the dry run."""
+    return init_caches(cfg, batch, max_len, dtype, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # Prefill (fills caches) and decode
 # ---------------------------------------------------------------------------

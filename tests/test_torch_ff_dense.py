@@ -334,4 +334,4 @@ def test_kernel_launch_refuses_what_the_kernel_does_not_take(case, match):
 def test_kernel_launch_refuses_a_block_width_it_is_not_built_for():
     x, w, b = torch.ones(4, 8), torch.ones(8, 6), torch.ones(6)
     with pytest.raises(ValueError, match="block widths"):
-        kernel._launch(x, w, b, False, bn=96)
+        kernel._launch(x, w, b, False, tile=(96, None))
