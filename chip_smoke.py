@@ -218,7 +218,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
     shape (4, 2048, 14/2, 64) in f32 within 2e-5 of the plain attention
     (one rank: one local block); the expert-parallel MoE at model 1
     bit-identical to ``NO_DIST`` at deepseek-moe-16b's published width in
-    both branches; ``torchrun --standalone --nproc_per_node 1 -m
+    both branches. The LM entry points and steps under
+    ``launch.dryrun.make_dist`` on a (data 1, model 1) mesh,
+    deepseek-moe-16b at 3 blocks, bf16, batch 4, seq 256: one AdaptiveNEG
+    FF step (3 attention kernel calls) and one backprop step, each
+    against the same step under ``NO_DIST`` from the same init, every
+    leaf finite and within the leaf rule, the max difference, step times
+    and peak memory printed; prefill and 8 greedy ``serve_step`` calls
+    bit-identical to ``NO_DIST`` (3 attention kernel calls per prefill).
+    ``torchrun --standalone --nproc_per_node 1 -m
     repro_torch.launch.train --arch qwen2-0.5b --full --backend pod
     --nodes 1 --steps 2`` exits 0.
 32. The ``ff_dense`` autotuner (``kernels.autotune``): ``tune_ff_dense``
@@ -559,6 +567,18 @@ TUNE_SHAPES = [(M, K, 2000) for M in (128, 640) for K in (784, 2000)]
 DRYRUN_MEM_FACTOR = 1.5
 DRYRUN_JOBS = 7
 DRYRUN_TIMEOUT = 900
+# Phase 31 also drives the LM entry points and steps under a Dist:
+# deepseek-moe-16b at published width, POD_DIST_UNITS of its 28 blocks,
+# bf16, under launch.dryrun.make_dist on a (data 1, model 1) mesh of the
+# NCCL group (every collective the identity): one FF step (AdaptiveNEG:
+# its no-grad forward launches the attention kernel) and one backprop
+# step, each against the same step under NO_DIST from the same init, every
+# leaf finite and within the leaf rule (at most LEAF_SHARE of a leaf's
+# elements beyond WEIGHT_TOL, every element within LEAF_TOL, the CPU
+# tests' rule); prefill of POD_BATCH x POD_SEQ and POD_DIST_DECODE greedy
+# serve_steps bit-identical to NO_DIST.
+POD_DIST_UNITS, POD_DIST_DECODE = 3, 8
+LEAF_SHARE, LEAF_TOL = 1e-4, 1e-3
 POD_CLI = ["-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
            "--arch", "qwen2-0.5b", "--full", "--backend", "pod", "--nodes",
@@ -2812,6 +2832,169 @@ def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
     return fwd, bwd
 
 
+def leaf_rule(a, b):
+    """(max abs difference, worst share of a leaf's elements beyond
+    WEIGHT_TOL) of two trees' leaves; the rule holds when the first is
+    within LEAF_TOL and the second within LEAF_SHARE (or one element)."""
+    from repro_torch.convert import tree_leaves
+    worst, share = 0.0, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.double() - y.double()).abs()
+        worst = max(worst, float(d.max()))
+        over = int((d > WEIGHT_TOL).sum())
+        share = max(share, 0.0 if over <= 1 else over / d.numel())
+    return worst, share
+
+
+def pod_dist_steps(data, fa, dev="cuda"):
+    """31, under a Dist: deepseek-moe-16b at POD_DIST_UNITS blocks under
+    ``make_dist`` on a (data 1, model 1) mesh against ``NO_DIST``: one
+    AdaptiveNEG FF step and one backprop step from the same init (the
+    Dist side holding ``transformer.shard_params``, gathered back), then
+    prefill and POD_DIST_DECODE greedy decode steps. Returns the figures."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core import pff_lm, train as train_lib
+    from repro_torch.kernels import counts
+    from repro_torch.launch.dryrun import make_dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mlp, transformer
+
+    cfg = cut_units(get_config("deepseek-moe-16b"), POD_DIST_UNITS)
+    cfg = dataclasses.replace(cfg, ff=dataclasses.replace(
+        cfg.ff, neg_mode="adaptive"))
+    ep = make_dist(cfg, make_mesh((1, 1), ("data", "model")))
+    check(ep.enabled and ep.batch_axes == ("data",)
+          and ep.fsdp_axis == "data", f"make_dist gave {ep}")
+    tok = torch.as_tensor(next(iter(data.lm_batches(
+        cfg.vocab, POD_BATCH, POD_SEQ + POD_DIST_DECODE, 1))), device=dev)
+    out = {}
+    for label, make, want_calls in (
+            ("ff", train_lib.make_ff_train_step, POD_DIST_UNITS),
+            ("bp", train_lib.make_bp_train_step, 0)):
+        trees = {}
+        fig = {tag: {"step_s": [], "peak_gb": []}
+               for tag in ("no_dist", "dist")}
+        # two rounds in turn: the first call of a shape pays for warm-up
+        for _ in range(2):
+            for tag, d in (("no_dist", mlp.NO_DIST), ("dist", ep)):
+                trees.pop(tag, None)
+                torch.cuda.empty_cache()
+                params = pff_lm.init_params(cfg, 0, dev)
+                if d.enabled:
+                    params = transformer.shard_params(params, cfg, d)
+                opt = optim.adam_init(params)
+                step = make(cfg, dist=d, lr=1e-3)
+                batch = {"tokens": tok[:, :POD_SEQ + 1]}
+                counts.reset(fa)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch, 1)
+                torch.cuda.synchronize()
+                fig[tag]["step_s"].append(time.perf_counter() - t0)
+                fig[tag]["peak_gb"].append(
+                    (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+                calls = fa.LAUNCHES.total
+                del opt
+                if d.enabled:
+                    params = transformer.gather_params(params, cfg, d)
+                check(all(bool(torch.isfinite(t.float()).all())
+                          for t in tree_leaves(params)),
+                      f"{label} step under {tag}: a non-finite leaf")
+                check(calls == want_calls, f"{label} step under {tag}: "
+                      f"{calls} attention kernel calls, expected "
+                      f"{want_calls}")
+                trees[tag] = params
+                fig[tag].update(attention_calls=calls, metrics={
+                    k: float(v) for k, v in m.items()})
+                del params
+        worst, share = leaf_rule(trees["dist"], trees["no_dist"])
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(trees["dist"]), tree_leaves(trees["no_dist"])))
+        del trees
+        torch.cuda.empty_cache()
+        ms = {tag: [round(t, 4) for t in fig[tag]["step_s"]] for tag in fig}
+        gb = {tag: [round(g, 2) for g in fig[tag]["peak_gb"]] for tag in fig}
+        print(f"[31 dist] deepseek-moe-16b ({POD_DIST_UNITS} blocks) bf16 "
+              f"{label} step (B {POD_BATCH}, S {POD_SEQ}) under make_dist "
+              f"(data 1, model 1) vs NO_DIST, two rounds in turn: "
+              f"{ms['dist']} vs {ms['no_dist']} s, peak over what was "
+              f"allocated before the step {gb['dist']} vs {gb['no_dist']} "
+              f"GB, {fig['dist']['attention_calls']} attention kernel "
+              f"calls; leaves max abs diff {worst:.3e} (<= {LEAF_TOL}), "
+              f"worst share beyond {WEIGHT_TOL} {share:.2e} (<= "
+              f"{LEAF_SHARE}); bit-identical {same}; metrics "
+              f"{fig['dist']['metrics']}")
+        check(worst <= LEAF_TOL and share <= LEAF_SHARE,
+              f"{label} step under make_dist differs from NO_DIST beyond the "
+              f"leaf rule: {worst}, {share}")
+        out[label] = {**fig, "max_abs_diff": worst, "share": share,
+                      "bit_identical": same}
+
+    # prefill and greedy decode through the kernels, Dist vs NO_DIST, two
+    # rounds in turn
+    params = pff_lm.init_params(cfg, 0, dev)
+    held = transformer.shard_params(params, cfg, ep)
+    prompts = tok[:, :POD_SEQ]
+    served = {tag: {"prefill_s": [], "decode_step_s": []}
+              for tag in ("no_dist", "dist")}
+    with torch.no_grad():
+        for _ in range(2):
+            for tag, d, p in (("no_dist", mlp.NO_DIST, params),
+                              ("dist", ep, held)):
+                counts.reset(fa)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = transformer.prefill(
+                    p, cfg, prompts, dist=d,
+                    max_len=POD_SEQ + POD_DIST_DECODE, last_only=True)
+                torch.cuda.synchronize()
+                served[tag]["prefill_s"].append(time.perf_counter() - t0)
+                pre_calls = fa.LAUNCHES.total
+                seq = [logits]
+                t0 = time.perf_counter()
+                for i in range(POD_DIST_DECODE):
+                    logits, caches = transformer.serve_step(
+                        p, cfg, caches, seq[-1].argmax(-1), POD_SEQ + i,
+                        dist=d)
+                    seq.append(logits)
+                torch.cuda.synchronize()
+                served[tag]["decode_step_s"].append(
+                    (time.perf_counter() - t0) / POD_DIST_DECODE)
+                served[tag].update(logits=seq, attention_calls=pre_calls,
+                                   decode_calls=fa.LAUNCHES.total - pre_calls)
+                del caches
+    same = all(torch.equal(a, b) for a, b in zip(
+        served["dist"]["logits"], served["no_dist"]["logits"]))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in served["dist"]["logits"])
+    calls = served["dist"]["attention_calls"]
+    for tag in served:
+        del served[tag]["logits"]
+    pre = {tag: [round(t, 4) for t in served[tag]["prefill_s"]]
+           for tag in served}
+    dec = {tag: [round(t * 1e3, 2) for t in served[tag]["decode_step_s"]]
+           for tag in served}
+    print(f"[31 dist] deepseek-moe-16b ({POD_DIST_UNITS} blocks) bf16 prefill "
+          f"(B {POD_BATCH}, S {POD_SEQ}) and {POD_DIST_DECODE} greedy decode "
+          f"steps under make_dist vs NO_DIST, two rounds in turn: "
+          f"bit-identical {same}; prefill {pre['dist']} vs {pre['no_dist']} "
+          f"s, decode step {dec['dist']} vs {dec['no_dist']} ms; {calls} "
+          f"attention kernel calls per prefill, "
+          f"{served['dist']['decode_calls']} in decode")
+    check(finite and same, "prefill/decode under make_dist differ from "
+          "NO_DIST")
+    check(calls == POD_DIST_UNITS, f"prefill under make_dist launched {calls}"
+          f" attention kernels, expected {POD_DIST_UNITS}")
+    out["serve"] = served
+    del params, held
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_pod(api, data, fa, dev="cuda"):
     """31. The pod path on the card under an NCCL group of world size 1
     (``POD_CFGS``): each config's ``api.fit(backend="pod", num_nodes=1)``
@@ -2819,9 +3002,10 @@ def phase_pod(api, data, fa, dev="cuda"):
     loss and every leaf finite, every group leaf moved, ``embed`` and
     the head unchanged, the run bit-identical on the same card to
     ``tests/torch_gloo_ranks.pod_oracle``, the oracle loop the CPU tests
-    hold the 4-rank layouts to; the joint FF step's times on the same config. Then ring
-    attention, the expert-parallel MoE at model 1 and the CLI under
-    torchrun. Returns the phase's wall time."""
+    hold the 4-rank layouts to; the joint FF step's times on the same
+    config. Then ring attention, the expert-parallel MoE at model 1, the
+    LM steps and serving under ``make_dist`` (``pod_dist_steps``) and the
+    CLI under torchrun. Returns the phase's wall time."""
     import socket
 
     import torch.distributed as dist
@@ -2978,6 +3162,7 @@ def phase_pod(api, data, fa, dev="cuda"):
             check(same, f"expert-parallel MoE at model 1 ({branch}) differs "
                   f"from NO_DIST")
         del p
+        out["dist"] = pod_dist_steps(data, fa, dev)
         torch.use_deterministic_algorithms(False)
     finally:
         dist.destroy_process_group()

@@ -56,11 +56,12 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch import optim
+from repro_torch import optim, sharding
 from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.core import ff
 from repro_torch.core.rng import TorchKey
 from repro_torch.models import blocks, common, transformer
+from repro_torch.models.mlp import NO_DIST
 
 AUX_WEIGHT = 0.01      # router load-balance weight (local per block)
 CE_CHUNK = 512         # sequence chunk for vocab-logit computation
@@ -151,30 +152,86 @@ def _ce_chunked(h, w_unembed, labels, mask, softcap=0.0):
     return total
 
 
-def _local_ce(h, embed_sg, labels, mask):
-    """Local classifier loss via the (detached) embedding table."""
+def _local_ce(h, embed_sg, labels, mask, count=None):
+    """Local classifier loss via the (detached) embedding table: the CE
+    summed over ``mask``, over ``count`` (default the mask's sum; under a
+    ``Dist`` the whole batch's)."""
     z = common.rms_normalize(h)
     total = _ce_chunked(z, embed_sg, labels, mask)
-    return total / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask) if count is None else count
+    return total / torch.clamp(count, min=1.0)
 
 
-def head_ce(x, hp, cfg, labels):
+def head_ce(x, hp, cfg, labels, count=None):
     """The softmax head's CE on features ``x`` (detached by the caller):
     ``final_norm``, then the tied table or ``lm_head`` as the softmax
-    layer (pad rows unmasked, as the reference has them)."""
+    layer (pad rows unmasked, as the reference has them); summed over
+    ``count`` positions (default ``labels``'s; under a ``Dist`` the whole
+    batch's)."""
     h = common.rms_norm(x, hp["final_norm"], cfg.norm_eps)
     w = hp["embed"] if cfg.tie_embeddings else hp["lm_head"].T
     ones = torch.ones(labels.shape, device=x.device)
     total = _ce_chunked(h, w, labels, ones, softcap=cfg.logit_softcap)
-    return total / labels.numel()
+    return total / (labels.numel() if count is None else count)
+
+
+# ---------------------------------------------------------------------------
+# One rank's part of a step under a Dist
+# ---------------------------------------------------------------------------
+
+class RankPart:
+    """What a step under ``dist`` does per rank, as the reference's
+    ``shard_map`` in_spec ``P(batch_axes)`` splits its batch: the rank's
+    contiguous block of rows (``rows``), the grads of the leaves it holds
+    summed over the batch axes they are replicated over (``grads``), and
+    scalars summed over the batch axes in rank order (``total``). Each a
+    no-op under ``NO_DIST``."""
+
+    def __init__(self, cfg, dist):
+        self.cfg, self.dist = cfg, dist
+        self.on = dist.enabled
+        self.n = (sharding.axes_size(dist.mesh, dist.batch_axes)
+                  if self.on else 1)
+        self.index = (sharding.axes_index(dist.mesh, dist.batch_axes)
+                      if self.on else 0)
+
+    def rows(self, t):
+        """This rank's block of ``t``'s leading (batch) dim."""
+        if not self.on or t is None:
+            return t
+        return sharding.block_of(t, self.dist.mesh, self.dist.batch_axes)
+
+    def gather(self, t):
+        """``rows``'s inverse: the whole batch from every rank's block."""
+        if not self.on:
+            return t
+        return sharding.gather_blocks(t, self.dist.mesh,
+                                      self.dist.batch_axes)
+
+    def grads(self, grads, tree):
+        """``grads`` (of ``tree``'s leaves, in order) summed over the batch
+        axes that the leaves are replicated over: an expert weight's grad
+        comes out of the MoE's backward summed over the fsdp axis."""
+        if not self.on:
+            return grads
+        return sharding.sum_grads(
+            grads, transformer.held_specs(tree, self.cfg, self.dist),
+            self.dist.mesh, self.dist.batch_axes)
+
+    def total(self, x):
+        """The sum of the 0-d or 1-d ``x`` over the batch axes' ranks."""
+        if not self.on:
+            return x
+        return sharding.sum_in_rank_order(x, self.dist.mesh,
+                                          self.dist.batch_axes)
 
 
 # ---------------------------------------------------------------------------
 # FF train step (joint: every block each step)
 # ---------------------------------------------------------------------------
 
-def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
-                       impl="auto"):
+def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
+                       key_fn=TorchKey, impl="auto"):
     """Returns step_fn(params, opt_state, batch, step) ->
     (params, opt_state, metrics), params and state updated in place.
 
@@ -182,10 +239,23 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
     stub frontend embeddings}. opt_state: ``optim.adam_init(params)``.
     ``impl`` routes the no-grad forward of AdaptiveNEG
     (``cfg.ff.neg_mode == "adaptive"``).
+
+    Under an enabled ``dist`` (``mlp.Dist``) each rank runs this step on
+    the whole batch, with params and opt_state the trees it holds
+    (``transformer.shard_params``: the expert weights and their Adam
+    state as its shards, everything else whole). Every rank draws the
+    same negatives over the whole batch (AdaptiveNEG's forward runs on
+    the rank's rows of ``pos_tok``, its logits gathered before the
+    draw), then keeps its block of the stacked [pos; neg] rows and of
+    aux. Each loss term is its rows' part of the whole batch's (their
+    sum over the global count), a replicated leaf's grads are summed over
+    the batch axes before its Adam step, and the metrics are the whole
+    batch's, summed in rank order.
     """
     perf_opt = cfg.ff.goodness == "perf_opt"
     theta = cfg.ff.theta
     n_units = sum(r for _, _, r, _ in transformer.group_infos(cfg))
+    part = RankPart(cfg, dist)
 
     def step_fn(params, opt_state, batch, step):
         tokens = batch["tokens"]
@@ -206,8 +276,10 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
                 # self-generated negatives from the current model (the
                 # AdaptiveNEG cost the paper reports), no grad: kernels
                 with torch.no_grad():
-                    logits0, _ = transformer.forward(params, cfg, pos_tok,
-                                                     aux=aux_in, impl=impl)
+                    logits0, _ = transformer.forward(
+                        params, cfg, part.rows(pos_tok),
+                        aux=part.rows(aux_in), dist=dist, impl=impl)
+                    logits0 = part.gather(logits0)
                 neg_tok = ff.adaptive_corrupt_tokens(key, pos_tok, logits0)
                 del logits0
             else:
@@ -220,6 +292,18 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
             lab_all = torch.cat([labels, labels], dim=0)
         if aux_in is not None and x_tok.shape[0] != aux_in.shape[0]:
             aux_in = torch.cat([aux_in, aux_in], dim=0)
+        # the whole batch's counts, then this rank's rows of it
+        npos = torch.clamp(is_pos.sum(), min=1.0)
+        nneg = torch.clamp((1 - is_pos).sum(), min=1.0)
+        ce_count = is_pos.sum() * S
+        n_rows = x_tok.shape[0]
+        x_tok, is_pos, lab_all, aux_in = (
+            part.rows(t) for t in (x_tok, is_pos, lab_all, aux_in))
+        share = x_tok.shape[0] / n_rows      # of each mean over the rows
+        # the rank's positive rows lead its block (the positives are the
+        # whole batch's first B rows)
+        n_pos_here = max(0, min(x_tok.shape[0],
+                                B - part.index * x_tok.shape[0]))
 
         embed_sg = params["embed"].detach()
         ce_mask = is_pos[:, None] * torch.ones((1, S), device=dev)
@@ -230,23 +314,25 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
             emb = params["embed"].detach().requires_grad_()
             h = F.embedding(x_tok.long(), emb)
             if perf_opt:
-                emb_l = _local_ce(h, embed_sg, lab_all, ce_mask)
+                emb_l = _local_ce(h, embed_sg, lab_all, ce_mask, ce_count)
             else:
                 g = ff.mean_goodness(common.rms_normalize(h))
-                emb_l = ff.ff_loss_masked(g, is_pos, theta)
+                emb_l = ff.ff_loss_masked(g, is_pos, theta) * share
             (emb_g,) = torch.autograd.grad(emb_l, [emb])
-        metrics["loss_embed"] = emb_l.detach()
+        emb_l = emb_l.detach()
         x = h.detach()
 
         # ---- the stacks: each unit's grad and Adam update, in order ------
         ff_losses = []
+        # each group's router aux, which every batch rank adds whole
+        aux_parts = []
         g_sums = [torch.zeros((), device=dev), torch.zeros((), device=dev)]
-        npos = torch.clamp(is_pos.sum(), min=1.0)
-        nneg = torch.clamp((1 - is_pos).sum(), min=1.0)
 
         def train_units(groups, x, ctx):
+            ctx = {**ctx, "dist": dist}
             for gi, pattern, repeat in groups:
                 group_loss = torch.zeros((), device=dev)
+                group_aux = torch.zeros((), device=dev)
                 for r in range(repeat):
                     unit = unit_views(params["groups"][gi], r)
                     up = trainable(unit)
@@ -261,16 +347,19 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
                                                             h_sg, ctx)
                             if perf_opt:
                                 loss = _local_ce(y, embed_sg, lab_all,
-                                                 ce_mask)
+                                                 ce_mask, ce_count)
                             else:
                                 loss, g = _block_ff_loss(y - h_sg, is_pos,
                                                          theta)
+                                loss = loss * share
                                 gm = g.detach().mean(1)
                                 gp = gp + (gm * is_pos).sum() / npos
                                 gn = gn + (gm * (1 - is_pos)).sum() / nneg
                             total = total + loss + AUX_WEIGHT * moe_aux
+                            group_aux = group_aux + AUX_WEIGHT * \
+                                moe_aux.detach()
                             h = y
-                        grads = grads_of(total, up)
+                        grads = part.grads(grads_of(total, up), unit)
                     adam_leaves(unit, grads,
                                 unit_views(opt_state["m"]["groups"][gi], r),
                                 unit_views(opt_state["v"]["groups"][gi], r),
@@ -280,6 +369,7 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
                     g_sums[0] = g_sums[0] + gp / len(pattern)
                     g_sums[1] = g_sums[1] + gn / len(pattern)
                 ff_losses.append(group_loss)
+                aux_parts.append(group_aux)
             return x
 
         # the encoder first (encoder-decoder), FF-trained over the stub
@@ -305,29 +395,40 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
                                       else ["lm_head"])
         if cfg.enc_dec:
             head_keys.append("enc_norm")
-        x_pos_h = x if perf_opt else x[:B]
+        x_pos_h = x[:n_pos_here]
         hp = trainable({k: params[k] for k in head_keys})
         if cfg.tie_embeddings:
             hp["embed"] = params["embed"].detach().requires_grad_()
         with torch.enable_grad():
-            ce_l = head_ce(x_pos_h, hp, cfg, labels)
+            ce_l = head_ce(x_pos_h, hp, cfg, lab_all[:n_pos_here],
+                           count=B * S)
             head_g = dict(zip(hp, grads_of(ce_l, hp)))
         emb_g_total = emb_g
         if cfg.tie_embeddings:
             emb_g_total = emb_g + head_g.pop("embed")
+        emb_g_total, *head_g = part.grads(
+            [emb_g_total] + [head_g[k] for k in head_keys],
+            [params["embed"]] + [params[k] for k in head_keys])
         adam_leaves(params["embed"], [emb_g_total], opt_state["m"]["embed"],
                     opt_state["v"]["embed"], lr=lr, step=step)
-        adam_leaves({k: params[k] for k in head_keys},
-                    [head_g[k] for k in head_keys],
+        adam_leaves({k: params[k] for k in head_keys}, head_g,
                     {k: opt_state["m"][k] for k in head_keys},
                     {k: opt_state["v"][k] for k in head_keys},
                     lr=lr, step=step)
 
+        # the whole batch's values: the ranks' parts summed in rank order,
+        # each router aux counted once
+        vals = part.total(torch.stack([emb_l, ce_l.detach(), *g_sums,
+                                       *ff_losses]))
+        emb_l, ce_l, gp, gn = vals[:4]
+        ff_losses = [v - (part.n - 1) * a
+                     for v, a in zip(vals[4:], aux_parts)]
         metrics.update(
+            loss_embed=emb_l,
             loss_ff=sum(ff_losses) / max(len(ff_losses), 1),
-            loss_ce=ce_l.detach(),
-            goodness_pos=g_sums[0] / n_units,
-            goodness_neg=g_sums[1] / n_units,
+            loss_ce=ce_l,
+            goodness_pos=gp / n_units,
+            goodness_neg=gn / n_units,
         )
         return params, opt_state, metrics
 
@@ -338,26 +439,34 @@ def make_ff_train_step(cfg, *, lr=1e-3, seed=0, key_fn=TorchKey,
 # Backprop baseline (the paper's comparison target)
 # ---------------------------------------------------------------------------
 
-def make_bp_train_step(cfg, *, lr=1e-3):
+def make_bp_train_step(cfg, *, dist=NO_DIST, lr=1e-3):
     """Standard end-to-end cross-entropy training step, through the plain
     route (every forward here is differentiated). batch as
-    ``make_ff_train_step`` takes it, its "aux" passed to the forward."""
+    ``make_ff_train_step`` takes it, its "aux" passed to the forward;
+    ``dist`` as there: each rank runs its block of the batch's rows, its
+    CE summed over the whole batch's count."""
+    part = RankPart(cfg, dist)
 
     def step_fn(params, opt_state, batch, step):
         tokens = batch["tokens"]
+        n_rows = tokens.shape[0]
+        tokens, aux = part.rows(tokens), part.rows(batch.get("aux"))
         inp, labels = tokens[:, :-1], tokens[:, 1:]
         tp = trainable(params)
         with torch.enable_grad():
-            logits, aux_l = transformer.forward(tp, cfg, inp,
-                                                aux=batch.get("aux"),
-                                                impl="ref")
+            logits, aux_l = transformer.forward(tp, cfg, inp, aux=aux,
+                                                dist=dist, impl="ref")
             lp = torch.log_softmax(logits, dim=-1)
             ce = -lp.gather(-1, labels.long()[..., None])[..., 0]
-            loss = torch.mean(ce) + AUX_WEIGHT * aux_l
-            grads = grads_of(loss, tp)
+            loss = torch.mean(ce) * (tokens.shape[0] / n_rows) \
+                + AUX_WEIGHT * aux_l
+            grads = part.grads(grads_of(loss, tp), params)
         adam_leaves(params, grads, opt_state["m"], opt_state["v"], lr=lr,
                     step=step)
-        return params, opt_state, {"loss_ce": loss.detach()}
+        # the router aux, whole on every rank, counted once
+        loss = part.total(loss.detach()) \
+            - (part.n - 1) * AUX_WEIGHT * aux_l.detach()
+        return params, opt_state, {"loss_ce": loss}
 
     return step_fn
 

@@ -50,6 +50,7 @@ from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
 from repro_torch.core import train as train_lib
 from repro_torch.launch import op_analysis, specs as specs_lib
 from repro_torch.models import transformer
+from repro_torch.models.mlp import Dist
 
 # H100 SXM (NVIDIA's datasheet, dense, per card)
 PEAK_FLOPS = 989e12          # bf16 tensor cores
@@ -62,6 +63,20 @@ def _mesh(name):
     if name == "none":
         return None
     return specs_lib.SizesMesh(specs_lib.PRODUCTION_MESHES[name])
+
+
+def make_dist(cfg, mesh, *, batch_fold_model=False):
+    """The mesh axes' roles (the reference's ``make_dist``): the batch on
+    ``sharding.batch_axes(mesh)``, the experts on "model", the expert
+    weights' d_model on "data" for a MoE config. ``batch_fold_model``
+    (the reference's §Perf option for dense configs whose heads do not
+    split over the model axis) adds "model" to the batch axes. ``mesh``
+    is a ``DeviceMesh``, or a mesh of sizes where nothing runs."""
+    ba = sharding.batch_axes(mesh)
+    if batch_fold_model:
+        ba = ba + ("model",)
+    return Dist(mesh=mesh, batch_axes=ba, model_axis="model",
+                fsdp_axis="data" if cfg.moe is not None else None)
 
 
 def _local_bytes(pairs, mesh):

@@ -23,10 +23,16 @@ runs the rank's experts over every token and sums over the model axis;
 the sorted branch sends each expert's capacity rows to the rank that
 holds it and back (``all_to_all_single``); the shared experts run
 tensor-parallel (their ff split over the model axis, summed); the
-router's aux loss is averaged over the batch axes. The expert-parallel
-body runs forward only: its collectives carry no backward, so it raises
-under autograd (a grad-enabled call whose input or params need grads)
-rather than hand back wrong gradients; differentiate with ``NO_DIST``.
+router's aux loss is averaged over the batch axes. The body is
+differentiable: each collective carries its transpose
+(``sharding.py``), and the ranks of the model axis, which hold the same
+tokens, split the work between them as the reference's transpose
+does: the tokens and the gates enter the per-rank work through
+``sharding.pvary`` (their cotangents summed over the model axis) and
+the sorted branch's returned rows through ``sharding.pmean_equal``
+(each rank's copy of a token counted once over the axis). The expert
+grads come back summed over the fsdp axis; a replicated leaf's grad is
+the rank's part, which the caller sums over the batch axes.
 """
 from __future__ import annotations
 
@@ -37,7 +43,6 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import sharding
-from repro_torch.convert import tree_leaves
 from repro_torch.models import common
 
 
@@ -198,15 +203,18 @@ def _moe_local(p, x, moe, act_name, dist=NO_DIST):
     d_local, ff), wo (E_local, ff, d_local), the shared experts' ff
     slice."""
     T, d = x.shape
-    if dist.enabled and torch.is_grad_enabled() and any(
-            t.requires_grad for t in [x, *tree_leaves(p)]):
-        raise RuntimeError(
-            "the expert-parallel MoE runs forward only: its all_gather, "
-            "all_reduce and all_to_all_single carry no backward, so its "
-            "gradients would be wrong; differentiate it with NO_DIST or "
-            "call it under torch.no_grad()")
-    gate, eids, aux = _router(p, x, moe)
     mesh, ma, fa = dist.mesh, dist.model_axis, dist.fsdp_axis
+    if dist.enabled and ma in dist.batch_axes:
+        raise ValueError(
+            "the MoE splits its experts over the model axis, so its tokens "
+            "cannot be split over that axis too (batch_fold_model is for "
+            "dense configs)")
+    gate, eids, aux = _router(p, x, moe)
+    # the model axis's ranks hold the same tokens and gates: the per-rank
+    # work below reads them through pvary
+    vary = ((lambda t: sharding.pvary(t, mesh, ma)) if dist.enabled
+            else (lambda t: t))
+    xv = vary(x)
     wi, wg, wo = p["wi"], p["wg"], p["wo"]
     if dist.enabled and fa is not None:
         wi = sharding.all_gather(wi, mesh, fa, dim=1)
@@ -219,8 +227,8 @@ def _moe_local(p, x, moe, act_name, dist=NO_DIST):
         shard = sharding.axis_index(mesh, ma) if dist.enabled else 0
         gates_full = torch.zeros((T, moe.num_experts), device=x.device
                                  ).scatter(1, eids, gate)
-        gates = gates_full[:, shard * e_l:(shard + 1) * e_l]
-        h = _expert_ffn(wi, wg, wo, x.expand(e_l, T, d),
+        gates = vary(gates_full)[:, shard * e_l:(shard + 1) * e_l]
+        h = _expert_ffn(wi, wg, wo, xv.expand(e_l, T, d),
                         act_name)                          # (E_l, T, d)
         with full_f32():
             y = torch.einsum("etd,te->td", h.float(), gates)
@@ -229,7 +237,7 @@ def _moe_local(p, x, moe, act_name, dist=NO_DIST):
         y = y.to(x.dtype)
     else:
         cap = _capacity(T, moe.top_k, moe.num_experts, moe.capacity_factor)
-        buf, meta = _sorted_dispatch(x, eids, moe.num_experts, cap)
+        buf, meta = _sorted_dispatch(xv, eids, moe.num_experts, cap)
         if dist.enabled:
             # each expert's rows to the rank holding it: (n_model, E_l,
             # C, d), leading dim the destination, then the source
@@ -240,14 +248,16 @@ def _moe_local(p, x, moe, act_name, dist=NO_DIST):
             tokens = buf.transpose(0, 1).reshape(e_l, n_model * cap, d)
             out = _expert_ffn(wi, wg, wo, tokens, act_name)
             out = out.reshape(e_l, n_model, cap, d).transpose(0, 1)
-            buf_out = sharding.all_to_all(out, mesh, ma).reshape(
+            # every rank of the model axis gets the same rows back
+            buf_out = sharding.pmean_equal(
+                sharding.all_to_all(out, mesh, ma), mesh, ma).reshape(
                 moe.num_experts, cap, d)
         else:
             buf_out = _expert_ffn(wi, wg, wo, buf, act_name)
         y = _combine(buf_out, meta, T, moe.top_k, gate)
     if "shared" in p:
         # the shared experts run tensor-parallel: ff split on the model axis
-        ys = dense_mlp_apply(p["shared"], x, act_name)
+        ys = dense_mlp_apply(p["shared"], xv, act_name)
         if dist.enabled:
             ys = sharding.psum(ys, mesh, ma)
         y = y + ys
@@ -272,11 +282,11 @@ def moe_specs(p, dist):
 
 def moe_apply(p, x, moe, act_name, dist=NO_DIST):
     """x: (B, S, d): the whole batch, or with ``dist`` enabled this
-    rank's batch shard, p the full params (each rank takes its shards).
-    Returns (y, aux_loss) for x's tokens; aux averaged over the batch
-    axes."""
+    rank's batch shard, p the full params (each rank takes its shards) or
+    the rank's shards already (``moe_specs``). Returns (y, aux_loss) for
+    x's tokens; aux averaged over the batch axes."""
     d = x.shape[-1]
-    if dist.enabled:
+    if dist.enabled and tuple(p["wi"].shape[:2]) == (moe.num_experts, d):
         specs = moe_specs(p, dist)
         p = {k: ({kk: sharding.local_shard(vv, specs[k][kk], dist.mesh)
                   for kk, vv in v.items()} if isinstance(v, dict)

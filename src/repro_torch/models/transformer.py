@@ -15,6 +15,13 @@ Three entry points:
 ``forward`` returns the MoE blocks' router load-balance losses summed
 over every block (0 for dense stacks).
 
+Each entry point takes ``dist`` (``mlp.Dist``, default ``NO_DIST``) as
+the reference's does: enabled, its inputs are this rank's batch shard
+and the MoE runs expert-parallel, on the full params or on the shards a
+rank holds (``shard_params``: the expert weights split by
+``mlp.moe_specs``, every other leaf whole; ``gather_params`` puts the
+tree back together).
+
 Encoder-decoder (``cfg.enc_dec``): the leading groups that fall inside
 ``cfg.enc_layers`` form the bidirectional encoder over the stub audio
 embeddings ``aux`` (``encode``); the rest form the decoder, whose
@@ -27,9 +34,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.convert import tree_leaves, tree_map, tree_stack
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, common
+from repro_torch.models.mlp import NO_DIST, moe_specs
 
 
 def group_infos(cfg):
@@ -90,6 +99,45 @@ def param_count(params):
 
 
 # ---------------------------------------------------------------------------
+# What each rank holds under a Dist
+# ---------------------------------------------------------------------------
+
+def held_specs(tree, cfg, dist):
+    """The spec of each leaf of ``tree`` (the params, Adam's ``m`` or
+    ``v``, a unit's views), in ``tree_leaves`` order, as a rank holds it
+    under ``dist``: the MoE's weights by ``mlp.moe_specs`` (on their
+    trailing dims; a stacked group's leading axis is not split), every
+    other leaf whole, replicated on every rank."""
+    out = []
+
+    def spec_of(path, t):
+        spec = ()
+        if dist.enabled and cfg.moe is not None and "mlp" in path:
+            sub = path[path.index("mlp") + 1:]
+            spec = moe_specs({"shared": None} if "shared" in sub else {},
+                             dist)
+            for k in sub:
+                spec = spec[k]
+        out.append((None,) * (t.dim() - len(spec)) + tuple(spec))
+
+    sharding.map_with_path(spec_of, tree)
+    return out
+
+
+def shard_params(tree, cfg, dist):
+    """This rank's shards of a whole tree (params or Adam state; copies
+    of the expert weights' blocks, the rest as it is)."""
+    return sharding.shard_tree(tree, held_specs(tree, cfg, dist), dist.mesh)
+
+
+def gather_params(tree, cfg, dist):
+    """The whole tree from every rank's shards (``shard_params``'s
+    inverse; every rank calls it)."""
+    return sharding.gather_tree(tree, held_specs(tree, cfg, dist),
+                                dist.mesh)
+
+
+# ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
 
@@ -125,11 +173,12 @@ def _apply_groups(params, cfg, groups, x, ctx):
     return x, aux_loss
 
 
-def encode(params, cfg, aux_embed, *, impl="auto"):
+def encode(params, cfg, aux_embed, *, dist=NO_DIST, impl="auto"):
     """Run the encoder groups bidirectionally over the stub frame
     embeddings (B, T, d). Returns (the normed encoder output, aux_loss)."""
     x, aux_loss = _apply_groups(params, cfg, groups_of(cfg, encoder=True),
-                                aux_embed, {"causal": False, "impl": impl})
+                                aux_embed, {"causal": False, "impl": impl,
+                                            "dist": dist})
     return common.rms_norm(x, params["enc_norm"], cfg.norm_eps), aux_loss
 
 
@@ -139,7 +188,7 @@ def aux_tokens(cfg):
     return cfg.enc_seq if cfg.enc_dec else cfg.vision_tokens
 
 
-def _cross_source(params, cfg, aux, impl):
+def _cross_source(params, cfg, aux, impl, dist):
     """What cross attention reads, and the encoder's aux loss: the
     encoder's output over ``aux`` (encoder-decoder), else ``aux`` itself
     (the vision embeddings, or None for a decoder-only config)."""
@@ -147,19 +196,20 @@ def _cross_source(params, cfg, aux, impl):
         raise ValueError(f"{cfg.name} reads stub frontend embeddings: pass "
                          f"aux=(batch, {aux_tokens(cfg)}, d_model)")
     if cfg.enc_dec:
-        return encode(params, cfg, aux, impl=impl)
+        return encode(params, cfg, aux, dist=dist, impl=impl)
     return aux, 0.0
 
 
-def forward(params, cfg, tokens, *, aux=None, impl="auto"):
+def forward(params, cfg, tokens, *, aux=None, dist=NO_DIST, impl="auto"):
     """tokens: (B, S) integer; aux: (B, T, d) stub embeddings (audio
     frames or vision patches). Returns (logits (B, S, V) f32,
-    aux_loss)."""
-    cross_src, enc_loss = _cross_source(params, cfg, aux, impl)
+    aux_loss). With ``dist`` enabled, tokens and aux are this rank's
+    batch shard and the MoE runs expert-parallel (``mlp.Dist``)."""
+    cross_src, enc_loss = _cross_source(params, cfg, aux, impl, dist)
     x = embed_tokens(params, cfg, tokens)
     x, aux_loss = _apply_groups(params, cfg, groups_of(cfg), x,
                                 {"causal": True, "aux": cross_src,
-                                 "impl": impl})
+                                 "impl": impl, "dist": dist})
     return unembed(params, cfg, x), enc_loss + aux_loss
 
 
@@ -197,7 +247,7 @@ def cache_specs(cfg, batch, max_len, dtype=None):
 # Prefill (fills caches) and decode
 # ---------------------------------------------------------------------------
 
-def prefill(params, cfg, tokens, *, aux=None, max_len=None,
+def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
             last_only=False, impl="auto"):
     """Full forward that also returns filled decode caches.
 
@@ -206,14 +256,15 @@ def prefill(params, cfg, tokens, *, aux=None, max_len=None,
     stub frontend embeddings, encoded first for an encoder-decoder.
     ``max_len`` sizes the KV caches (defaults to S; pass S + generation
     budget for serving). ``impl`` reaches the attention and SSD kernel
-    ops.
+    ops. ``dist``: as ``forward``'s (tokens, aux and the caches are this
+    rank's batch shard).
     """
     B, S = tokens.shape
     max_len = max_len or S
-    cross_src, _ = _cross_source(params, cfg, aux, impl)
+    cross_src, _ = _cross_source(params, cfg, aux, impl, dist)
     x = embed_tokens(params, cfg, tokens)
     ctx = {"causal": True, "aux": cross_src, "max_len": max_len,
-           "impl": impl}
+           "impl": impl, "dist": dist}
     caches = []
     for gi, pattern, repeat, is_enc in group_infos(cfg):
         if is_enc:
@@ -232,12 +283,13 @@ def prefill(params, cfg, tokens, *, aux=None, max_len=None,
     return unembed(params, cfg, x), tuple(caches)
 
 
-def serve_step(params, cfg, caches, tokens, pos):
+def serve_step(params, cfg, caches, tokens, pos, *, dist=NO_DIST):
     """One decode step. tokens: (B,) integer; pos: the new token's
     position. Returns (logits (B, V), caches), the caches updated in
-    place."""
+    place. ``dist``: as ``forward``'s (tokens and caches this rank's
+    batch shard)."""
     x = embed_tokens(params, cfg, tokens)
-    ctx = {}
+    ctx = {"dist": dist}
     for gi, pattern, repeat in groups_of(cfg):
         for r in range(repeat):
             unit_p = _layer(params["groups"][gi], r)

@@ -38,11 +38,13 @@ Each rank runs the per-rank body itself on its own block of a tensor
 calls the collectives below on the mesh's axis groups: ``all_reduce``
 for ``psum``/``pmean``, ``all_gather_into_tensor`` for ``all_gather``,
 ``all_to_all_single`` for ``all_to_all``, ``batch_isend_irecv`` for
-``ppermute``. A mesh is a ``torch.distributed.device_mesh.DeviceMesh``,
-or, where no collective runs (the rules, ``local_shard`` given its
-coordinates), any object with a ``.shape`` mapping of axis sizes. On an
-axis of size 1 no collective is called: each one is the identity there,
-and a point-to-point send to itself is not.
+``ppermute``; each but the last is an autograd Function with its
+transpose as its backward (below). A mesh is a
+``torch.distributed.device_mesh.DeviceMesh``, or, where no collective
+runs (the rules, ``local_shard`` given its coordinates), any object
+with a ``.shape`` mapping of axis sizes. On an axis of size 1 no
+collective is called: each one is the identity there, and a
+point-to-point send to itself is not.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.convert import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -174,16 +178,16 @@ def _leaf_spec(path_names, shape):
     return tuple(None for _ in shape)
 
 
-def _map_with_path(fn, tree, path=()):
+def map_with_path(fn, tree, path=()):
     """``fn(path names, leaf)`` over a tree of dicts, lists and tuples
     (``None`` stays ``None``), keys and indices as strings."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (str(k),))
+        return {k: map_with_path(fn, v, path + (str(k),))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+        return type(tree)(map_with_path(fn, v, path + (str(i),))
                           for i, v in enumerate(tree))
     return fn(path, tree)
 
@@ -197,7 +201,7 @@ def param_specs(params, mesh):
                 return _fit(make_spec(), leaf.shape, mesh)
         return _fit(_leaf_spec(names, leaf.shape), leaf.shape, mesh)
 
-    return _map_with_path(spec_for, params)
+    return map_with_path(spec_for, params)
 
 
 def batch_axes(mesh):
@@ -238,7 +242,7 @@ def cache_specs_tree(caches, mesh, *, seq_axis_model=False):
             return _fit(want[:len(shape)], shape, mesh)
         return (None,) * len(shape)
 
-    return _map_with_path(spec_for, caches)
+    return map_with_path(spec_for, caches)
 
 
 def local_shard(t, spec, mesh, coords=None):
@@ -265,23 +269,133 @@ def local_shard(t, spec, mesh, coords=None):
 
 # ---------------------------------------------------------------------------
 # Collectives over one mesh axis (each the identity on a size-1 axis)
+#
+# Each is an autograd Function whose backward is its forward's transpose,
+# as the reference's ``shard_map`` differentiates its collectives, and
+# none modifies its input. Under the per-rank convention of the train
+# steps (each rank's loss is its rows' part of the global loss, and a
+# value every rank of an axis computes alike is a replica, not a sum), the
+# transposes are:
+#   psum        of partial sums whose result every rank uses alike: the
+#               identity (each rank's cotangent is the whole one);
+#   pmean       1/n of the cotangent;
+#   all_gather  a reduce-scatter (sum) of the cotangent;
+#   all_to_all  the inverse exchange (the same exchange again);
+#   pvary       (a replica entering per-rank work, forward the identity)
+#               the sum of the cotangents over the axis;
+#   pmean_equal (the mean of values already equal over the axis, forward
+#               the identity) 1/n of the cotangent.
 # ---------------------------------------------------------------------------
 
+def _gather_single():
+    # the *_single names replace the *_tensor ones in newer torch
+    return (getattr(dist, "all_gather_single", None)
+            or dist.all_gather_into_tensor)
+
+
+def _scatter_single():
+    return (getattr(dist, "reduce_scatter_single", None)
+            or dist.reduce_scatter_tensor)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, n):
+        ctx.n = n
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out.div_(n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        part = t.movedim(dim, 0).contiguous()
+        out = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
+        _gather_single()(out, part, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.movedim(ctx.dim, 0).contiguous()
+        out = full.new_empty((full.shape[0] // ctx.n,)
+                             + tuple(full.shape[1:]))
+        _scatter_single()(out, full, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None, None
+
+
+def _exchange(t, group):
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
+
+
+class _PMeanEqual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 def psum(t, mesh, axis):
-    """Sum of ``t`` over ``axis``, in place (``lax.psum``)."""
+    """Sum of ``t`` over ``axis`` (``lax.psum``), a new tensor."""
     group = axis_group(mesh, axis)
-    if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    return t
+    return t if group is None else _PSum.apply(t, group)
 
 
 def pmean(t, mesh, axis):
-    """Mean of ``t`` over ``axis``, in place, in ``t``'s dtype
-    (``lax.pmean``: the sum, then divided by the axis size)."""
-    n = axis_size(mesh, axis)
-    if n > 1:
-        psum(t, mesh, axis).div_(n)
-    return t
+    """Mean of ``t`` over ``axis``, in ``t``'s dtype (``lax.pmean``: the
+    sum, then divided by the axis size), a new tensor."""
+    group = axis_group(mesh, axis)
+    if group is None:
+        return t
+    return _PMean.apply(t, group, axis_size(mesh, axis))
 
 
 def all_gather(t, mesh, axis, dim=0):
@@ -290,13 +404,7 @@ def all_gather(t, mesh, axis, dim=0):
     group = axis_group(mesh, axis)
     if group is None:
         return t
-    n = axis_size(mesh, axis)
-    part = t.movedim(dim, 0).contiguous()
-    out = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
-    gather = getattr(dist, "all_gather_single", None) \
-        or dist.all_gather_into_tensor
-    gather(out, part, group=group)
-    return out.movedim(0, dim)
+    return _AllGather.apply(t, group, axis_size(mesh, axis), dim)
 
 
 def all_to_all(t, mesh, axis):
@@ -304,12 +412,120 @@ def all_to_all(t, mesh, axis):
     block i goes to rank i, and block j of the result came from rank j
     (``lax.all_to_all(split_axis=0, concat_axis=0)``)."""
     group = axis_group(mesh, axis)
-    if group is None:
+    return t if group is None else _AllToAll.apply(t, group)
+
+
+def pvary(t, mesh, axis):
+    """``t``, a value every rank of ``axis`` holds alike, as the input of
+    work that differs by rank (``lax.pvary``): the identity forward; its
+    cotangents summed over ``axis`` backward."""
+    group = axis_group(mesh, axis)
+    return t if group is None else _PVary.apply(t, group)
+
+
+def pmean_equal(t, mesh, axis):
+    """The mean over ``axis`` of a value that every rank of it already
+    holds alike: ``t`` itself forward (no collective), pmean's transpose
+    (the cotangent over the axis size) backward."""
+    n = axis_size(mesh, axis)
+    return t if n == 1 else _PMeanEqual.apply(t, n)
+
+
+# ---------------------------------------------------------------------------
+# The batch over several axes, and trees of shards
+# ---------------------------------------------------------------------------
+
+def axes_size(mesh, axes):
+    """The product of the sizes of ``axes``."""
+    return math.prod(axis_size(mesh, a) for a in axes)
+
+
+def axes_index(mesh, axes):
+    """This process's block index over ``axes``, the first major."""
+    idx = 0
+    for a in axes:
+        idx = idx * axis_size(mesh, a) + axis_index(mesh, a)
+    return idx
+
+
+def block_of(t, mesh, axes, dim=0):
+    """This rank's contiguous block of ``t``'s ``dim`` split over
+    ``axes`` (the first major): what an in_spec ``P(axes)`` gives."""
+    if not axes:
         return t
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
+    spec = [None] * t.dim()
+    spec[dim] = tuple(axes)
+    return local_shard(t, spec, mesh)
+
+
+def gather_blocks(t, mesh, axes, dim=0):
+    """The blocks of ``t`` over ``axes`` concatenated on ``dim`` in block
+    order (``block_of``'s inverse)."""
+    for a in reversed(tuple(axes)):
+        t = all_gather(t, mesh, a, dim)
+    return t
+
+
+def sum_in_rank_order(x, mesh, axes):
+    """Sums over ``axes`` of the 0-d or 1-d tensor ``x``: the ranks'
+    values gathered and reduced in block order, so that every rank gets
+    the same bits."""
+    vals = gather_blocks(x.reshape(1, -1), mesh, axes)
+    return vals.sum(0).reshape(x.shape)
+
+
+def sum_grads(grads, specs, mesh, axes):
+    """Each grad summed over those of ``axes`` its spec does not name
+    (the leaf is replicated over them, each rank holding its rows' part),
+    one ``all_reduce`` per (axes, dtype) bucket; ``specs`` in ``grads``'s
+    order. A new list."""
+    out = list(grads)
+    buckets = {}
+    for i, (g, spec) in enumerate(zip(grads, specs)):
+        named = {n for e in spec if e is not None for n in _names(e)}
+        over = tuple(a for a in axes if a not in named
+                     and axis_size(mesh, a) > 1)
+        if over:
+            buckets.setdefault((over, g.dtype), []).append(i)
+    for (over, _), idx in buckets.items():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        for a in over:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                            group=axis_group(mesh, a))
+        for i, part in zip(idx, flat.split([grads[i].numel()
+                                            for i in idx])):
+            out[i] = part.view_as(grads[i])
     return out
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's blocks of every leaf of ``tree`` under ``specs`` (one
+    per leaf, in ``tree_leaves`` order): copies where a spec splits the
+    leaf, so nothing keeps the whole tensor alive; the leaf itself
+    where it is held whole."""
+    it = iter(specs)
+
+    def one(t):
+        spec = next(it)
+        if all(e is None for e in spec):
+            return t
+        return local_shard(t, spec, mesh).clone()
+
+    return tree_map(one, tree)
+
+
+def gather_tree(tree, specs, mesh):
+    """The whole leaves from every rank's blocks (``shard_tree``'s
+    inverse; a collective per split dim, every rank calls it)."""
+    it = iter(specs)
+
+    def one(t):
+        for dim, entry in enumerate(next(it)):
+            if entry is not None:
+                t = gather_blocks(t, mesh, _names(entry), dim)
+        return t
+
+    return tree_map(one, tree)
 
 
 def shift(t, mesh, axis):

@@ -1,0 +1,98 @@
+"""The reference's LM steps under a ``Dist``, for
+``tests/test_torch_dist_train.py``, in a process of its own: the 4 host
+devices it needs must be set before JAX starts.
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        PYTHONPATH=src:tests python -m jax_dist_ref OUTDIR CASE...
+
+reads ``OUTDIR/dist_inputs.pkl`` (the test's inputs: numpy params, token
+batches), runs under ``jax.jit`` on a (data 2, model 2) mesh
+``make_ff_train_step`` (random negatives at S 16 and 80, AdaptiveNEG at
+S 16) and ``make_bp_train_step`` of the reduced deepseek-moe-16b
+(``Dist(batch ("data",), model "model", fsdp "data")``)
+and ``make_ff_train_step`` of the reduced qwen2-0.5b with the model axis
+folded into the batch axes, each one step from the given params, and
+records ``launch.dryrun.make_dist``'s fields for every config on that
+mesh and on a (pod 1, data 2, model 2) one: the CASEs ``ff16``,
+``ff80``, ``ada16``, ``bp``, ``fold`` and ``make_dist``, side by side.
+Writes each case's new params and metrics (or the fields) to
+``OUTDIR/ref_<CASE>.pkl``.
+
+The mesh is built with ``jax.sharding.Mesh``: ``jax.make_mesh`` gives
+Explicit axes on this jax, under which ``Dist.constrain_batch`` raises.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import os
+import pickle
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+
+def main(outdir, cases):
+    # the backend starts here, with XLA_FLAGS's 4 devices: launch.dryrun
+    # sets another device count when it is imported
+    devs = np.array(jax.devices())
+    from repro import optim
+    from repro.configs import get_config, list_configs
+    from repro.core import train
+    from repro.launch import dryrun
+    from repro.models.mlp import Dist
+
+    with open(os.path.join(outdir, "dist_inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    mesh = jax.sharding.Mesh(devs.reshape(2, 2), ("data", "model"))
+    pod = jax.sharding.Mesh(devs.reshape(1, 2, 2), ("pod", "data", "model"))
+
+    def make_dists():
+        return {(name, label, fold): (tuple(d.batch_axes), d.model_axis,
+                                      d.fsdp_axis)
+                for name in list_configs()
+                for label, m in (("2x2", mesh), ("pod", pod))
+                for fold in (False, True)
+                for d in [dryrun.make_dist(get_config(name), m,
+                                           batch_fold_model=fold)]}
+
+    def run(cfg, make, dist, npp, tokens):
+        params = jax.tree_util.tree_map(jnp.asarray, npp)
+        step = jax.jit(make(cfg, dist=dist, lr=1e-3))
+        with mesh:
+            new, _, metrics = step(params, optim.adam_init(params),
+                                   {"tokens": jnp.asarray(tokens)},
+                                   jnp.int32(1))
+        return (jax.tree_util.tree_map(np.asarray, new),
+                {k: float(v) for k, v in metrics.items()})
+
+    moe = get_config("deepseek-moe-16b").reduced()
+    ada = dataclasses.replace(moe, ff=dataclasses.replace(
+        moe.ff, neg_mode="adaptive"))
+    dense = get_config("qwen2-0.5b").reduced()
+    ep = Dist(mesh=mesh, batch_axes=("data",), model_axis="model",
+              fsdp_axis="data")
+    fold = dryrun.make_dist(dense, mesh, batch_fold_model=True)
+    ds, qw = inputs["deepseek"], inputs["qwen2"]
+    steps = {"ff16": (moe, train.make_ff_train_step, ep, ds["ff16"]),
+             "ff80": (moe, train.make_ff_train_step, ep, ds["ff80"]),
+             "bp": (moe, train.make_bp_train_step, ep, ds["bp"]),
+             "ada16": (ada, train.make_ff_train_step, ep, ds["ada16"]),
+             "fold": (dense, train.make_ff_train_step, fold, qw["ff"])}
+    # one thread a case: XLA compiles them side by side
+    with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+        futs = {case: pool.submit(make_dists) if case == "make_dist" else
+                pool.submit(run, *steps[case][:3],
+                            (qw if case == "fold" else ds)["params"],
+                            steps[case][3])
+                for case in cases}
+        out = {case: f.result() for case, f in futs.items()}
+    for case, res in out.items():
+        with open(os.path.join(outdir, f"ref_{case}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2:])

@@ -1,7 +1,7 @@
 """Four gloo ranks for the port's multi-process tests, started from a
 fresh interpreter so that no rank loads JAX:
 
-    PYTHONPATH=src:tests python -m torch_gloo_ranks {ring,pod} OUTDIR
+    PYTHONPATH=src:tests python -m torch_gloo_ranks {ring,pod,dist} OUTDIR
 
 spawns 4 processes (the ``spawn`` start method), joined in one gloo
 group through a ``FileStore`` under OUTDIR. Each rank runs every case of
@@ -17,7 +17,20 @@ ring  ``models.ring_attention.ring_attention`` on the inputs the test
 pod   ``core.pff_pod``'s step over (stage, data, model) meshes of (4, 1,
       1) and (2, 2, 1) for ``POD_STEPS`` steps; ``api.fit(backend="pod",
       num_nodes=4)``; the expert-parallel MoE over (data=2, model=2),
-      fsdp on data, in both branches, and its refusal under autograd.
+      fsdp on data, in both branches.
+dist  over a (data=2, model=2) mesh, on the inputs the test wrote to
+      ``OUTDIR/dist_inputs.pkl`` and the draws to ``dist_draws.pkl``: the expert-parallel MoE's grads (each
+      rank on its shards and its token block, fsdp on data, in both
+      branches); one FF step at S 16 and one at S 80 and one backprop
+      step of the reduced deepseek-moe-16b under ``make_dist`` and one
+      AdaptiveNEG FF step at S 16 (its no-grad forward on the rank's
+      rows, the logits gathered before the draw), each rank
+      holding its expert shards (``transformer.shard_params``), the
+      negatives replayed from the reference's recorded draws
+      (``ReplayKey``), the tree gathered back; one FF step of the reduced
+      qwen2-0.5b with the model axis folded into the batch; ``prefill``
+      and ``serve_step`` of the reduced deepseek on the rank's shard of
+      the prompts; ``make_dist``'s fields for every config.
 """
 from __future__ import annotations
 
@@ -157,7 +170,7 @@ def run_ring(outdir):
 
 def run_pod(outdir):
     from repro_torch import api, data as tdata, sharding
-    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.convert import tree_leaves
     from repro_torch.core import pff_pod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import mlp, transformer
@@ -199,14 +212,159 @@ def run_pod(outdir):
         y, aux = mlp.moe_apply(p, x, cfg.moe, cfg.act, dist_)
         out[f"moe:{name}:{B}x{S}"] = {
             "data": sharding.axis_index(mesh, "data"), "y": y, "aux": aux}
-    # under autograd the expert-parallel MoE refuses (before any
-    # collective, so every rank raises): its collectives carry no backward
-    p = tree_map(lambda t: t.clone().requires_grad_(), p)
-    try:
-        mlp.moe_apply(p, x, cfg.moe, cfg.act, dist_)
-        out["moe_grad_error"] = None
-    except RuntimeError as e:
-        out["moe_grad_error"] = str(e)
+    return out
+
+
+# the dist cases: the MoE grads' cotangent seed and the router aux weight
+# of their loss; the steps' (batch, seq) and the served prompts
+DIST_MOE_SEED, DIST_AUX = 7, 0.01
+DIST_BATCH, DIST_PROMPT, DIST_GEN = 4, 80, 4
+DIST_STEPS = {"ff16": 16, "ff80": 80, "bp": 80, "ada16": 16}
+
+
+def moe_cotangent(x):
+    """The fixed cotangent the MoE grad cases contract y with."""
+    return torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        DIST_MOE_SEED))
+
+
+def draw_key(path, method, shape):
+    """The name of one recorded draw: the key's fold/split path, the
+    draw and its shape."""
+    return "/".join(map(str, path)) + f":{method}:" + "x".join(
+        map(str, shape))
+
+
+class ReplayKey:
+    """``core.rng``'s key interface over recorded draws (``{draw_key:
+    array}``): a fold or split extends the path, a draw reads the array
+    recorded under it, so a rank that loads no jax consumes the
+    reference's own numbers. ``categorical`` adds the recorded Gumbel
+    noise to the logits it is given and takes the argmax, as
+    ``jax.random.categorical`` does."""
+
+    def __init__(self, draws, path):
+        self.draws, self.path = draws, path
+
+    @classmethod
+    def factory(cls, draws):
+        return lambda seed: cls(draws, (seed,))
+
+    def fold_in(self, data):
+        return ReplayKey(self.draws, self.path + ("f", int(data)))
+
+    def split(self, n):
+        return [ReplayKey(self.draws, self.path + ("s", n, i))
+                for i in range(n)]
+
+    def _draw(self, method, shape):
+        return torch.as_tensor(self.draws[draw_key(self.path, method,
+                                                   tuple(shape))])
+
+    def permutation(self, n):
+        return self._draw("permutation", (n,))
+
+    def randint(self, shape, low, high):
+        return self._draw("randint", shape)
+
+    def normal(self, shape):
+        return self._draw("normal", shape)
+
+    def bernoulli(self, shape, p):
+        return self._draw("bernoulli", shape)
+
+    def categorical(self, logits):
+        g = self._draw("gumbel", logits.shape).to(logits.device)
+        return torch.argmax(logits.float() + g, dim=-1)
+
+
+def run_dist(outdir):
+    import pickle
+
+    from repro_torch import optim, sharding
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.convert import params_from_numpy, tree_leaves
+    from repro_torch.core import train
+    from repro_torch.launch.dryrun import make_dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mlp, transformer
+
+    with open(os.path.join(outdir, "dist_inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    with open(os.path.join(outdir, "dist_draws.pkl"), "rb") as f:
+        key_fn = ReplayKey.factory(pickle.load(f))
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {"coords": {a: sharding.axis_index(mesh, a)
+                      for a in ("data", "model")},
+           "make_dist": {}}
+    for name in list_configs():
+        for fold in (False, True):
+            d = make_dist(get_config(name), mesh, batch_fold_model=fold)
+            out["make_dist"][name, fold] = (tuple(d.batch_axes),
+                                            d.model_axis, d.fsdp_axis)
+
+    # (a) the MoE's grads on the rank's shards and token block
+    ep = mlp.Dist(mesh, ("data",), "model", "data")
+    for name, B, S in MOE_CASES:
+        cfg, p, x = moe_inputs(name, B, S)
+        held = transformer.shard_params({"mlp": p}, cfg, ep)["mlp"]
+        leaves = [t.requires_grad_() for t in tree_leaves(held)]
+        rows = sharding.block_of(x, mesh, ep.batch_axes)
+        c = sharding.block_of(moe_cotangent(x), mesh, ep.batch_axes)
+        y, aux = mlp.moe_apply(held, rows, cfg.moe, cfg.act, ep)
+        loss = (y * c).sum() / sharding.axes_size(mesh, ep.batch_axes) \
+            + DIST_AUX * aux
+        grads = train.RankPart(cfg, ep).grads(
+            list(torch.autograd.grad(loss, leaves)), {"mlp": held})
+        out[f"grad:{name}:{B}x{S}"] = grads
+
+    # (b, c) the steps; each rank's tree gathered back whole
+    def step(cfg, dist, make, npp, tokens, **kw):
+        params = params_from_numpy(npp, "cpu")
+        held = transformer.shard_params(params, cfg, dist)
+        opt = optim.adam_init(held)
+        fn = make(cfg, dist=dist, lr=1e-3, **kw)
+        held, opt, metrics = fn(held, opt, {"tokens": torch.as_tensor(
+            tokens)}, 1)
+        return {"params": transformer.gather_params(held, cfg, dist),
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "held": [(tuple(t.shape), t.untyped_storage().nbytes())
+                         for t in tree_leaves(held)],
+                "opt": [tuple(t.shape) for t in tree_leaves(opt["m"])]
+                + [tuple(t.shape) for t in tree_leaves(opt["v"])]}
+
+    moe = get_config("deepseek-moe-16b").reduced()
+    ds = inputs["deepseek"]
+    ep = make_dist(moe, mesh)
+    for case in ("ff16", "ff80"):
+        out[case] = step(moe, ep, train.make_ff_train_step, ds["params"],
+                         ds[case], key_fn=key_fn)
+    ada = dataclasses.replace(moe, ff=dataclasses.replace(
+        moe.ff, neg_mode="adaptive"))
+    out["ada16"] = step(ada, ep, train.make_ff_train_step, ds["params"],
+                        ds["ada16"], key_fn=key_fn)
+    out["bp"] = step(moe, ep, train.make_bp_train_step, ds["params"],
+                     ds["bp"])
+    dense = get_config("qwen2-0.5b").reduced()
+    out["fold"] = step(dense, make_dist(dense, mesh, batch_fold_model=True),
+                       train.make_ff_train_step, inputs["qwen2"]["params"],
+                       inputs["qwen2"]["ff"], key_fn=key_fn)
+
+    # (d) prefill and decode on the rank's shard of the prompts
+    params = transformer.shard_params(params_from_numpy(ds["params"], "cpu"),
+                                      moe, ep)
+    prompts = sharding.block_of(torch.as_tensor(ds["prompts"]), mesh,
+                                ep.batch_axes)
+    logits, caches = transformer.prefill(
+        params, moe, prompts[:, :DIST_PROMPT], dist=ep,
+        max_len=DIST_PROMPT + DIST_GEN, impl="ref")
+    served = [logits]
+    for i in range(DIST_GEN):
+        logits, caches = transformer.serve_step(
+            params, moe, caches, prompts[:, DIST_PROMPT + i],
+            DIST_PROMPT + i, dist=ep)
+        served.append(logits)
+    out["serve"] = served
     return out
 
 
@@ -217,7 +375,8 @@ def _rank(rank, suite, outdir):
         "gloo", init_method=f"file://{os.path.join(outdir, 'store')}",
         rank=rank, world_size=WORLD)
     try:
-        out = {"ring": run_ring, "pod": run_pod}[suite](outdir)
+        out = {"ring": run_ring, "pod": run_pod,
+               "dist": run_dist}[suite](outdir)
         out["leaked"] = sorted(m for m in sys.modules if m.split(".")[0]
                                in ("jax", "jaxlib", "repro"))
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
