@@ -248,10 +248,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
     prefill at (4, 2048) and its FF train step at (4, 256) traced on fake
     tensors, then run on the card's plain route: the peak memory net of
     what was allocated before the call against the predicted temp bytes,
-    within ``DRYRUN_MEM_FACTOR`` either way; and ``python -m
-    repro_torch.launch.dryrun --all`` over every applicable config x
+    within ``DRYRUN_MEM_FACTOR`` either way; the per-rank trace too:
+    phase 31's deepseek cut's FF step as the rank of a (data 1, model 1)
+    mesh runs it under ``make_dist``, traced over a fake process group,
+    against the same step under the real (1, 1) mesh of an NCCL group
+    (the arguments' bytes equal, the temp within the factor); ``python
+    -m repro_torch.launch.dryrun --all`` over every applicable config x
     input shape on this host's CPU (in ``DRYRUN_JOBS`` processes, beside
-    the rest of the phase), its wall time printed.
+    the rest of the phase), its wall time printed; then ``--all --mesh
+    pod1``, each combo's step as rank 0 runs it, its wall
+    time and tally printed (each rank's peak, whether it fits 80 GB, its
+    collective bytes by type; every train combo's above 0).
 34. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 Phases 1-31 run the kernels at their default tiles: ``main`` points
@@ -275,6 +282,7 @@ import math
 import os
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -283,6 +291,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -563,7 +572,12 @@ TUNE_SHAPES = [(M, K, 2000) for M in (128, 640) for K in (784, 2000)]
 # allocated before the call, over the predicted temp bytes, within
 # DRYRUN_MEM_FACTOR either way (PERF.md §6; the factor was fixed there
 # before any reading). dryrun --all runs beside them, in DRYRUN_JOBS
-# processes on the host's CPU (one core left to this process).
+# processes on the host's CPU (one core left to this process), then
+# dryrun --all --mesh pod1, each combo's step as rank 0 runs it over a
+# fake process group. The per-rank trace is held to the card too:
+# phase 31's deepseek cut's FF step traced under make_dist on a (data 1,
+# model 1) mesh, against the same step on the card's plain route under
+# the real (1, 1) mesh of an NCCL group, within DRYRUN_MEM_FACTOR.
 DRYRUN_MEM_FACTOR = 1.5
 DRYRUN_JOBS = 7
 DRYRUN_TIMEOUT = 900
@@ -2846,6 +2860,24 @@ def leaf_rule(a, b):
     return worst, share
 
 
+def pod_dist_cfg():
+    """Phase 31's config under a Dist: deepseek-moe-16b at POD_DIST_UNITS
+    blocks, AdaptiveNEG negatives."""
+    from repro_torch.configs import get_config
+    cfg = cut_units(get_config("deepseek-moe-16b"), POD_DIST_UNITS)
+    return dataclasses.replace(cfg, ff=dataclasses.replace(
+        cfg.ff, neg_mode="adaptive"))
+
+
+def nccl_world_of_one():
+    """Initialize an NCCL default group of world size 1 on this host."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+
+
 def pod_dist_steps(data, fa, dev="cuda"):
     """31, under a Dist: deepseek-moe-16b at POD_DIST_UNITS blocks under
     ``make_dist`` on a (data 1, model 1) mesh against ``NO_DIST``: one
@@ -2853,7 +2885,6 @@ def pod_dist_steps(data, fa, dev="cuda"):
     Dist side holding ``transformer.shard_params``, gathered back), then
     prefill and POD_DIST_DECODE greedy decode steps. Returns the figures."""
     from repro_torch import optim
-    from repro_torch.configs import get_config
     from repro_torch.convert import tree_leaves
     from repro_torch.core import pff_lm, train as train_lib
     from repro_torch.kernels import counts
@@ -2861,9 +2892,7 @@ def pod_dist_steps(data, fa, dev="cuda"):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import mlp, transformer
 
-    cfg = cut_units(get_config("deepseek-moe-16b"), POD_DIST_UNITS)
-    cfg = dataclasses.replace(cfg, ff=dataclasses.replace(
-        cfg.ff, neg_mode="adaptive"))
+    cfg = pod_dist_cfg()
     ep = make_dist(cfg, make_mesh((1, 1), ("data", "model")))
     check(ep.enabled and ep.batch_axes == ("data",)
           and ep.fsdp_axis == "data", f"make_dist gave {ep}")
@@ -3006,9 +3035,6 @@ def phase_pod(api, data, fa, dev="cuda"):
     config. Then ring attention, the expert-parallel MoE at model 1, the
     LM steps and serving under ``make_dist`` (``pod_dist_steps``) and the
     CLI under torchrun. Returns the phase's wall time."""
-    import socket
-
-    import torch.distributed as dist
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.convert import tree_leaves
@@ -3020,12 +3046,8 @@ def phase_pod(api, data, fa, dev="cuda"):
     from torch_gloo_ranks import pod_oracle
 
     t_phase = time.perf_counter()
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     t0 = time.perf_counter()
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=0, world_size=1)
+    nccl_world_of_one()
     one = torch.ones(1, device=dev)
     dist.all_reduce(one)               # the communicator exists from here
     torch.cuda.synchronize()
@@ -3410,42 +3432,177 @@ def phase_tuner(api, data, kernel, vjp, gen, rows, plain_acc, tmp,
     return calls
 
 
-def start_dryrun_all(tmp):
-    """``python -m repro_torch.launch.dryrun --all`` in DRYRUN_JOBS
-    processes on the host's CPU, in the background (no card: its
-    environment hides it); returns (process, its log file, start)."""
+def start_dryrun_all(tmp, mesh="none", jobs=DRYRUN_JOBS):
+    """``python -m repro_torch.launch.dryrun --all [--mesh M --out DIR]``
+    (rank 0's step on a mesh) in ``jobs`` processes on the host's CPU, in
+    the background (no card: its environment hides it); returns
+    (process, its log file, start, the records' folder or None)."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    log = open(os.path.join(tmp, "dryrun_all.log"), "w+")
+    log = open(os.path.join(tmp, f"dryrun_all_{mesh}.log"), "w+")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+           "--jobs", str(jobs)]
+    out = None
+    if mesh != "none":
+        out = os.path.join(tmp, f"dryrun_{mesh}")
+        cmd += ["--mesh", mesh, "--out", out]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--jobs", str(DRYRUN_JOBS)], env=env, stdout=log,
-        stderr=subprocess.STDOUT, start_new_session=True)
-    return proc, log, t0
+    proc = subprocess.Popen(cmd, env=env, stdout=log,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, log, t0, out
 
 
 def stop_dryrun_all(job):
     """Kill the job's process group (the dry run and its pool's
     workers) if it still runs, and close its log."""
-    proc, log, _ = job
+    proc, log = job[:2]
     if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.wait()
     log.close()
 
 
-def phase_dryrun(job):
+def wait_dryrun_all(job):
+    """(its OK lines, its last line, its wall time) of a ``dryrun --all``
+    job waited for; fails the run unless every combo traced."""
+    proc, log, t_all = job[:3]
+    rc = proc.wait(timeout=DRYRUN_TIMEOUT)
+    all_s = time.perf_counter() - t_all
+    log.seek(0)
+    lines = log.read().splitlines()
+    check(rc == 0 and lines and lines[-1].startswith("all "),
+          f"dryrun --all exited {rc}:\n" + "\n".join(lines[-20:]))
+    return [ln for ln in lines if ln.startswith("OK ")], lines[-1], all_s
+
+
+def dryrun_memory_check(tag, res, fn, smi):
+    """``res``'s predicted temp bytes (``dryrun.analyze_combo``'s, or a
+    trace's analysis) against ``fn`` run on the card: the peak of
+    ``max_memory_allocated`` after a reset, net of what was allocated
+    before the call, after one call for the first-use allocations
+    (cuBLAS); within DRYRUN_MEM_FACTOR either way. Prints both."""
+    mem = res["memory"]
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - before
+    del out
+    predicted = mem["temp_size_in_bytes"]
+    ratio = measured / predicted
+    print(f"[33 dryrun] {tag} on the plain route, on {smi}: predicted temp "
+          f"{predicted / 2 ** 30:.4f} GiB (peak "
+          f"{mem['peak_size_in_bytes'] / 2 ** 30:.4f} - arguments "
+          f"{mem['argument_size_in_bytes'] / 2 ** 30:.4f}), measured "
+          f"{measured / 2 ** 30:.4f} GiB over the "
+          f"{before / 2 ** 30:.4f} GiB allocated before the call: "
+          f"measured / predicted {ratio:.4f} (within "
+          f"{DRYRUN_MEM_FACTOR}x either way)")
+    check(1 / DRYRUN_MEM_FACTOR <= ratio <= DRYRUN_MEM_FACTOR,
+          f"dry run {tag}: measured / predicted temp {ratio:.4f} outside "
+          f"{DRYRUN_MEM_FACTOR}x")
+    return ratio
+
+
+def dist_dryrun_memory(smi, dev="cuda"):
+    """33, per rank: phase 31's deepseek cut's FF step at (POD_BATCH,
+    POD_SEQ) traced as the rank of a (data 1, model 1) mesh runs it
+    under ``make_dist`` (``dryrun.trace_combo`` over a fake process
+    group), against the same step on the card's plain route under
+    ``make_dist`` on the real (1, 1) mesh of an NCCL group of world size
+    1, the rank holding ``transformer.shard_params``: the arguments'
+    bytes equal, the temp bytes within DRYRUN_MEM_FACTOR."""
+    from repro_torch import optim
+    from repro_torch.configs import InputShape
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core import pff_lm, train as train_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    cfg = pod_dist_cfg()
+    t0 = time.perf_counter()
+    _, an, meta = dryrun.trace_combo(
+        cfg, InputShape("chip_smoke_dist_train", POD_SEQ, POD_BATCH,
+                        "train"), mesh={"data": 1, "model": 1})
+    trace_s = time.perf_counter() - t0
+    check(not dist.is_initialized(), "the per-rank trace left its fake "
+          "process group initialized")
+    nccl_world_of_one()
+    try:
+        ep = dryrun.make_dist(cfg, make_mesh((1, 1), ("data", "model")))
+        params = transformer.shard_params(pff_lm.init_params(cfg, 0, dev),
+                                          cfg, ep)
+        opt = optim.adam_init(params)
+        tokens = torch.randint(
+            0, cfg.vocab, (POD_BATCH, POD_SEQ + 1),
+            generator=torch.Generator(device=dev).manual_seed(1),
+            device=dev, dtype=torch.int32)
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves((params, opt, tokens)))
+        step = train_lib.make_ff_train_step(cfg, dist=ep, impl="ref")
+        ratio = dryrun_memory_check(
+            f"deepseek-moe-16b ({POD_DIST_UNITS} blocks, AdaptiveNEG) FF "
+            f"step per rank under make_dist (data 1, model 1) (B "
+            f"{POD_BATCH}, S {POD_SEQ})", an,
+            lambda: step(params, opt, {"tokens": tokens}, 1), smi)
+        del params, opt, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want = an["memory"]["argument_size_in_bytes"]
+    print(f"[33 dryrun] that rank's arguments: traced {want} bytes, held on "
+          f"the card {held}; collective bytes {an['collective_bytes']} "
+          f"(every axis size 1); traced in {trace_s:.1f} s")
+    check(held == want, f"per-rank arguments: the card holds {held} bytes, "
+          f"the trace {want}")
+    return ratio
+
+
+def pod1_tally(out, ok, last, all_s):
+    """Print ``dryrun --all --mesh pod1``'s records (``out``) one line a
+    combo, and its tally; every record per rank, every train combo's
+    collective bytes > 0."""
+    recs = []
+    for name in sorted(os.listdir(out)):
+        with open(os.path.join(out, name)) as f:
+            recs.append(json.load(f))
+    for r in recs:
+        moved = ", ".join(f"{k} {v}" for k, v in
+                          r["collective_by_type"].items() if v) or "none"
+        print(f"[33 pod1] rank {r['rank']} {r['arch']} {r['shape']}: peak "
+              f"{r['memory']['peak_size_in_bytes'] / 2 ** 30:.1f} GiB, "
+              f"fits 80 GB {r['fits_hbm']}; collective bytes {moved} "
+              f"(CPU trace, not a card measurement)")
+    train = [r for r in recs if r["kind"] == "train"]
+    fits = [f"{r['arch']} {r['shape']}" for r in recs if r["fits_hbm"]]
+    print(f"[33 dryrun] python -m repro_torch.launch.dryrun --all --mesh "
+          f"pod1 --jobs {DRYRUN_JOBS + 1}: {last}, "
+          f"{len(ok)} OK, in {all_s:.1f} s wall on this host's CPU; "
+          f"{len(fits)} of {len(recs)} rank peaks fit 80 GB; "
+          f"{sum(r['collective_bytes_per_dev'] > 0 for r in train)} of "
+          f"{len(train)} train combos issue collectives")
+    check(len(recs) == len(ok) and all(r["per_device"] == "rank"
+                                       for r in recs),
+          "dryrun --mesh pod1 wrote a record that is not per rank")
+    check(all(r["collective_bytes_per_dev"] > 0 for r in train),
+          "a train combo issued no collective on pod1")
+
+
+def phase_dryrun(job, tmp, smi):
     """33. The dry run against the card: for qwen2-0.5b's prefill at
     (LM_BATCH, LM_PROMPT) and its FF train step at (LM_TRAIN_BATCH,
     LM_SEQ), ``dryrun.analyze_combo``'s predicted temp bytes (peak -
     arguments) against the same call run on the card's plain route
-    (``torch.cuda.max_memory_allocated`` after a reset, net of what was
-    allocated before the call), within DRYRUN_MEM_FACTOR either way;
-    then ``dryrun --all`` (``job``, from ``start_dryrun_all``, started
-    in phase 32) waited for, every combo traced, its wall time printed.
-    Returns the phase's wall time."""
+    (``dryrun_memory_check``); the per-rank trace the same way
+    (``dist_dryrun_memory``); then ``dryrun --all`` (``job``, from
+    ``start_dryrun_all``, started in phase 32) waited for, every combo
+    traced, its wall time printed; then ``dryrun --all --mesh pod1``,
+    each combo per rank, on the host's CPU alone. Returns the phase's
+    wall time."""
     from repro_torch import optim
     from repro_torch.configs import InputShape, get_config
     from repro_torch.core import train as train_lib
@@ -3459,7 +3616,6 @@ def phase_dryrun(job):
                          ("train", (LM_TRAIN_BATCH, LM_SEQ))):
         res = dryrun.analyze_combo(arch, InputShape(f"chip_smoke_{kind}",
                                                     S, B, kind))
-        mem = res["memory"]
         params = transformer.init(
             torch.Generator(device="cuda").manual_seed(0), cfg)
         tokens = torch.randint(
@@ -3476,46 +3632,27 @@ def phase_dryrun(job):
 
             def fn():
                 return step_fn(params, opt, {"tokens": tokens}, 1)
-        fn()                            # first-use allocations (cuBLAS)
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        measured = torch.cuda.max_memory_allocated() - before
-        predicted = mem["temp_size_in_bytes"]
-        ratio = measured / predicted
-        print(f"[33 dryrun] {arch} {kind} (B {B}, S {S}) on the plain "
-              f"route: predicted temp {predicted / 2 ** 30:.4f} GiB (peak "
-              f"{mem['peak_size_in_bytes'] / 2 ** 30:.4f} - arguments "
-              f"{mem['argument_size_in_bytes'] / 2 ** 30:.4f}), measured "
-              f"{measured / 2 ** 30:.4f} GiB over the "
-              f"{before / 2 ** 30:.4f} GiB allocated before the call: "
-              f"measured / predicted {ratio:.4f} (within "
-              f"{DRYRUN_MEM_FACTOR}x either way); traced in "
-              f"{res['trace_s']} s: {res['op_flops_total']:.4e} flops "
-              f"(model {res['model_flops']:.4e}), "
-              f"{res['op_bytes_total']:.4e} bytes, bottleneck "
-              f"{res['bottleneck']} (compute {res['compute_term_s']:.4f} "
-              f"s, memory {res['memory_term_s']:.4f} s)")
-        check(1 / DRYRUN_MEM_FACTOR <= ratio <= DRYRUN_MEM_FACTOR,
-              f"dry run {arch} {kind}: measured / predicted temp "
-              f"{ratio:.4f} outside {DRYRUN_MEM_FACTOR}x")
-        del params, tokens, fn, out
+        dryrun_memory_check(f"{arch} {kind} (B {B}, S {S})", res, fn, smi)
+        print(f"[33 dryrun] {arch} {kind} traced in {res['trace_s']} s: "
+              f"{res['op_flops_total']:.4e} flops (model "
+              f"{res['model_flops']:.4e}), {res['op_bytes_total']:.4e} "
+              f"bytes, bottleneck {res['bottleneck']} (compute "
+              f"{res['compute_term_s']:.4f} s, memory "
+              f"{res['memory_term_s']:.4f} s of an H100 SXM's datasheet "
+              f"peaks)")
+        del params, tokens, fn
         torch.cuda.empty_cache()
+    dist_dryrun_memory(smi)
 
-    proc, log, t_all = job
-    rc = proc.wait(timeout=DRYRUN_TIMEOUT)
-    all_s = time.perf_counter() - t_all
-    log.seek(0)
-    lines = log.read().splitlines()
-    ok = [ln for ln in lines if ln.startswith("OK ")]
-    check(rc == 0 and lines and lines[-1].startswith("all "),
-          f"dryrun --all exited {rc}:\n" + "\n".join(lines[-20:]))
+    ok, last, all_s = wait_dryrun_all(job[0])
     slowest = max(ok, key=lambda ln: float(ln.rsplit("(trace ", 1)[1][:-2]))
     print(f"[33 dryrun] python -m repro_torch.launch.dryrun --all --jobs "
-          f"{DRYRUN_JOBS}: {lines[-1]}, {len(ok)} OK, in {all_s:.1f} s wall "
+          f"{DRYRUN_JOBS}: {last}, {len(ok)} OK, in {all_s:.1f} s wall "
           f"on this host's CPU (slowest: {slowest})")
+    # nothing else runs now: every core to the per-rank run
+    job.append(start_dryrun_all(tmp, "pod1", DRYRUN_JOBS + 1))
+    ok, last, all_s = wait_dryrun_all(job[-1])
+    pod1_tally(job[-1][3], ok, last, all_s)
     return time.perf_counter() - t_phase
 
 def main():
@@ -4343,7 +4480,7 @@ def run(t_start, tmp):
             lambda: job.append(start_dryrun_all(tmp)))
         print(f"[wall] phase 32 took {time.perf_counter() - t_new:.1f} s "
               f"of {time.perf_counter() - t_start:.1f} s so far")
-        dry_s = phase_dryrun(job[0])
+        dry_s = phase_dryrun(job, tmp, smi)
     finally:
         for j in job:
             stop_dryrun_all(j)

@@ -14,15 +14,26 @@ its shape logic) under ``launch.op_analysis``, on the plain route
   prefill  ``transformer.prefill(..., last_only=True)``;
   decode   ``transformer.serve_step`` on a ``seq_len``-deep cache.
 
-What differs from the reference: its per-device program comes from
-GSPMD partitioning, which eager PyTorch has no counterpart for (the
-port's steps take no mesh). So the port traces the whole step on one
-device. Under ``--mesh pod1|pod2`` it adds the per-device argument bytes
-(params, Adam state, inputs, caches) that the port's sharding rules give
-rank 0, reports the compute and memory terms over ``chips`` as the ideal
-split (``"per_device": "ideal_split"``), and its collective term is what
-the traced program issued: 0 on one device. Nothing here sets
-process-wide state (the reference's first lines write ``XLA_FLAGS``).
+Without a mesh the whole step runs on one device. With ``--mesh
+pod1|pod2`` the dry run is per device, as the reference's is, but where
+the reference's per-device program comes from GSPMD partitioning (which
+eager PyTorch has no counterpart for), the port traces what one rank
+(``--rank``) of its own ``Dist`` steps runs: a default process group on
+torch's ``fake`` backend (no communication, no storage) at the mesh's
+world size, a ``DeviceMesh`` over it, ``make_dist``, and the step with
+``dist=`` on the arguments that rank holds (``_rank_args``: every dense
+leaf whole, the expert weights and their Adam state as its shards, the
+train step's batch whole, prefill's and decode's batch the rank's
+block). Every term is the rank's (``"per_device": "rank"``): its flops,
+its bytes, the collectives it issues (c10d ops, counted by type and
+result bytes) and its own memory. ``per_device_argument_bytes`` beside
+it is what the reference's rules (tensor-parallel dense weights) would
+give rank 0. ``--opts batch_fold_model`` folds "model" into the batch
+axes (dense configs only); the reference's ``causal_skip`` and
+``pv_bf16`` are not ported and raise. Nothing here sets process-wide
+state beyond the fake group, destroyed after each trace (the
+reference's first lines write ``XLA_FLAGS``); it runs on the CPU with
+no GPU.
 
 The terms use the H100 SXM's datasheet figures, as
 ``chip_smoke.py::bound`` does: bf16 989e12 FLOP/s, HBM 3.35e12 B/s, and
@@ -30,13 +41,16 @@ NVLink 450e9 B/s each way for the collective term.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
-      --shape train_4k [--mesh pod1] [--out DIR]
+      --shape train_4k [--mesh pod1 [--rank R] [--opts batch_fold_model]]
+      [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--jobs 8]
+      [--mesh pod1]
 """
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import multiprocessing
@@ -44,13 +58,15 @@ import os
 import time
 
 import torch
+import torch.distributed as tdist
 
 from repro_torch import sharding
 from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
 from repro_torch.core import train as train_lib
 from repro_torch.launch import op_analysis, specs as specs_lib
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer
-from repro_torch.models.mlp import Dist
+from repro_torch.models.mlp import NO_DIST, Dist
 
 # H100 SXM (NVIDIA's datasheet, dense, per card)
 PEAK_FLOPS = 989e12          # bf16 tensor cores
@@ -58,11 +74,49 @@ HBM_BW = 3.35e12             # bytes/s
 LINK_BW = 450e9              # NVLink, bytes/s each way
 
 
-def _mesh(name):
-    """None for ``"none"``, else the production mesh's sizes."""
-    if name == "none":
-        return None
-    return specs_lib.SizesMesh(specs_lib.PRODUCTION_MESHES[name])
+# a card's device memory, for the "fits" verdict: the H100's 80 GB
+HBM_BYTES = 80e9
+
+# the reference's §Perf options (``repro.launch.dryrun.lower_combo``)
+OPTS = ("batch_fold_model", "causal_skip", "pv_bf16")
+
+
+def mesh_sizes(mesh):
+    """{axis: size} of a mesh given as None / ``"none"`` (``{}``), a name
+    of ``specs.PRODUCTION_MESHES``, a dict of sizes, or a mesh object."""
+    if mesh is None or mesh == "none":
+        return {}
+    if isinstance(mesh, str):
+        return dict(specs_lib.PRODUCTION_MESHES[mesh])
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return sharding.axis_sizes(mesh)
+
+
+def check_opts(cfg, opts, sizes):
+    """Raise ``ValueError`` for an option the port does not take with
+    this config and mesh: ``causal_skip`` and ``pv_bf16`` are not ported,
+    ``batch_fold_model`` needs a mesh and a dense config."""
+    for opt in opts:
+        if opt in ("causal_skip", "pv_bf16"):
+            raise ValueError(
+                f"{opt} is not ported: the reference's causal_skip and "
+                "pv_bf16 act on its chunked pure-JAX attention, which the "
+                "port has no counterpart for (its attention calls "
+                "ops.flash_attention, or one masked block with offsets), so "
+                "the option has nothing to act on")
+        if opt not in OPTS:
+            raise ValueError(f"unknown option {opt!r}; the reference's are "
+                             f"{OPTS}")
+    if "batch_fold_model" in opts:
+        if not sizes:
+            raise ValueError("batch_fold_model folds the mesh's model axis "
+                             "into the batch axes: it needs a mesh")
+        if cfg.moe is not None:
+            raise ValueError(
+                f"batch_fold_model is for dense configs; {cfg.name}'s MoE "
+                "splits its experts over the model axis, so its tokens "
+                "cannot be split over that axis too")
 
 
 def make_dist(cfg, mesh, *, batch_fold_model=False):
@@ -79,6 +133,29 @@ def make_dist(cfg, mesh, *, batch_fold_model=False):
                 fsdp_axis="data" if cfg.moe is not None else None)
 
 
+@contextlib.contextmanager
+def fake_group(sizes, rank=0):
+    """A ``DeviceMesh`` of ``sizes`` ({axis: size}) at ``rank``, over a
+    default process group on torch's ``fake`` backend, which runs no
+    communication and allocates nothing: each collective dispatches its
+    c10d op and returns. The group is destroyed on exit, also when the
+    body raises. Refuses to join a default group that already exists."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    n = math.prod(sizes.values())
+    if not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside the mesh's {n} ranks")
+    if tdist.is_initialized():
+        raise RuntimeError("a default process group is already "
+                           "initialized; the per-rank dry run makes its own")
+    tdist.init_process_group(backend="fake", store=FakeStore(), rank=rank,
+                             world_size=n)
+    try:
+        yield make_mesh(tuple(sizes.values()), tuple(sizes))
+    finally:
+        tdist.destroy_process_group()
+
+
 def _local_bytes(pairs, mesh):
     """Bytes of rank 0's shards of (stand-in, spec) pairs."""
     coords = {a: 0 for a in sharding.axis_names(mesh)}
@@ -86,51 +163,110 @@ def _local_bytes(pairs, mesh):
                * t.element_size() for t, s in pairs)
 
 
-def trace_combo(cfg, shape, *, mesh=None, step_kind=None, lr=1e-3):
-    """(outputs, op analysis, meta) of one combination's step traced on
-    fake tensors. ``step_kind`` defaults from the shape's kind; a
-    ``mesh`` (None or a mesh of sizes) adds the memory analysis's
-    ``per_device_argument_bytes``."""
-    kind = step_kind or shape.kind
-    mode = specs_lib.new_mode()
+def step_fn(cfg, kind, dist=NO_DIST, lr=1e-3):
+    """The step the dry run traces for ``kind`` under ``dist``, on the
+    plain route, as a function of the arguments ``_args`` gives (the
+    train step's ``(params, opt, batch, step)``, prefill's ``(params,
+    batch)``, decode's ``(params, caches, tokens, pos)``)."""
+    if kind == "train":
+        return train_lib.make_ff_train_step(cfg, dist=dist, lr=lr,
+                                            impl="ref")
+    if kind == "prefill":
+        def prefill(params, batch):
+            return transformer.prefill(params, cfg, batch["tokens"],
+                                       aux=batch.get("aux"), dist=dist,
+                                       last_only=True, impl="ref")
+        return prefill
 
+    def decode(params, caches, tokens, pos):
+        return transformer.serve_step(params, cfg, caches, tokens, pos,
+                                      dist=dist)
+    return decode
+
+
+def _args(cfg, shape, kind, mode, mesh=None):
+    """(the step's arguments, whole, as stand-ins; with a ``mesh`` of
+    sizes the (stand-in, spec) pairs of its params, Adam state and
+    inputs under the reference's rules, else None)."""
     def split(out):
         return out if mesh is not None else (out, None)
 
     (params, opt), p_specs = split(specs_lib.param_specs_abstract(
         cfg, mesh, with_opt=(kind == "train"), mode=mode))
     if kind == "train":
-        fn = train_lib.make_ff_train_step(cfg, lr=lr, impl="ref")
         inputs, i_specs = split(specs_lib.train_input_specs(
             cfg, shape, mesh, mode=mode))
         args = (params, opt, inputs, 1)
     elif kind == "prefill":
-        def fn(params, batch):
-            return transformer.prefill(params, cfg, batch["tokens"],
-                                       aux=batch.get("aux"),
-                                       last_only=True, impl="ref")
         inputs, i_specs = split(specs_lib.prefill_input_specs(
             cfg, shape, mesh, mode=mode))
         args = (params, inputs)
     elif kind == "decode":
-        def fn(params, caches, tokens, pos):
-            return transformer.serve_step(params, cfg, caches, tokens, pos)
         (caches, tokens, pos), d_specs = split(specs_lib.decode_input_specs(
             cfg, shape, mesh, mode=mode))
         inputs, i_specs = (caches, tokens), d_specs and d_specs[:2]
         args = (params, caches, tokens, pos)
     else:
         raise ValueError(f"unknown step kind {kind!r}")
-    with mode:
-        out, an = op_analysis.trace(fn, *args)
-    sizes = sharding.axis_sizes(mesh)
+    pairs = None if mesh is None else specs_lib.leaves_with_specs(
+        ((params, opt), inputs), (p_specs, i_specs))
+    return args, pairs
+
+
+def _rank_args(cfg, kind, args, dist, mode):
+    """``args`` (whole) as one rank of ``dist`` holds them in the port's
+    ``Dist`` steps: params and Adam state by ``transformer.held_specs``;
+    the train step's batch whole (it draws the negatives over the whole
+    batch and keeps its own rows); prefill's and decode's the rank's
+    block of the batch, the caches with every head whole."""
+    params, opt = specs_lib.held_params(cfg, dist, with_opt=(kind == "train"),
+                                        mode=mode)
+    if kind == "train":
+        return (params, opt) + tuple(args[2:])
+    if kind == "prefill":
+        return params, specs_lib.batch_block(args[1], dist, mode=mode)
+    caches, tokens, pos = args[1:]
+    return (params, specs_lib.batch_block(caches, dist, mode=mode,
+                                          caches=True),
+            specs_lib.batch_block(tokens, dist, mode=mode), pos)
+
+
+def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
+                lr=1e-3):
+    """(outputs, op analysis, meta) of one combination's step traced on
+    fake tensors. ``step_kind`` defaults from the shape's kind.
+
+    Without a ``mesh`` the whole step runs on one device. With one (a
+    name of ``specs.PRODUCTION_MESHES``, a dict of sizes, or a mesh
+    object), the step is the one ``rank`` runs under ``make_dist`` on
+    that mesh, traced over a fake process group (``fake_group``), on the
+    arguments the rank holds (``_rank_args``); the memory analysis adds
+    ``per_device_argument_bytes``, what the reference's rules
+    (tensor-parallel dense weights) would give rank 0. ``opts``: the
+    reference's §Perf options (``check_opts``)."""
+    kind = step_kind or shape.kind
+    sizes = mesh_sizes(mesh)
+    opts = tuple(opts)
+    check_opts(cfg, opts, sizes)
+    mode = specs_lib.new_mode()
+    sizes_mesh = specs_lib.SizesMesh(sizes) if sizes else None
+    args, pairs = _args(cfg, shape, kind, mode, sizes_mesh)
     meta = {"arch": cfg.name, "shape": shape.name, "kind": kind,
             "mesh": sizes, "chips": math.prod(sizes.values()),
-            "params": transformer.param_count(params)}
-    if mesh is not None:
-        an["memory"]["per_device_argument_bytes"] = _local_bytes(
-            specs_lib.leaves_with_specs(((params, opt), inputs),
-                                        (p_specs, i_specs)), mesh)
+            "params": transformer.param_count(args[0])}
+    if not sizes:
+        with mode:
+            out, an = op_analysis.trace(step_fn(cfg, kind, NO_DIST, lr), *args)
+        return out, an, meta
+    ref_bytes = _local_bytes(pairs, sizes_mesh)
+    meta.update(rank=rank, opts=list(opts))
+    with fake_group(sizes, rank) as dmesh:
+        d = make_dist(cfg, dmesh,
+                      batch_fold_model="batch_fold_model" in opts)
+        args = _rank_args(cfg, kind, args, d, mode)
+        with mode:
+            out, an = op_analysis.trace(step_fn(cfg, kind, d, lr), *args)
+    an["memory"]["per_device_argument_bytes"] = ref_bytes
     return out, an, meta
 
 
@@ -194,11 +330,16 @@ def param_total(cfg):
             transformer.init(torch.Generator().manual_seed(0), cfg))
 
 
-def analyze_combo(arch, shape, *, mesh="none", step_kind=None):
+def analyze_combo(arch, shape, *, mesh="none", rank=0, opts=(),
+                  step_kind=None):
     """The roofline result of one combination: ``shape`` a name of
     ``INPUT_SHAPES`` or an ``InputShape`` of the caller's (the reference's
     keys; ``op_*_total`` for its ``hlo_*_total``, ``trace_s`` for its
-    lower and compile times)."""
+    lower and compile times). With a ``mesh`` every term is ``rank``'s
+    (``"per_device": "rank"``): its flops over the peak, its bytes over
+    HBM, its collective bytes over the link, its own memory; the
+    utilization is the model's flops over the rank's times ``chips``, as
+    the reference computes it."""
     cfg = get_config(arch)
     if isinstance(shape, str):
         shape = INPUT_SHAPES[shape]
@@ -206,7 +347,7 @@ def analyze_combo(arch, shape, *, mesh="none", step_kind=None):
         raise ValueError(f"{arch} x {shape.name}: inapplicable "
                          "(full attention at 500k)")
     t0 = time.perf_counter()
-    _, an, meta = trace_combo(cfg, shape, mesh=_mesh(mesh),
+    _, an, meta = trace_combo(cfg, shape, mesh=mesh, rank=rank, opts=opts,
                               step_kind=step_kind)
     meta["trace_s"] = round(time.perf_counter() - t0, 1)
     chips = meta["chips"]
@@ -219,12 +360,14 @@ def analyze_combo(arch, shape, *, mesh="none", step_kind=None):
         collective_by_type=an["collective_by_type"],
         collective_counts=an["collective_counts"],
         memory=an["memory"],
+        fits_hbm=an["memory"]["peak_size_in_bytes"] <= HBM_BYTES,
         model_flops=mflops,
-        compute_term_s=an["flops"] / chips / PEAK_FLOPS,
-        memory_term_s=an["bytes"] / chips / HBM_BW,
+        compute_term_s=an["flops"] / PEAK_FLOPS,
+        memory_term_s=an["bytes"] / HBM_BW,
         collective_term_s=an["collective_bytes"] / LINK_BW,
-        flops_utilization=(mflops / an["flops"] if an["flops"] else 0.0),
-        per_device="ideal_split" if chips > 1 else "one_device",
+        flops_utilization=(mflops / (an["flops"] * chips)
+                           if an["flops"] else 0.0),
+        per_device="rank" if meta["mesh"] else "one_device",
     )
     terms = {"compute": res["compute_term_s"],
              "memory": res["memory_term_s"],
@@ -240,11 +383,30 @@ def all_combos():
             if specs_lib.combo_is_applicable(get_config(arch), shape)]
 
 
-def _run(arch, shape, mesh):
+def _run(arch, shape, mesh, rank, opts):
     try:
-        return analyze_combo(arch, shape, mesh=mesh), None
+        return analyze_combo(arch, shape, mesh=mesh, rank=rank,
+                             opts=opts), None
     except Exception as e:  # noqa: BLE001 (reported by main, run goes on)
         return None, repr(e)[:200]
+
+
+def ok_line(tag, res):
+    """The one-line summary ``main`` prints for a traced combination;
+    with a mesh, the rank's collective bytes by type and whether its
+    peak fits the card."""
+    line = (f"OK   {tag}: bottleneck={res['bottleneck']} "
+            f"compute={res['compute_term_s']:.4f}s "
+            f"memory={res['memory_term_s']:.4f}s "
+            f"collective={res['collective_term_s']:.4f}s "
+            f"peak={res['memory']['peak_size_in_bytes'] / 2 ** 30:.1f} GiB")
+    if res["mesh"]:
+        moved = ", ".join(f"{k} {v}" for k, v in
+                          res["collective_by_type"].items() if v) or "none"
+        line += (f" fits {HBM_BYTES / 1e9:.0f} GB: "
+                 f"{'yes' if res['fits_hbm'] else 'no'}; collective bytes "
+                 f"{moved}")
+    return line + f" (trace {res['trace_s']}s)"
 
 
 def main(argv=None):
@@ -254,25 +416,34 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", default="none",
                     choices=["none"] + sorted(specs_lib.PRODUCTION_MESHES))
+    ap.add_argument("--rank", type=int, default=0,
+                    help="the rank whose step a --mesh run traces")
+    ap.add_argument("--opts", default="",
+                    help="comma-separated §Perf options of the reference's "
+                         "(batch_fold_model; causal_skip and pv_bf16 raise)")
     ap.add_argument("--out", default=None,
                     help="write one JSON file per combination here")
     ap.add_argument("--jobs", type=int, default=1,
                     help="combinations traced at once, one process each")
     args = ap.parse_args(argv)
+    opts = tuple(o for o in args.opts.split(",") if o)
     combos = all_combos() if args.all else [(args.arch, args.shape)]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    run = (args.mesh, args.rank, opts)
     if args.jobs > 1:
         ctx = multiprocessing.get_context("spawn")
         with concurrent.futures.ProcessPoolExecutor(args.jobs,
                                                     mp_context=ctx) as ex:
-            futs = [ex.submit(_run, a, s, args.mesh) for a, s in combos]
+            futs = [ex.submit(_run, a, s, *run) for a, s in combos]
             results = [f.result() for f in futs]
     else:
-        results = [_run(a, s, args.mesh) for a, s in combos]
+        results = [_run(a, s, *run) for a, s in combos]
+    suffix = "" if args.mesh == "none" else f"__rank{args.rank}"
+    suffix += "".join(f"__{o}" for o in opts)
     failures = []
     for (arch, shape), (res, err) in zip(combos, results):
-        tag = f"{arch}__{shape}__{args.mesh}"
+        tag = f"{arch}__{shape}__{args.mesh}{suffix}"
         if res is None:
             failures.append(tag)
             print(f"FAIL {tag}: {err}")
@@ -280,12 +451,7 @@ def main(argv=None):
         if args.out:
             with open(os.path.join(args.out, tag + ".json"), "w") as f:
                 json.dump(res, f, indent=1)
-        print(f"OK   {tag}: bottleneck={res['bottleneck']} "
-              f"compute={res['compute_term_s']:.4f}s "
-              f"memory={res['memory_term_s']:.4f}s "
-              f"collective={res['collective_term_s']:.4f}s "
-              f"peak={res['memory']['peak_size_in_bytes'] / 2 ** 30:.1f}"
-              f" GiB (trace {res['trace_s']}s)")
+        print(ok_line(tag, res))
     if failures:
         raise SystemExit(f"{len(failures)} combos failed: "
                          + ", ".join(failures))

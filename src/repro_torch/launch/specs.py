@@ -20,6 +20,13 @@ sizes-only ``SizesMesh``; no process group is needed.
 ``decode_input_specs`` returns the decode position as a Python int (the
 last slot of a ``seq_len``-deep cache): the port's ``serve_step`` takes
 an int where the reference's takes an int32 scalar.
+
+Those specs are the reference's rules (tensor-parallel dense weights).
+What one rank of the port's ``Dist`` steps really holds differs: every
+dense leaf whole, the expert weights and their Adam state as the rank's
+shards (``transformer.held_specs``), and the rank's block of a batch
+(``held_params``, ``batch_block``), for ``launch.dryrun``'s per-rank
+trace.
 """
 from __future__ import annotations
 
@@ -160,6 +167,46 @@ def param_specs_abstract(cfg, mesh=None, with_opt=True, seed=0, *,
     pspecs = sharding.param_specs(params, mesh)
     specs = (pspecs, {"m": pspecs, "v": pspecs} if with_opt else None)
     return _placed(mode, (params, opt), specs, mesh, local), specs
+
+
+def held_params(cfg, dist, with_opt=True, seed=0, *, mode=None):
+    """(params, Adam state or None) as one rank of ``dist`` holds them in
+    the port's ``Dist`` steps: each leaf a fresh stand-in of its block
+    under ``transformer.held_specs`` (the expert weights' shards, every
+    other leaf whole), and Adam's f32 zeros of those. ``dist.mesh`` is a
+    ``DeviceMesh``: the block is this process's."""
+    mode = mode or new_mode()
+    params, _ = param_specs_abstract(cfg, with_opt=False, seed=seed,
+                                     mode=mode)
+    it = iter(transformer.held_specs(params, cfg, dist))
+    params = tree_map(lambda t: _fake(mode, sharding.local_shard(
+        t, next(it), dist.mesh).shape, t.dtype), params)
+    with mode:
+        opt = optim.adam_init(params) if with_opt else None
+    return params, opt
+
+
+def batch_block(tree, dist, *, mode=None, caches=False):
+    """``tree`` of stand-ins with each leaf's batch dim cut to this
+    rank's block over ``dist.batch_axes``, where their product divides it
+    (``sharding._fit``'s rule; else the leaf stays whole, as at batch 1).
+    The batch dim is 0, or with ``caches`` 1 (``(R, B, ...)``: every head
+    and position whole; a leaf of fewer than 3 dims, ``kpos``, whole)."""
+    mode = mode or new_mode()
+    mesh, axes = dist.mesh, tuple(dist.batch_axes)
+
+    def one(t):
+        if caches and t.dim() < 3:
+            return t
+        spec = [None] * t.dim()
+        spec[1 if caches else 0] = axes
+        spec = sharding._fit(spec, t.shape, mesh)
+        if all(e is None for e in spec):
+            return t
+        return _fake(mode, sharding.local_shard(t, spec, mesh).shape,
+                     t.dtype)
+
+    return tree_map(one, tree)
 
 
 def combo_is_applicable(cfg, shape_name):

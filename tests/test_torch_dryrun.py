@@ -351,12 +351,20 @@ def test_reduced_config_traces_with_fake_outputs(arch, kind):
     assert leaves and all(isinstance(t, FakeTensor) for t in leaves
                           if isinstance(t, torch.Tensor))
     assert meta["kind"] == kind and meta["chips"] == 4
+    assert meta["rank"] == 0 and meta["opts"] == []
     mem = an["memory"]
     assert an["flops"] > 0 and an["bytes"] > 0
     assert mem["peak_size_in_bytes"] >= mem["argument_size_in_bytes"] > 0
+    # the rank holds every dense leaf whole, where the reference's rules
+    # split them over both axes
     assert 0 < mem["per_device_argument_bytes"] \
         < mem["argument_size_in_bytes"]
-    assert an["collective_bytes"] == 0.0
+    # per rank: the train step sums its grads over "data", the MoE runs
+    # expert-parallel; a dense config's prefill and decode are the rank's
+    # own rows, with no collective
+    moves = kind == "train" or cfg.moe is not None
+    assert (an["collective_bytes"] > 0) == moves
+    assert an["collective_bytes"] == sum(an["collective_by_type"].values())
 
 
 def test_a_trace_leaves_no_fake_tensor_behind():
@@ -383,10 +391,16 @@ def test_analyze_combo_keys_and_terms(monkeypatch):
               "collective_term_s", "flops_utilization", "bottleneck",
               "memory", "chips", "mesh"):
         assert k in res
-    assert res["chips"] == 256 and res["per_device"] == "ideal_split"
-    assert res["collective_term_s"] == 0.0
-    assert res["compute_term_s"] == res["op_flops_total"] / 256 \
+    assert res["chips"] == 256 and res["per_device"] == "rank"
+    assert res["rank"] == 0 and res["opts"] == []
+    assert res["collective_term_s"] == 0.0     # dense decode: none
+    # every term the rank's own, as the reference's per-device program's
+    assert res["compute_term_s"] == res["op_flops_total"] \
         / dryrun.PEAK_FLOPS
+    assert res["memory_term_s"] == res["op_bytes_total"] / dryrun.HBM_BW
+    assert res["flops_utilization"] == res["model_flops"] / (
+        res["op_flops_total"] * 256)
+    assert res["fits_hbm"]
     assert res["bottleneck"] == "memory"       # one token per sequence
     assert res["params"] == ttr.param_count(
         specs.param_specs_abstract(tget("qwen2-0.5b").reduced())[0])

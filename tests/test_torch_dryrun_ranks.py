@@ -1,0 +1,232 @@
+"""The per-rank dry run (``launch.dryrun.trace_combo`` with a mesh): one
+rank's ``Dist`` step traced on fake tensors over a fake process group,
+held against the same step run on real tensors by 4 gloo CPU ranks
+(``torch_gloo_ranks dryrun``, a fresh interpreter that loads no jax),
+each rank's run recorded by ``launch.op_analysis``: the collectives'
+counts and bytes by type and the argument bytes are equal, the peak
+within ``PEAK_TOL``, for the reduced qwen2-0.5b (dense) and
+deepseek-moe-16b (MoE), train and prefill, on the (4 x 1) and (2 x 2)
+(data, model) layouts. Then what the traces say against hand counts and
+against each other: the dense train step's all-reduce bytes are its held
+leaves' bytes, once per batch axis; ``batch_fold_model`` adds the
+all-reduce over "model" on a dense config and raises on a MoE one;
+``causal_skip`` and ``pv_bf16`` raise; two ranks' counts agree; a batch
+the batch axes do not divide stays whole on every rank; and no default
+process group outlives a trace. The reference's GSPMD numbers are no
+anchor here: its partitioner inserts collectives of its own.
+"""
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import INPUT_SHAPES, get_config
+from repro_torch.convert import tree_leaves
+from repro_torch.launch import dryrun, specs
+
+import torch_gloo_ranks as gr
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PEAK_TOL = 0.01
+AXES = ("data", "model")
+CASES = [(layout, name, kind) for layout in gr.DRY_LAYOUTS
+         for name in gr.DRY_CFGS for kind in gr.DRY_KINDS]
+
+
+def _trace(name, kind, layout, rank=0, opts=(), shape=None):
+    cfg = get_config(name).reduced()
+    _, an, meta = dryrun.trace_combo(cfg, shape or gr.dry_shape(kind),
+                                     mesh=dict(zip(AXES, layout)), rank=rank,
+                                     opts=opts)
+    assert not dist.is_initialized()
+    return an, meta
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(each gloo rank's analyses by (layout, config, kind); the fake
+    traces' (analysis, meta) by (layout, config, kind, rank)), the fake
+    traces made while the ranks run."""
+    out = tmp_path_factory.mktemp("dryrun_ranks")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
+    proc = subprocess.Popen([sys.executable, "-m", "torch_gloo_ranks",
+                             "dryrun", str(out)], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        fake = {case + (rank,): _trace(case[1], case[2], case[0], rank)
+                for case in CASES for rank in range(gr.WORLD)}
+    finally:
+        so, se = proc.communicate(timeout=600)
+    assert proc.returncode == 0, so[-4000:] + se[-4000:]
+    res = [torch.load(out / f"rank{r}.pt") for r in range(gr.WORLD)]
+    assert all(r["leaked"] == [] for r in res)      # no rank loaded jax
+    return res, fake
+
+
+@pytest.mark.parametrize("layout,name,kind", CASES)
+def test_fake_trace_equals_the_gloo_ranks(runs, layout, name, kind):
+    for rank, res in enumerate(runs[0]):
+        an, meta = runs[1][layout, name, kind, rank]
+        want = res[layout, name, kind]
+        assert meta["rank"] == rank and meta["chips"] == gr.WORLD
+        assert an["collective_counts"] == want["collective_counts"], rank
+        assert an["collective_by_type"] == want["collective_by_type"], rank
+        got_m, want_m = an["memory"], want["memory"]
+        assert got_m["argument_size_in_bytes"] \
+            == want_m["argument_size_in_bytes"], rank
+        assert abs(got_m["peak_size_in_bytes"]
+                   - want_m["peak_size_in_bytes"]) \
+            <= PEAK_TOL * want_m["peak_size_in_bytes"], rank
+
+
+def test_the_cases_reach_every_collective_of_the_steps(runs):
+    """The MoE's expert all-gathers and their reduce-scatters over
+    "data" and, on (2 x 2), its all-to-alls over "model" (the sorted
+    branch); the dense steps' all-reduces and scalar all-gathers only,
+    and no collective in dense prefill."""
+    res = runs[0][0]
+    moe = res[(2, 2), "deepseek-moe-16b", "train"]["collective_counts"]
+    assert all(moe[k] > 0 for k in ("all-reduce", "all-gather",
+                                     "reduce-scatter", "all-to-all"))
+    assert res[(2, 2), "deepseek-moe-16b", "prefill"][
+        "collective_counts"]["all-to-all"] > 0
+    assert res[(4, 1), "deepseek-moe-16b", "train"][
+        "collective_counts"]["all-to-all"] == 0          # model axis 1
+    dense = res[(2, 2), "qwen2-0.5b", "train"]["collective_counts"]
+    assert dense["all-reduce"] > 0 and dense["all-gather"] > 0
+    assert dense["reduce-scatter"] == dense["all-to-all"] == 0
+    for layout in gr.DRY_LAYOUTS:
+        assert res[layout, "qwen2-0.5b", "prefill"][
+            "collective_bytes"] == 0.0
+
+
+@pytest.mark.parametrize("layout", gr.DRY_LAYOUTS)
+def test_dense_train_all_reduce_bytes_are_the_held_leaves(layout):
+    """Every leaf of the dense config is held whole and trained, so its
+    grads are all-reduced over "data" once a step: the all-reduce bytes
+    are the params' bytes, one bucket per unit and one for the embedding
+    and head; the scalars' all-gather is the five metrics' values from
+    every data rank."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    params, _ = specs.param_specs_abstract(cfg, with_opt=False)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    an, _ = _trace("qwen2-0.5b", "train", layout)
+    units = sum(r for _, r in cfg.groups)
+    assert an["collective_by_type"]["all-reduce"] == nbytes
+    assert an["collective_counts"]["all-reduce"] == units + 1
+    assert an["collective_by_type"]["all-gather"] == layout[0] * 5 * 4
+    assert an["memory"]["argument_size_in_bytes"] == 3 * nbytes + 4 * (
+        gr.DRY_BATCH * (gr.DRY_SEQ + 1))                # params, m, v, tokens
+
+
+def test_batch_fold_model_adds_the_all_reduce_over_model():
+    base, _ = _trace("qwen2-0.5b", "train", (2, 2))
+    fold, meta = _trace("qwen2-0.5b", "train", (2, 2),
+                        opts=("batch_fold_model",))
+    assert meta["opts"] == ["batch_fold_model"]
+    for k in ("all-reduce", "all-gather"):
+        assert fold["collective_counts"][k] == 2 * base["collective_counts"][k]
+    assert fold["collective_by_type"]["all-reduce"] \
+        == 2 * base["collective_by_type"]["all-reduce"]
+    # the prompts split over data x model: a quarter of them on each rank
+    pre, _ = _trace("qwen2-0.5b", "prefill", (2, 2))
+    pre_fold, _ = _trace("qwen2-0.5b", "prefill", (2, 2),
+                         opts=("batch_fold_model",))
+    tok = 4 * gr.DRY_SEQ
+    assert pre["memory"]["argument_size_in_bytes"] \
+        - pre_fold["memory"]["argument_size_in_bytes"] == tok * (2 - 1)
+    with pytest.raises(ValueError, match="batch_fold_model"):
+        _trace("deepseek-moe-16b", "train", (2, 2),
+               opts=("batch_fold_model",))
+
+
+@pytest.mark.parametrize("opt", ["causal_skip", "pv_bf16"])
+def test_unported_attention_options_raise(opt):
+    with pytest.raises(ValueError, match=opt):
+        _trace("qwen2-0.5b", "prefill", (2, 2), opts=(opt,))
+    with pytest.raises(ValueError, match="unknown option"):
+        _trace("qwen2-0.5b", "prefill", (2, 2), opts=("fast",))
+
+
+@pytest.mark.parametrize("name", gr.DRY_CFGS)
+def test_ranks_0_and_3_report_equal_counts(name):
+    """Their collectives and arguments agree; their work need not: the
+    train step's head CE runs on the batch's positive rows, which are
+    data rank 0's block alone."""
+    for kind in gr.DRY_KINDS:
+        a, _ = _trace(name, kind, (2, 2), rank=0)
+        b, _ = _trace(name, kind, (2, 2), rank=3)
+        for k in ("collective_counts", "collective_by_type"):
+            assert a[k] == b[k], (kind, k)
+        assert a["memory"]["argument_size_in_bytes"] \
+            == b["memory"]["argument_size_in_bytes"]
+        if kind == "train":
+            assert a["flops"] > b["flops"]
+        else:
+            assert a["flops"] == b["flops"]
+
+
+def test_a_batch_the_axes_do_not_divide_stays_whole():
+    """Decode at B 1 (as long_500k): every rank holds the whole batch and
+    every cache, as one device does; at B 4 on (2 x 2) the caches and
+    tokens are the rank's half."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    one = dataclasses.replace(INPUT_SHAPES["long_500k"], seq_len=64)
+    _, whole, _ = dryrun.trace_combo(cfg, one)
+    ranked, _ = _trace("qwen2-0.5b", "decode", (2, 2), shape=one)
+    assert ranked["memory"]["argument_size_in_bytes"] \
+        == whole["memory"]["argument_size_in_bytes"]
+    four = dataclasses.replace(one, global_batch=4)
+    _, whole4, _ = dryrun.trace_combo(cfg, four)
+    ranked4, _ = _trace("qwen2-0.5b", "decode", (2, 2), shape=four)
+    params, _ = specs.param_specs_abstract(cfg, with_opt=False)
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    kpos = 4 * 64 * sum(r for _, r in cfg.groups)      # int32 (R, S)
+    assert 2 * (ranked4["memory"]["argument_size_in_bytes"] - p_bytes
+                - kpos) == whole4["memory"]["argument_size_in_bytes"] \
+        - p_bytes - kpos
+
+
+def test_no_default_group_outlives_a_trace():
+    """After a trace, after one that raised inside the fake group (6
+    train rows over 4 data ranks), and a group that already exists is
+    refused, not joined, and left as it was."""
+    _trace("qwen2-0.5b", "prefill", (4, 1))
+    odd = dataclasses.replace(gr.dry_shape("train"), global_batch=3)
+    with pytest.raises(ValueError, match="does not split"):
+        _trace("qwen2-0.5b", "train", (4, 1), shape=odd)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="already initialized"):
+            _trace("qwen2-0.5b", "prefill", (1, 1))
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_cli_prints_the_ranks_collectives(monkeypatch, capsys):
+    """``--mesh pod1 --rank R --opts batch_fold_model`` at the reduced
+    config: the record is the rank's, and its OK line names the
+    collective bytes by type and whether the peak fits the card."""
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda a: get_config(a).reduced())
+    (res, err), = dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k",
+                               "--mesh", "pod1", "--rank", "17",
+                               "--opts", "batch_fold_model"])
+    assert err is None
+    assert res["rank"] == 17 and res["opts"] == ["batch_fold_model"]
+    assert res["per_device"] == "rank" and res["fits_hbm"]
+    line = capsys.readouterr().out.splitlines()[0]
+    assert line.startswith("OK   qwen2-0.5b__train_4k__pod1__rank17__"
+                           "batch_fold_model:")
+    assert "fits 80 GB: yes" in line and "all-reduce" in line
+    assert not dist.is_initialized()

@@ -1,7 +1,7 @@
 """Four gloo ranks for the port's multi-process tests, started from a
 fresh interpreter so that no rank loads JAX:
 
-    PYTHONPATH=src:tests python -m torch_gloo_ranks {ring,pod,dist} OUTDIR
+    PYTHONPATH=src:tests python -m torch_gloo_ranks {ring,pod,dist,dryrun} OUTDIR
 
 spawns 4 processes (the ``spawn`` start method), joined in one gloo
 group through a ``FileStore`` under OUTDIR. Each rank runs every case of
@@ -31,6 +31,11 @@ dist  over a (data=2, model=2) mesh, on the inputs the test wrote to
       qwen2-0.5b with the model axis folded into the batch; ``prefill``
       and ``serve_step`` of the reduced deepseek on the rank's shard of
       the prompts; ``make_dist``'s fields for every config.
+dryrun
+      the steps ``launch.dryrun`` traces per rank (``DRY_KINDS`` of
+      ``DRY_CFGS``, reduced) on real tensors over (data, model) meshes of
+      ``DRY_LAYOUTS``, each rank holding what the dry run gives it, under
+      ``launch.op_analysis``: the analysis of each.
 """
 from __future__ import annotations
 
@@ -368,6 +373,56 @@ def run_dist(outdir):
     return out
 
 
+# the dryrun cases: configs, step kinds, (data, model) layouts, and the
+# global batch: on (2, 2) a rank's prefill rows hold T = 160 tokens of the
+# reduced deepseek-moe-16b (> 64 * top_k: the sorted branch and its
+# all_to_all), on (4, 1) T = 80 (dense-local)
+DRY_CFGS = ("qwen2-0.5b", "deepseek-moe-16b")
+DRY_KINDS = ("train", "prefill")
+DRY_LAYOUTS = ((4, 1), (2, 2))
+DRY_BATCH, DRY_SEQ = 4, 80
+
+
+def dry_shape(kind):
+    """The ``InputShape`` of a dryrun case."""
+    from repro_torch.configs import InputShape
+    return InputShape(f"gloo_{kind}", DRY_SEQ, DRY_BATCH, kind)
+
+
+def run_dryrun(outdir):
+    from repro_torch import optim, sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    out = {}
+    for layout in DRY_LAYOUTS:
+        mesh = make_mesh(layout, ("data", "model"))
+        for name in DRY_CFGS:
+            cfg = get_config(name).reduced()
+            d = dryrun.make_dist(cfg, mesh)
+            for kind in DRY_KINDS:
+                params = transformer.shard_params(transformer.init(
+                    torch.Generator().manual_seed(0), cfg), cfg, d)
+                tokens = torch.randint(
+                    0, cfg.vocab, (DRY_BATCH, DRY_SEQ + (kind == "train")),
+                    generator=torch.Generator().manual_seed(1),
+                    dtype=torch.int32)
+                if kind == "train":
+                    args = (params, optim.adam_init(params),
+                            {"tokens": tokens}, 1)
+                else:
+                    # the rank's rows alone (a copy: a view would keep
+                    # the whole batch's storage among the arguments)
+                    args = (params, {"tokens": sharding.block_of(
+                        tokens, mesh, d.batch_axes).clone()})
+                _, an = op_analysis.trace(dryrun.step_fn(cfg, kind, d),
+                                          *args)
+                out[layout, name, kind] = an
+    return out
+
+
 def _rank(rank, suite, outdir):
     torch.set_num_threads(1)
     torch.use_deterministic_algorithms(True)
@@ -375,8 +430,8 @@ def _rank(rank, suite, outdir):
         "gloo", init_method=f"file://{os.path.join(outdir, 'store')}",
         rank=rank, world_size=WORLD)
     try:
-        out = {"ring": run_ring, "pod": run_pod,
-               "dist": run_dist}[suite](outdir)
+        out = {"ring": run_ring, "pod": run_pod, "dist": run_dist,
+               "dryrun": run_dryrun}[suite](outdir)
         out["leaked"] = sorted(m for m in sys.modules if m.split(".")[0]
                                in ("jax", "jaxlib", "repro"))
         torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
