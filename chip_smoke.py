@@ -258,8 +258,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
     the rest of the phase), its wall time printed; then ``--all --mesh
     pod1``, each combo's step as rank 0 runs it, its wall
     time and tally printed (each rank's peak, whether it fits 80 GB, its
-    collective bytes by type; every train combo's above 0).
-34. Isolation: no ``jax`` and no ``repro`` module was loaded.
+    arguments beside the reference rules' blocks, its params and Adam
+    state equal to them, its collective bytes by type; every train
+    combo's above 0).
+34. Tensor-parallel ranks on the one card: the attention kernel at the
+    ranks' shapes (qwen3-8b's (4, 2048, 16 / 4, 128) and recurrentgemma-
+    2b's (4, 4096, 5 / 1, 256, window 2048)) against its plain version
+    and timed beside its bound and SDPA; qwen3-8b at published width and
+    depth in bf16, prefill of (4, 2048) and 8 decode steps, and one FF
+    step of its 2-unit cut in f32 (B 4, S 256), first under ``NO_DIST``
+    in this process, then on two processes of a gloo group on CUDA
+    tensors, a (data 1, model 2) mesh, each rank holding the blocks of
+    the reference's ``param_specs``: 36 attention kernel calls per
+    prefill per rank, its caches holding its 4 of the 8 kv heads, its
+    logits within ``LM_BF16_TOL`` of ``NO_DIST``'s and its argmax
+    ``NO_DIST``'s on decided rows, the leaves ``gather_params`` returns
+    after the step within the leaf rule, its arguments equal to the
+    per-rank dry run's and its temp memory on the plain route within
+    ``DRYRUN_MEM_FACTOR``; the phase's wall time.
+35. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 Phases 1-31 run the kernels at their default tiles: ``main`` points
 ``REPRO_TORCH_TUNE_TABLE`` at an empty table of the run's own, whatever
@@ -593,6 +610,28 @@ DRYRUN_TIMEOUT = 900
 # serve_steps bit-identical to NO_DIST.
 POD_DIST_UNITS, POD_DIST_DECODE = 3, 8
 LEAF_SHARE, LEAF_TOL = 1e-4, 1e-3
+# Phase 34: tensor-parallel ranks on the one card. TP_MESH (data 1, model
+# 2) over two processes in a gloo group (NCCL refuses two ranks on one
+# device), on CUDA tensors, each holding the blocks of the reference's
+# param_specs. TP_CFG at published width and depth in bf16: prefill of
+# (LM_BATCH, LM_PROMPT) and TP_DECODE decode steps fed NO_DIST's greedy
+# tokens, each rank's last-position logits within LM_BF16_TOL of
+# NO_DIST's and its argmax NO_DIST's on decided rows (phase 23's rule),
+# TP_CALLS attention kernel calls per prefill per rank; one FF step of its
+# TP_TRAIN_UNITS-unit cut at (POD_BATCH, POD_SEQ) in f32, the leaves
+# gather_params returns against NO_DIST's by the leaf rule (f32: Adam's
+# first step moves an element by lr times the sign of its grad, and in
+# bf16 a grad within rounding of zero takes either sign under two
+# summation orders); each rank's argument bytes equal to the per-rank dry
+# run's for its rank of (1, 2), its temp memory on the plain route within
+# DRYRUN_MEM_FACTOR of the prediction; the kernel at the ranks' attention
+# shapes (TP_RANK_ATTN: qwen3-8b's 16 / 4 heads a rank, recurrentgemma-
+# 2b's 5 / 1) against its plain version and timed.
+TP_CFG, TP_MESH, TP_DECODE, TP_TRAIN_UNITS, TP_CALLS = \
+    "qwen3-8b", (1, 2), 8, 2, 36
+TP_RANK_ATTN = [(4, 2048, 2048, 16, 4, 128, True, None),
+                (4, 4096, 4096, 5, 1, 256, True, 2048)]
+TP_TIMEOUT = 900
 POD_CLI = ["-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
            "--arch", "qwen2-0.5b", "--full", "--backend", "pod", "--nodes",
@@ -876,7 +915,46 @@ def roofline(flops, nbytes, bf16_flops=0, tf32_flops=0):
                                        else "bytes")
 
 
-def attention_rows(gen, shape, fa_errs, flush):
+def fa_check(gen, shape, fa_errs, tag):
+    """The attention kernel at ``shape`` against its plain version, bf16
+    and f32: two calls bit-identical, the error scaled by max |plain|
+    within FA_TOL, bf16 elementwise within one rounding. Records each
+    max abs error in ``fa_errs``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, Sq, Sk, H, KV, hd, causal, window = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
+        o = fa.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(torch.equal(o, again), f"flash_attention: two calls at "
+              f"{shape} {dtype} differ")
+        p = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        check(o.dtype == dtype and o.shape == q.shape
+              and bool(torch.isfinite(o.float()).all()),
+              f"flash_attention output type/shape/finite at {(B, Sq, Sk)}")
+        e = scaled_err(o, p)
+        diff = (o.float() - p.float()).abs()
+        fa_errs[shape + (dtype,)] = float(diff.max())
+        msg = ""
+        if dtype == torch.bfloat16:
+            # worst |o - p| over its elementwise limit (<= 1 passes)
+            lim = (FA_BF16_REL * p.float().abs()
+                   + FA_BF16_ABS * p.float().abs().max())
+            r = float((diff / lim).max())
+            msg = (f"; elementwise {r:.3f} of 2^-7 |p| + "
+                   f"{FA_BF16_ABS} max|p| (<= 1)")
+            check(r <= 1.0, f"flash_attention bf16 differs from its "
+                  f"plain version by more than one bf16 rounding at {shape}")
+        print(f"[{tag}] flash_attention {shape} {str(dtype)[6:]}: err "
+              f"{e:.3e} (<= {FA_TOL[dtype]}){msg}; repeat bit-identical")
+        check(e <= FA_TOL[dtype], f"flash_attention disagrees with its "
+              f"plain version at {shape} {dtype}")
+        del q, k, v, o, again, p
+
+
+def attention_rows(gen, shape, fa_errs, flush, tag="14 time"):
     """14. The attention kernel at one prefill shape, bf16 and f32: its
     time, its plain version's, one SDPA call's (a causal and window mask
     passed as a boolean ``attn_mask`` where a window is given) and the
@@ -913,7 +991,7 @@ def attention_rows(gen, shape, fa_errs, flush):
             "library": "F.scaled_dot_product_attention(enable_gqa=True; "
                        "is_causal=True, or the causal and window mask as "
                        "attn_mask) on (B, H, S, hd) copies, TF32 off"})
-        print(f"[14 time] flash_attention {shape} {str(dtype)[6:]}: kernel "
+        print(f"[{tag}] flash_attention {shape} {str(dtype)[6:]}: kernel "
               f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
               f"{fa_pairs(Sq, Sk, causal, window)} pairs a head)")
@@ -3573,9 +3651,14 @@ def pod1_tally(out, ok, last, all_s):
     for r in recs:
         moved = ", ".join(f"{k} {v}" for k, v in
                           r["collective_by_type"].items() if v) or "none"
+        mem = r["memory"]
         print(f"[33 pod1] rank {r['rank']} {r['arch']} {r['shape']}: peak "
-              f"{r['memory']['peak_size_in_bytes'] / 2 ** 30:.1f} GiB, "
-              f"fits 80 GB {r['fits_hbm']}; collective bytes {moved} "
+              f"{mem['peak_size_in_bytes'] / 2 ** 30:.1f} GiB, "
+              f"fits 80 GB {r['fits_hbm']}; arguments "
+              f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB, the "
+              f"reference rules' {mem['per_device_argument_bytes'] / 2 ** 30:.3f}"
+              f" (params and Adam state {mem['rank_param_bytes']} bytes, the "
+              f"rules' {mem['rules_param_bytes']}); collective bytes {moved} "
               f"(CPU trace, not a card measurement)")
     train = [r for r in recs if r["kind"] == "train"]
     fits = [f"{r['arch']} {r['shape']}" for r in recs if r["fits_hbm"]]
@@ -3590,6 +3673,10 @@ def pod1_tally(out, ok, last, all_s):
           "dryrun --mesh pod1 wrote a record that is not per rank")
     check(all(r["collective_bytes_per_dev"] > 0 for r in train),
           "a train combo issued no collective on pod1")
+    check(all(r["memory"]["rank_param_bytes"]
+              == r["memory"]["rules_param_bytes"] for r in recs),
+          "a rank on pod1 holds params other than the reference rules' "
+          "blocks")
 
 
 def phase_dryrun(job, tmp, smi):
@@ -3654,6 +3741,293 @@ def phase_dryrun(job, tmp, smi):
     ok, last, all_s = wait_dryrun_all(job[-1])
     pod1_tally(job[-1][3], ok, last, all_s)
     return time.perf_counter() - t_phase
+
+def tp_train_cfg():
+    """Phase 34's FF step config: TP_CFG at TP_TRAIN_UNITS units, f32."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(cut_units(get_config(TP_CFG), TP_TRAIN_UNITS),
+                               dtype="float32")
+
+
+def tree_bytes(tree):
+    from repro_torch.convert import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tree_map_cpu(tree):
+    from repro_torch.convert import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def peak_over(fn):
+    """(fn's result, the peak of ``max_memory_allocated`` during it net
+    of what was allocated before)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def tp_rank(rank, port, tmp):
+    """One rank of phase 34, in a process of its own: joins the gloo
+    group, runs its part (``tp_rank_work``) and saves what it measured
+    to ``tmp/tp_rank<rank>.pt``; leaves the group whatever happens."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=math.prod(TP_MESH))
+    try:
+        torch.save(tp_rank_work(rank, tmp),
+                   os.path.join(tmp, f"tp_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_rank_work(rank, tmp, dev="cuda"):
+    """34, per rank: the held blocks of TP_CFG (whole init from seed 0 on
+    the card, cut by ``shard_params``, the whole freed), prefill through
+    the kernels and decode fed NO_DIST's tokens, against NO_DIST's
+    logits (``tmp/tp_no_dist.pt``); the plain-route prefill's temp
+    memory; the FF step of the cut and its temp memory, its gathered
+    leaves against NO_DIST's (rank 0, ``tmp/tp_no_dist_train.pt``).
+    Returns the figures."""
+    from repro_torch import optim
+    from repro_torch.convert import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.core import pff_lm, train as train_lib
+    from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.launch.dryrun import make_dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+
+    ref = torch.load(os.path.join(tmp, "tp_no_dist.pt"))
+    mesh = make_mesh(TP_MESH, ("data", "model"))
+    cfg = get_config(TP_CFG)
+    d = make_dist(cfg, mesh)
+    out = {"rank": rank, "model": int(mesh.get_local_rank("model"))}
+    params = transformer.shard_params(pff_lm.init_params(cfg, 0, dev), cfg,
+                                      d)
+    torch.cuda.empty_cache()
+    prompts = ref["prompts"].to(dev)
+    out["prefill_args"] = tree_bytes(params) + tree_bytes(prompts)
+    V, P = cfg.vocab, prompts.shape[1]
+    errs, decided, same = [], [], []
+
+    def gate(logits, want):
+        lk, lr = logits[:, :V].float(), want.to(dev)
+        errs.append(scaled_err(lk, lr))
+        ok = top2_margin(lr) > 2 * float((lk - lr).abs().max())
+        decided.append(int(ok.sum()))
+        same.append(int((lk.argmax(-1) == lr.argmax(-1))[ok].sum()))
+
+    with torch.no_grad():
+        counts.reset(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(
+            params, cfg, prompts, dist=d, max_len=P + TP_DECODE,
+            last_only=True)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["calls"] = fa.LAUNCHES.total
+        out["kv_heads"] = int(caches[0][0]["k"].shape[3])
+        gate(logits, ref["logits"][0])
+        t0 = time.perf_counter()
+        for i, tok in enumerate(ref["tokens"]):
+            logits, caches = transformer.serve_step(
+                params, cfg, caches, tok.to(dev), P + i, dist=d)
+            gate(logits, ref["logits"][i + 1])
+        torch.cuda.synchronize()
+        out["decode_step_s"] = (time.perf_counter() - t0) / TP_DECODE
+        out["decode_calls"] = fa.LAUNCHES.total - out["calls"]
+        del caches, logits
+        # the plain route, as the dry run traces it, for the memory check
+        _, out["prefill_temp"] = peak_over(lambda: transformer.prefill(
+            params, cfg, prompts, dist=d, last_only=True, impl="ref"))
+    out.update(errs=errs, decided=decided, same=same)
+    del params, prompts
+    torch.cuda.empty_cache()
+
+    cut = tp_train_cfg()
+    params = transformer.shard_params(pff_lm.init_params(cut, 0, dev), cut,
+                                      d)
+    opt = optim.adam_init(params)
+    torch.cuda.empty_cache()
+    tokens = ref["train_tokens"].to(dev)
+    out["train_args"] = tree_bytes((params, opt, tokens))
+    step = train_lib.make_ff_train_step(cut, dist=d, lr=1e-3)
+    t0 = time.perf_counter()
+    _, out["train_temp"] = peak_over(
+        lambda: step(params, opt, {"tokens": tokens}, 1))
+    out["train_s"] = time.perf_counter() - t0
+    whole = transformer.gather_params(params, cut, d)
+    if rank == 0:
+        want = torch.load(os.path.join(tmp, "tp_no_dist_train.pt"),
+                          mmap=True)
+        worst, share = 0.0, 0.0
+        for a, b in zip(tree_leaves(whole), tree_leaves(want)):
+            w, s = leaf_rule([a], [b.to(dev)])
+            worst, share = max(worst, w), max(share, s)
+        out.update(worst=worst, share=share,
+                   finite=all(bool(torch.isfinite(t).all())
+                              for t in tree_leaves(whole)))
+    return out
+
+
+def phase_tensor_parallel(gen, flush, tmp, smi):
+    """34. Tensor-parallel ranks on one card (TP_MESH, two processes in a
+    gloo group, CUDA tensors): the kernel at the ranks' attention shapes
+    against its plain version and timed; TP_CFG's prefill, decode and FF
+    step under NO_DIST in this process (results kept on the host), the
+    per-rank dry run of each rank's prefill and step, then the ranks
+    (``tp_rank``) held to them. Returns (the kernel rows, the ranks'
+    attention kernel calls, the phase's wall time)."""
+    import torch.multiprocessing as mp
+
+    from repro_torch import optim
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.convert import tree_leaves
+    from repro_torch.core import pff_lm, train as train_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    fa_errs, rows = {}, []
+    for shape in TP_RANK_ATTN:
+        fa_check(gen, shape, fa_errs, "34 check")
+        rows += attention_rows(gen, shape, fa_errs, flush, "34 time")
+
+    # NO_DIST on the card, kept on the host
+    cfg = get_config(TP_CFG)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(34),
+                            dtype=torch.int32)
+    params = pff_lm.init_params(cfg, 0, "cuda")
+    ref = {"prompts": prompts, "logits": [], "tokens": []}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = transformer.prefill(
+            params, cfg, prompts.cuda(), max_len=LM_PROMPT + TP_DECODE,
+            last_only=True)
+        for i in range(TP_DECODE + 1):
+            ref["logits"].append(logits[:, :cfg.vocab].float().cpu())
+            if i == TP_DECODE:
+                break
+            tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+            ref["tokens"].append(tok.cpu())
+            logits, caches = transformer.serve_step(params, cfg, caches, tok,
+                                                    LM_PROMPT + i)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    cut = tp_train_cfg()
+    ref["train_tokens"] = torch.randint(
+        0, cut.vocab, (POD_BATCH, POD_SEQ + 1),
+        generator=torch.Generator().manual_seed(35), dtype=torch.int32)
+    params = pff_lm.init_params(cut, 0, "cuda")
+    opt = optim.adam_init(params)
+    t0 = time.perf_counter()
+    train_lib.make_ff_train_step(cut, lr=1e-3)(
+        params, opt, {"tokens": ref["train_tokens"].cuda()}, 1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    torch.save(tree_map_cpu(params), os.path.join(tmp, "tp_no_dist_train.pt"))
+    torch.save(ref, os.path.join(tmp, "tp_no_dist.pt"))
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # the per-rank dry run of each rank's prefill and FF step
+    sizes = dict(zip(("data", "model"), TP_MESH))
+    pred = {}
+    for r in range(math.prod(TP_MESH)):
+        for kind, c, (B, S) in (("prefill", cfg, (LM_BATCH, LM_PROMPT)),
+                                ("train", cut, (POD_BATCH, POD_SEQ))):
+            _, an, _ = dryrun.trace_combo(
+                c, InputShape(f"chip_smoke_tp_{kind}", S, B, kind),
+                mesh=sizes, rank=r)
+            pred[r, kind] = an["memory"]
+    check(not dist.is_initialized(), "the per-rank trace left its fake "
+          "process group initialized")
+
+    # the ranks
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tp_rank, args=(port, tmp),
+                             nprocs=math.prod(TP_MESH), join=False,
+                             start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() - t0 < TP_TIMEOUT,
+                  f"the tensor-parallel ranks ran past {TP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    ranks_s = time.perf_counter() - t0
+    calls = 0
+    for r in range(math.prod(TP_MESH)):
+        res = torch.load(os.path.join(tmp, f"tp_rank{r}.pt"))
+        calls += res["calls"]
+        kv = cfg.n_kv // TP_MESH[1]
+        print(f"[34 tp] rank {r} (model {res['model']}) of (data "
+              f"{TP_MESH[0]}, model {TP_MESH[1]}), gloo on CUDA tensors, "
+              f"{TP_CFG} bf16 at published width and depth, {cfg.n_heads // TP_MESH[1]} "
+              f"/ {res['kv_heads']} heads: prefill (B {LM_BATCH}, S "
+              f"{LM_PROMPT}) {res['prefill_s']:.4f} s with {res['calls']} "
+              f"attention kernel calls ({res['decode_calls']} in decode), "
+              f"decode step {res['decode_step_s'] * 1e3:.2f} ms; logits vs "
+              f"NO_DIST, prefill then {TP_DECODE} steps fed NO_DIST's "
+              f"tokens: {[f'{e:.3e}' for e in res['errs']]} (<= "
+              f"{LM_BF16_TOL}); argmax equal on {sum(res['same'])}/"
+              f"{sum(res['decided'])} decided rows; FF step of the "
+              f"{TP_TRAIN_UNITS}-unit f32 cut (B {POD_BATCH}, S {POD_SEQ}) "
+              f"{res['train_s']:.4f} s")
+        check(res["calls"] == TP_CALLS and res["decode_calls"] == 0,
+              f"rank {r} prefill launched {res['calls']} attention kernels "
+              f"({res['decode_calls']} in decode), expected {TP_CALLS}")
+        check(res["kv_heads"] == kv, f"rank {r}'s caches hold "
+              f"{res['kv_heads']} kv heads, expected its {kv}")
+        check(max(res["errs"]) <= LM_BF16_TOL, f"rank {r}: logits differ "
+              f"from NO_DIST by {max(res['errs'])} > {LM_BF16_TOL}")
+        check(res["same"] == res["decided"], f"rank {r}: greedy tokens "
+              f"differ from NO_DIST's on decided rows")
+        if r == 0:
+            print(f"[34 tp] gathered leaves after the FF step vs NO_DIST: max "
+                  f"abs diff {res['worst']:.3e} (<= {LEAF_TOL}), worst share "
+                  f"beyond {WEIGHT_TOL} {res['share']:.2e} (<= "
+                  f"{LEAF_SHARE}); NO_DIST's step {train_s:.4f} s, its "
+                  f"prefill and decode {serve_s:.4f} s")
+            check(res["finite"] and res["worst"] <= LEAF_TOL
+                  and res["share"] <= LEAF_SHARE,
+                  f"the tensor-parallel FF step differs from NO_DIST beyond "
+                  f"the leaf rule: {res['worst']}, {res['share']}")
+        for kind in ("prefill", "train"):
+            mem, held = pred[r, kind], res[f"{kind}_args"]
+            ratio = res[f"{kind}_temp"] / mem["temp_size_in_bytes"]
+            print(f"[34 tp] rank {r} {kind} on the plain route, on {smi}: "
+                  f"arguments {held} bytes held, {mem['argument_size_in_bytes']}"
+                  f" traced (the rules' placed {mem['per_device_argument_bytes']}); "
+                  f"temp measured {res[f'{kind}_temp'] / 2 ** 30:.4f} GiB, "
+                  f"predicted {mem['temp_size_in_bytes'] / 2 ** 30:.4f} GiB: "
+                  f"{ratio:.4f} (within {DRYRUN_MEM_FACTOR}x either way)")
+            check(held == mem["argument_size_in_bytes"],
+                  f"rank {r} {kind}: the card holds {held} argument bytes, "
+                  f"the per-rank trace {mem['argument_size_in_bytes']}")
+            check(1 / DRYRUN_MEM_FACTOR <= ratio <= DRYRUN_MEM_FACTOR,
+                  f"rank {r} {kind}: measured / predicted temp {ratio:.4f} "
+                  f"outside {DRYRUN_MEM_FACTOR}x")
+    wall = time.perf_counter() - t_phase
+    print(f"[34 tp] the ranks ran in {ranks_s:.1f} s; phase 34 took "
+          f"{wall:.1f} s")
+    return rows, calls, wall
+
 
 def main():
     t_start = time.perf_counter()
@@ -4176,39 +4550,8 @@ def run(t_start, tmp):
     from repro_torch.models import transformer
 
     fa_errs = {}
-    for B, Sq, Sk, H, KV, hd, causal, window in FA_CHECKS:
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
-            o = fa.flash_attention(q, k, v, causal=causal, window=window)
-            again = fa.flash_attention(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            check(torch.equal(o, again), f"flash_attention: two calls at "
-                  f"{(B, Sq, Sk, H, KV, hd, causal, window)} {dtype} differ")
-            p = fa.flash_attention_plain(q, k, v, causal=causal,
-                                         window=window)
-            check(o.dtype == dtype and o.shape == q.shape
-                  and bool(torch.isfinite(o.float()).all()),
-                  f"flash_attention output type/shape/finite at {(B, Sq, Sk)}")
-            e = scaled_err(o, p)
-            shape = (B, Sq, Sk, H, KV, hd, causal, window)
-            diff = (o.float() - p.float()).abs()
-            fa_errs[shape + (dtype,)] = float(diff.max())
-            msg = ""
-            if dtype == torch.bfloat16:
-                # worst |o - p| over its elementwise limit (<= 1 passes)
-                lim = (FA_BF16_REL * p.float().abs()
-                       + FA_BF16_ABS * p.float().abs().max())
-                r = float((diff / lim).max())
-                msg = (f"; elementwise {r:.3f} of 2^-7 |p| + "
-                       f"{FA_BF16_ABS} max|p| (<= 1)")
-                check(r <= 1.0, f"flash_attention bf16 differs from its "
-                      f"plain version by more than one bf16 rounding at "
-                      f"{shape}")
-            print(f"[12 check] flash_attention {shape} {str(dtype)[6:]}: err "
-                  f"{e:.3e} (<= {FA_TOL[dtype]}){msg}; repeat bit-identical")
-            check(e <= FA_TOL[dtype], f"flash_attention disagrees with its "
-                  f"plain version at {shape} {dtype}")
-            del q, k, v, o, again, p
+    for shape in FA_CHECKS:
+        fa_check(gen, shape, fa_errs, "12 check")
 
     # 13. SSD kernel against its plain version ----------------------------
     ssd_errs = {}
@@ -4491,11 +4834,25 @@ def run(t_start, tmp):
     print(f"[wall] phase 33 took {dry_s:.1f} s of "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
-    # 34. isolation --------------------------------------------------------
+    # 34. tensor-parallel ranks on the one card ----------------------------
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    tp_rows, tp_calls, tp_s = phase_tensor_parallel(gen, flush, tmp, smi)
+    del flush
+    for row in lm_rows:
+        if row["name"] == "flash_attention":
+            row["launches"] += tp_calls
+    for row in tp_rows:
+        row["launches"] = next(r["launches"] for r in lm_rows
+                               if r["name"] == "flash_attention")
+    rows += tp_rows
+    print(f"[wall] phase 34 took {tp_s:.1f} s of "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 35. isolation --------------------------------------------------------
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     check(not leaked, f"JAX or the JAX package was imported: {leaked}")
-    print("[34 isolation] no jax, no repro module loaded")
+    print("[35 isolation] no jax, no repro module loaded")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -210,8 +210,11 @@ class RankPart:
 
     def grads(self, grads, tree):
         """``grads`` (of ``tree``'s leaves, in order) summed over the batch
-        axes that the leaves are replicated over: an expert weight's grad
-        comes out of the MoE's backward summed over the fsdp axis."""
+        axes that the leaves are replicated over. A leaf split over a
+        batch axis has its grad summed over it already, by the transpose
+        of the gather that made it whole (``sharding.gather_for_use``), as
+        an expert weight's comes out of the MoE's backward summed over
+        the fsdp axis: ``sum_grads`` skips the axes a spec names."""
         if not self.on:
             return grads
         return sharding.sum_grads(
@@ -242,8 +245,10 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
 
     Under an enabled ``dist`` (``mlp.Dist``) each rank runs this step on
     the whole batch, with params and opt_state the trees it holds
-    (``transformer.shard_params``: the expert weights and their Adam
-    state as its shards, everything else whole). Every rank draws the
+    (``transformer.shard_params``: each leaf and its Adam state the
+    rank's block of the reference's rules), each unit's leaves gathered
+    for use inside its loop (``transformer.for_use``), so that a grad
+    reaches the rank's block alone. Every rank draws the
     same negatives over the whole batch (AdaptiveNEG's forward runs on
     the rank's rows of ``pos_tok``, its logits gathered before the
     draw), then keeps its block of the stacked [pos; neg] rows and of
@@ -305,14 +310,17 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
         n_pos_here = max(0, min(x_tok.shape[0],
                                 B - part.index * x_tok.shape[0]))
 
-        embed_sg = params["embed"].detach()
+        # the whole table where the local CE reads it (perf_opt)
+        embed_sg = (transformer.top_leaf(params, "embed", cfg, dist)
+                    .detach() if perf_opt else None)
         ce_mask = is_pos[:, None] * torch.ones((1, S), device=dev)
 
         # ---- embedding: FF layer 1 (local loss); grad now, update later
         # (tied archs add the head-CE grad below)
         with torch.enable_grad():
             emb = params["embed"].detach().requires_grad_()
-            h = F.embedding(x_tok.long(), emb)
+            h = F.embedding(x_tok.long(), transformer.top_leaf(
+                {"embed": emb}, "embed", cfg, dist))
             if perf_opt:
                 emb_l = _local_ce(h, embed_sg, lab_all, ce_mask, ce_count)
             else:
@@ -341,7 +349,8 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
                         total = torch.zeros((), device=dev)
                         gp = torch.zeros((), device=dev)
                         gn = torch.zeros((), device=dev)
-                        for kind, bp in zip(pattern, up):
+                        for kind, bp in zip(pattern, transformer.for_use(
+                                up, cfg, dist)):
                             h_sg = h.detach()
                             y, moe_aux = blocks.block_apply(bp, cfg, kind,
                                                             h_sg, ctx)
@@ -400,15 +409,15 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
         if cfg.tie_embeddings:
             hp["embed"] = params["embed"].detach().requires_grad_()
         with torch.enable_grad():
-            ce_l = head_ce(x_pos_h, hp, cfg, lab_all[:n_pos_here],
-                           count=B * S)
+            ce_l = head_ce(x_pos_h, transformer.for_use(hp, cfg, dist), cfg,
+                           lab_all[:n_pos_here], count=B * S)
             head_g = dict(zip(hp, grads_of(ce_l, hp)))
         emb_g_total = emb_g
         if cfg.tie_embeddings:
             emb_g_total = emb_g + head_g.pop("embed")
         emb_g_total, *head_g = part.grads(
             [emb_g_total] + [head_g[k] for k in head_keys],
-            [params["embed"]] + [params[k] for k in head_keys])
+            {"embed": params["embed"], **{k: params[k] for k in head_keys}})
         adam_leaves(params["embed"], [emb_g_total], opt_state["m"]["embed"],
                     opt_state["v"]["embed"], lr=lr, step=step)
         adam_leaves({k: params[k] for k in head_keys}, head_g,

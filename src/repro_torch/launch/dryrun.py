@@ -21,15 +21,18 @@ eager PyTorch has no counterpart for), the port traces what one rank
 (``--rank``) of its own ``Dist`` steps runs: a default process group on
 torch's ``fake`` backend (no communication, no storage) at the mesh's
 world size, a ``DeviceMesh`` over it, ``make_dist``, and the step with
-``dist=`` on the arguments that rank holds (``_rank_args``: every dense
-leaf whole, the expert weights and their Adam state as its shards, the
-train step's batch whole, prefill's and decode's batch the rank's
-block). Every term is the rank's (``"per_device": "rank"``): its flops,
-its bytes, the collectives it issues (c10d ops, counted by type and
-result bytes) and its own memory. ``per_device_argument_bytes`` beside
-it is what the reference's rules (tensor-parallel dense weights) would
-give rank 0. ``--opts batch_fold_model`` folds "model" into the batch
-axes (dense configs only); the reference's ``causal_skip`` and
+``dist=`` on the arguments that rank holds (``_rank_args``: its params
+and Adam state the blocks of the reference's rules, the train step's
+batch whole, prefill's and decode's batch the rank's block, the caches'
+kv heads its own where its attention splits them). Every term is the
+rank's (``"per_device": "rank"``): its flops, its bytes, the
+collectives it issues (c10d ops, counted by type and result bytes) and
+its own memory. ``per_device_argument_bytes`` beside it is what the
+reference's rules give rank 0 for every argument, and
+``rules_param_bytes`` / ``rank_param_bytes`` the params' and Adam
+state's part of each (equal). ``--opts batch_fold_model`` folds "model"
+into the batch axes (dense configs only: every split leaf is then
+gathered where it is read); the reference's ``causal_skip`` and
 ``pv_bf16`` are not ported and raise. Nothing here sets process-wide
 state beyond the fake group, destroyed after each trace (the
 reference's first lines write ``XLA_FLAGS``); it runs on the CPU with
@@ -62,6 +65,7 @@ import torch.distributed as tdist
 
 from repro_torch import sharding
 from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
+from repro_torch.convert import tree_leaves
 from repro_torch.core import train as train_lib
 from repro_torch.launch import op_analysis, specs as specs_lib
 from repro_torch.launch.mesh import make_mesh
@@ -215,10 +219,12 @@ def _args(cfg, shape, kind, mode, mesh=None):
 
 def _rank_args(cfg, kind, args, dist, mode):
     """``args`` (whole) as one rank of ``dist`` holds them in the port's
-    ``Dist`` steps: params and Adam state by ``transformer.held_specs``;
-    the train step's batch whole (it draws the negatives over the whole
-    batch and keeps its own rows); prefill's and decode's the rank's
-    block of the batch, the caches with every head whole."""
+    ``Dist`` steps: params and Adam state by ``transformer.held_specs``
+    (the reference's rules); the train step's batch whole (it draws the
+    negatives over the whole batch and keeps its own rows); prefill's
+    and decode's the rank's block of the batch, the caches' kv heads the
+    rank's where its attention splits them
+    (``transformer.kv_heads_split``), every other state whole."""
     params, opt = specs_lib.held_params(cfg, dist, with_opt=(kind == "train"),
                                         mode=mode)
     if kind == "train":
@@ -226,9 +232,10 @@ def _rank_args(cfg, kind, args, dist, mode):
     if kind == "prefill":
         return params, specs_lib.batch_block(args[1], dist, mode=mode)
     caches, tokens, pos = args[1:]
-    return (params, specs_lib.batch_block(caches, dist, mode=mode,
-                                          caches=True),
-            specs_lib.batch_block(tokens, dist, mode=mode), pos)
+    return (params, specs_lib.batch_block(
+        caches, dist, mode=mode, caches=True,
+        kv_heads=transformer.kv_heads_split(cfg, dist)),
+        specs_lib.batch_block(tokens, dist, mode=mode), pos)
 
 
 def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
@@ -241,8 +248,9 @@ def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
     object), the step is the one ``rank`` runs under ``make_dist`` on
     that mesh, traced over a fake process group (``fake_group``), on the
     arguments the rank holds (``_rank_args``); the memory analysis adds
-    ``per_device_argument_bytes``, what the reference's rules
-    (tensor-parallel dense weights) would give rank 0. ``opts``: the
+    ``per_device_argument_bytes``, what the reference's rules would give
+    rank 0, and the params' part of each (``rank_param_bytes``,
+    ``rules_param_bytes``). ``opts``: the
     reference's §Perf options (``check_opts``)."""
     kind = step_kind or shape.kind
     sizes = mesh_sizes(mesh)
@@ -259,14 +267,21 @@ def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
             out, an = op_analysis.trace(step_fn(cfg, kind, NO_DIST, lr), *args)
         return out, an, meta
     ref_bytes = _local_bytes(pairs, sizes_mesh)
+    n_state = len(tree_leaves(args[:2] if kind == "train" else args[0]))
     meta.update(rank=rank, opts=list(opts))
     with fake_group(sizes, rank) as dmesh:
         d = make_dist(cfg, dmesh,
                       batch_fold_model="batch_fold_model" in opts)
         args = _rank_args(cfg, kind, args, d, mode)
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(
+            args[:2] if kind == "train" else args[0]))
         with mode:
             out, an = op_analysis.trace(step_fn(cfg, kind, d, lr), *args)
-    an["memory"]["per_device_argument_bytes"] = ref_bytes
+    mem = an["memory"]
+    mem["per_device_argument_bytes"] = ref_bytes
+    # the params' and Adam state's part of each (the rules', rank 0's)
+    mem["rank_param_bytes"] = held
+    mem["rules_param_bytes"] = _local_bytes(pairs[:n_state], sizes_mesh)
     return out, an, meta
 
 
@@ -393,8 +408,9 @@ def _run(arch, shape, mesh, rank, opts):
 
 def ok_line(tag, res):
     """The one-line summary ``main`` prints for a traced combination;
-    with a mesh, the rank's collective bytes by type and whether its
-    peak fits the card."""
+    with a mesh, whether the rank's peak fits the card, its arguments
+    beside the reference rules' (all of them, and the params' and Adam
+    state's part) and its collective bytes by type."""
     line = (f"OK   {tag}: bottleneck={res['bottleneck']} "
             f"compute={res['compute_term_s']:.4f}s "
             f"memory={res['memory_term_s']:.4f}s "
@@ -403,9 +419,15 @@ def ok_line(tag, res):
     if res["mesh"]:
         moved = ", ".join(f"{k} {v}" for k, v in
                           res["collective_by_type"].items() if v) or "none"
+        mem = res["memory"]
         line += (f" fits {HBM_BYTES / 1e9:.0f} GB: "
-                 f"{'yes' if res['fits_hbm'] else 'no'}; collective bytes "
-                 f"{moved}")
+                 f"{'yes' if res['fits_hbm'] else 'no'}; arguments "
+                 f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB (the "
+                 f"rules' {mem['per_device_argument_bytes'] / 2 ** 30:.3f};"
+                 f" params and Adam state "
+                 f"{mem['rank_param_bytes'] / 2 ** 30:.3f}, the rules' "
+                 f"{mem['rules_param_bytes'] / 2 ** 30:.3f}); collective "
+                 f"bytes {moved}")
     return line + f" (trace {res['trace_s']}s)"
 
 

@@ -21,12 +21,11 @@ sizes-only ``SizesMesh``; no process group is needed.
 last slot of a ``seq_len``-deep cache): the port's ``serve_step`` takes
 an int where the reference's takes an int32 scalar.
 
-Those specs are the reference's rules (tensor-parallel dense weights).
-What one rank of the port's ``Dist`` steps really holds differs: every
-dense leaf whole, the expert weights and their Adam state as the rank's
-shards (``transformer.held_specs``), and the rank's block of a batch
-(``held_params``, ``batch_block``), for ``launch.dryrun``'s per-rank
-trace.
+Those specs are the reference's rules (tensor-parallel dense weights),
+which one rank of the port's ``Dist`` steps holds its params and Adam
+state by too (``transformer.held_specs``; ``held_params``), beside the
+rank's block of a batch and of the decode caches (``batch_block``), for
+``launch.dryrun``'s per-rank trace.
 """
 from __future__ import annotations
 
@@ -172,9 +171,9 @@ def param_specs_abstract(cfg, mesh=None, with_opt=True, seed=0, *,
 def held_params(cfg, dist, with_opt=True, seed=0, *, mode=None):
     """(params, Adam state or None) as one rank of ``dist`` holds them in
     the port's ``Dist`` steps: each leaf a fresh stand-in of its block
-    under ``transformer.held_specs`` (the expert weights' shards, every
-    other leaf whole), and Adam's f32 zeros of those. ``dist.mesh`` is a
-    ``DeviceMesh``: the block is this process's."""
+    under ``transformer.held_specs`` (the reference's rules), and Adam's
+    f32 zeros of those. ``dist.mesh`` is a ``DeviceMesh``: the block is
+    this process's."""
     mode = mode or new_mode()
     params, _ = param_specs_abstract(cfg, with_opt=False, seed=seed,
                                      mode=mode)
@@ -186,27 +185,32 @@ def held_params(cfg, dist, with_opt=True, seed=0, *, mode=None):
     return params, opt
 
 
-def batch_block(tree, dist, *, mode=None, caches=False):
+def batch_block(tree, dist, *, mode=None, caches=False, kv_heads=False):
     """``tree`` of stand-ins with each leaf's batch dim cut to this
     rank's block over ``dist.batch_axes``, where their product divides it
     (``sharding._fit``'s rule; else the leaf stays whole, as at batch 1).
-    The batch dim is 0, or with ``caches`` 1 (``(R, B, ...)``: every head
-    and position whole; a leaf of fewer than 3 dims, ``kpos``, whole)."""
+    The batch dim is 0, or with ``caches`` 1 (``(R, B, ...)``: every
+    position whole; a leaf of fewer than 3 dims, ``kpos``, whole); with
+    ``kv_heads`` too (``transformer.kv_heads_split``) an attention
+    cache's kv heads (``k``/``v``, (R, B, S, KV, hd)) are cut to the
+    rank's block over the model axis, every other state whole."""
     mode = mode or new_mode()
     mesh, axes = dist.mesh, tuple(dist.batch_axes)
 
-    def one(t):
+    def one(path, t):
         if caches and t.dim() < 3:
             return t
         spec = [None] * t.dim()
         spec[1 if caches else 0] = axes
+        if caches and kv_heads and path[-1] in ("k", "v"):
+            spec[3] = dist.model_axis
         spec = sharding._fit(spec, t.shape, mesh)
         if all(e is None for e in spec):
             return t
         return _fake(mode, sharding.local_shard(t, spec, mesh).shape,
                      t.dtype)
 
-    return tree_map(one, tree)
+    return sharding.map_with_path(one, tree)
 
 
 def combo_is_applicable(cfg, shape_name):

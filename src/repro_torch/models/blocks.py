@@ -18,8 +18,11 @@ a fresh model ignores ``aux``); its decode reads K/V computed once from
 MoE's dense-local branch.
 
 ``ctx`` carries ``impl`` (the kernel ops' ``impl=``, default "auto"),
-``causal``, ``aux`` (what cross attention reads), ``dist`` (the MoE's
-expert parallelism, ``mlp.Dist``; default ``mlp.NO_DIST``),
+``causal``, ``aux`` (what cross attention reads), ``dist`` (``mlp.Dist``;
+default ``mlp.NO_DIST``: the MoE's expert parallelism, and the mesh over
+which attention params that hold the rank's query heads, and a dense
+MLP's that hold its ff slice, sum their parts (``_heads``,
+``transformer.for_use``)),
 ``q_offset`` (``block_apply``: the first position of self-attention's
 rope and mask) and, for prefill, ``max_len`` (the decode caches'
 length).
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models import attention, common, mlp, rglru, ssm
 
 
@@ -58,61 +62,149 @@ def attn_init(gen, cfg, cross=False):
     return p
 
 
-def _qkv(p, cfg, x, kv_src=None):
-    """q from ``x``; k and v from ``kv_src`` (``x`` when None)."""
+class _Heads:
+    """A rank's share of tensor-parallel attention (``_heads``): the
+    mesh and model axis its ``wo`` rows are summed over, and ``kv``, the
+    kv heads its query heads read of the k and v it computes: None where
+    it holds its own kv heads (KV splits over the axis), else a slice of
+    one kv head, or an index tensor, one kv head a query head."""
+
+    def __init__(self, mesh, axis, kv):
+        self.mesh, self.axis, self.kv = mesh, axis, kv
+
+    def vary(self, t):
+        """A replica entering the rank's heads (``sharding.pvary``)."""
+        return sharding.pvary(t, self.mesh, self.axis)
+
+    def select(self, t):
+        """The kv heads (dim 2 of (B, S, KV, hd)) the rank's queries
+        read."""
+        if self.kv is None:
+            return t
+        if isinstance(self.kv, slice):
+            return t[:, :, self.kv]
+        return t.index_select(2, self.kv.to(t.device))
+
+
+def _heads(p, cfg, dist):
+    """None where the attention params ``p`` hold every query head (one
+    process, or heads that do not split over the model axis, gathered
+    whole on every rank); else the rank's ``_Heads``: its ``H / m``
+    query heads from ``r * H / m``, and its kv heads where ``wk`` splits
+    over the axis (KV divides m), else of every kv head the ones its
+    queries read, ``h // (H // KV)``."""
+    Hl = p["wq"].shape[-2]
+    if Hl == cfg.n_heads:
+        return None
+    H, KV = cfg.n_heads, cfg.n_kv
+    kv = None
+    if p["wk"].shape[-2] == KV:
+        # KV does not divide m, so neither does a rank's query count hold
+        # whole groups of H // KV: its queries read one kv head, or an
+        # uneven run of them
+        g = H // KV
+        q0 = sharding.axis_index(dist.mesh, dist.model_axis) * Hl
+        kv = (slice(q0 // g, q0 // g + 1) if g % Hl == 0
+              else (q0 + torch.arange(Hl)) // g)
+    return _Heads(dist.mesh, dist.model_axis, kv)
+
+
+def _qkv(p, cfg, x, kv_src=None, heads=None):
+    """q from ``x``; k and v from ``kv_src`` (``x`` when None). Under
+    tensor-parallel ``heads`` the inputs enter through ``pvary`` (the
+    column-parallel projections' input: its cotangent summed over the
+    model axis), as do the leaves that every rank holds whole but reads
+    only in part: ``q_norm``/``k_norm`` (each rank normalizes its own
+    heads), and ``wk``/``wv``/``bk``/``bv`` where KV does not split (each
+    rank reads some of the kv heads it computes)."""
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    bk, bv = p.get("bk"), p.get("bv")
+    if heads is not None:
+        same = kv_src is None
+        x = heads.vary(x)
+        kv_src = x if same else heads.vary(kv_src)
+        if heads.kv is not None:
+            wk, wv = heads.vary(wk), heads.vary(wv)
+            if cfg.qkv_bias:
+                bk, bv = heads.vary(bk), heads.vary(bv)
     kv_src = x if kv_src is None else kv_src
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", kv_src, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", kv_src, p["wv"])
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    k = torch.einsum("btd,dhk->bthk", kv_src, wk)
+    v = torch.einsum("btd,dhk->bthk", kv_src, wv)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + bk, v + bv
     if cfg.qk_norm:
-        q = common.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = common.rms_norm(k, p["k_norm"], cfg.norm_eps)
+        qn, kn = p["q_norm"], p["k_norm"]
+        if heads is not None:
+            qn, kn = heads.vary(qn), heads.vary(kn)
+        q = common.rms_norm(q, qn, cfg.norm_eps)
+        k = common.rms_norm(k, kn, cfg.norm_eps)
     return q, k, v
 
 
-def _attn_seq(p, cfg, x, *, causal, window, impl, q_offset=0):
+def _out(p, y, heads, eq):
+    """The output projection ``einsum(eq, y, wo)``: row-parallel under
+    tensor-parallel ``heads``, the ranks' parts summed over the model
+    axis (``sharding.psum``; the cotangent passes through whole)."""
+    y = torch.einsum(eq, y, p["wo"])
+    if heads is not None:
+        y = sharding.psum(y, heads.mesh, heads.axis)
+    return y
+
+
+def _attn_seq(p, cfg, x, *, causal, window, impl, q_offset=0,
+              dist=mlp.NO_DIST):
     """Self-attention over the whole sequence, its positions from
-    ``q_offset``: the output and the roped k and v. As in the reference,
-    the offset shifts the rope of q and k and the queries' mask
-    positions; the keys' mask positions start at 0."""
-    q, k, v = _qkv(p, cfg, x)
+    ``q_offset``: the output and the roped k and v (every kv head the
+    rank computes: its own, or all where KV does not split). As in the
+    reference, the offset shifts the rope of q and k and the queries'
+    mask positions; the keys' mask positions start at 0."""
+    heads = _heads(p, cfg, dist)
+    q, k, v = _qkv(p, cfg, x, heads=heads)
     pos = q_offset + torch.arange(x.shape[1], device=x.device)
     q = common.apply_rope(q, pos[None], cfg.rope_theta)
     k = common.apply_rope(k, pos[None], cfg.rope_theta)
-    out = attention.chunked_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=causal,
+    ka, va = (k, v) if heads is None else (heads.select(k), heads.select(v))
+    out = attention.chunked_attention(q.contiguous(), ka.contiguous(),
+                                      va.contiguous(), causal=causal,
                                       window=window, q_offset=q_offset,
                                       impl=impl)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
+    return _out(p, out, heads, "bshk,hkd->bsd"), k, v
 
 
 def _gated(p, y):
     """Cross attention's output scale: ``tanh(gate)`` in f32, cast to
-    y's dtype before the product, as the reference casts it."""
+    y's dtype before the product, as the reference casts it (on the
+    summed output: every rank scales the whole)."""
     return torch.tanh(p["gate"]).to(y.dtype) * y
 
 
 def attn_apply(p, cfg, x, *, kv_src=None, causal=True, window=None,
-               impl="auto", q_offset=0):
+               impl="auto", q_offset=0, dist=mlp.NO_DIST):
     """Self-attention over ``x`` (positions from ``q_offset``); with
     ``kv_src`` (B, T, d), cross attention from ``x`` to it: no rope, no
-    causal mask, gated."""
+    causal mask, gated. ``dist``: the rank's heads where ``p`` holds
+    them (``_heads``)."""
     if kv_src is None:
         return _attn_seq(p, cfg, x, causal=causal, window=window,
-                         impl=impl, q_offset=q_offset)[0]
-    q, k, v = _qkv(p, cfg, x, kv_src)
+                         impl=impl, q_offset=q_offset, dist=dist)[0]
+    heads = _heads(p, cfg, dist)
+    q, k, v = _qkv(p, cfg, x, kv_src, heads)
+    if heads is not None:
+        k, v = heads.select(k), heads.select(v)
     out = attention.chunked_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=False,
                                       window=window, impl=impl)
-    return _gated(p, torch.einsum("bshk,hkd->bsd", out, p["wo"]))
+    return _gated(p, _out(p, out, heads, "bshk,hkd->bsd"))
 
 
-def _attn_prefill(p, cfg, x, *, window, max_len, causal=True, impl="auto"):
-    """Like attn_apply but also returns the KV cache after S tokens."""
+def _attn_prefill(p, cfg, x, *, window, max_len, causal=True, impl="auto",
+                  dist=mlp.NO_DIST):
+    """Like attn_apply but also returns the KV cache after S tokens (the
+    kv heads the rank computes)."""
     B, S, _ = x.shape
-    y, k, v = _attn_seq(p, cfg, x, causal=causal, window=window, impl=impl)
+    y, k, v = _attn_seq(p, cfg, x, causal=causal, window=window, impl=impl,
+                        dist=dist)
     _, _, KV, hd = k.shape
     if window is not None and window < max_len:
         Wc = min(window, max_len)
@@ -138,10 +230,11 @@ def _attn_prefill(p, cfg, x, *, window, max_len, causal=True, impl="auto"):
     }
 
 
-def attn_decode(p, cfg, cache, x, pos, *, window=None):
+def attn_decode(p, cfg, cache, x, pos, *, window=None, dist=mlp.NO_DIST):
     """x: (B, d) one token; cache: {k, v, kpos}, written in place at the
     token's slot. Returns (y, cache)."""
-    q, k, v = _qkv(p, cfg, x[:, None])
+    heads = _heads(p, cfg, dist)
+    q, k, v = _qkv(p, cfg, x[:, None], heads=heads)
     posv = torch.full((1, 1), pos, device=x.device)
     q = common.apply_rope(q, posv, cfg.rope_theta)
     k = common.apply_rope(k, posv, cfg.rope_theta)
@@ -150,23 +243,29 @@ def attn_decode(p, cfg, cache, x, pos, *, window=None):
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     cache["kpos"][slot] = pos
-    y = attention.decode_attention(q[:, 0], cache["k"], cache["v"],
-                                   cache["kpos"], pos, window=window)
-    return torch.einsum("bhk,hkd->bd", y, p["wo"]), cache
+    ck, cv = cache["k"], cache["v"]
+    if heads is not None:
+        ck, cv = heads.select(ck), heads.select(cv)
+    y = attention.decode_attention(q[:, 0], ck, cv, cache["kpos"], pos,
+                                   window=window)
+    return _out(p, y, heads, "bhk,hkd->bd"), cache
 
 
-def cross_decode(p, cfg, cross_kv, x):
+def cross_decode(p, cfg, cross_kv, x, dist=mlp.NO_DIST):
     """Cross attention for one decode token against the K/V that
     ``precompute_cross_kv`` made at prefill: the plain ``decode_attention``
     with every slot visible (no kernel)."""
+    heads = _heads(p, cfg, dist)
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
         q = common.rms_norm(q, p["q_norm"], cfg.norm_eps)
-    y = attention.decode_attention(q, cross_kv["k"], cross_kv["v"],
-                                   cross_kv["kpos"], 2 ** 30)
-    y = torch.einsum("bhk,hkd->bd", y, p["wo"])
+    ck, cv = cross_kv["k"], cross_kv["v"]
+    if heads is not None:
+        ck, cv = heads.select(ck), heads.select(cv)
+    y = attention.decode_attention(q, ck, cv, cross_kv["kpos"], 2 ** 30)
+    y = _out(p, y, heads, "bhk,hkd->bd")
     if "gate" in p:
         y = _gated(p, y)
     return y
@@ -174,7 +273,7 @@ def cross_decode(p, cfg, cross_kv, x):
 
 def precompute_cross_kv(p, cfg, aux):
     """aux: (B, T, d) encoder/vision embeddings -> the decode-side K/V
-    cache {k, v, kpos}."""
+    cache {k, v, kpos} (the kv heads the rank computes)."""
     k = torch.einsum("btd,dhk->bthk", aux, p["wk"])
     v = torch.einsum("btd,dhk->bthk", aux, p["wv"])
     if cfg.qkv_bias:
@@ -211,8 +310,10 @@ def mlp_apply(p, cfg, x, dist=mlp.NO_DIST):
         return torch.zeros_like(x), torch.zeros((), device=x.device)
     if cfg.moe is not None:
         return mlp.moe_apply(p, x, cfg.moe, cfg.act, dist)
-    return mlp.dense_mlp_apply(p, x, cfg.act), torch.zeros((),
-                                                            device=x.device)
+    # tensor-parallel where p holds the rank's ff slice
+    tp = dist if p["wi"].shape[-1] != cfg.d_ff else mlp.NO_DIST
+    return mlp.dense_mlp_apply(p, x, cfg.act, tp), torch.zeros(
+        (), device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +362,9 @@ def _mlp_residual(p, cfg, x, dist=mlp.NO_DIST):
     return x + y, aux
 
 
-def _cross_residual(p, cfg, x, norm, aux, impl):
+def _cross_residual(p, cfg, x, norm, aux, impl, dist):
     h = common.rms_norm(x, norm, cfg.norm_eps)
-    return x + attn_apply(p, cfg, h, kv_src=aux, impl=impl)
+    return x + attn_apply(p, cfg, h, kv_src=aux, impl=impl, dist=dist)
 
 
 def block_apply(p, cfg, kind, x, ctx):
@@ -271,19 +372,21 @@ def block_apply(p, cfg, kind, x, ctx):
     Returns (x_out, aux_loss)."""
     impl = ctx.get("impl", "auto")
     q_off = ctx.get("q_offset", 0)
+    dist = ctx.get("dist", mlp.NO_DIST)
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=ctx.get("causal", True),
                            window=_window_for(cfg, kind), impl=impl,
-                           q_offset=q_off)
+                           q_offset=q_off, dist=dist)
     elif kind == "cross_attn":
-        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl)
+        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl,
+                            dist)
     elif kind == "xdec":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=True, impl=impl,
-                           q_offset=q_off)
+                           q_offset=q_off, dist=dist)
         x = _cross_residual(p["xattn"], cfg, x, p["norm_x"], ctx["aux"],
-                            impl)
+                            impl, dist)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + ssm.forward(p["ssm"], cfg, h, impl=impl)
@@ -292,28 +395,30 @@ def block_apply(p, cfg, kind, x, ctx):
         x = x + rglru.forward(p["rec"], cfg, h)[0]
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, cfg, x, ctx.get("dist", mlp.NO_DIST))
+    return _mlp_residual(p, cfg, x, dist)
 
 
 def block_prefill(p, cfg, kind, x, ctx):
     """x: (B, S, d). Returns (x_out, cache) — cache matches block_decode."""
     max_len = ctx.get("max_len", x.shape[1])
     impl = ctx.get("impl", "auto")
+    dist = ctx.get("dist", mlp.NO_DIST)
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = _attn_prefill(p["attn"], cfg, h,
                                  window=_window_for(cfg, kind),
-                                 max_len=max_len, impl=impl)
+                                 max_len=max_len, impl=impl, dist=dist)
         x = x + y
     elif kind == "cross_attn":
-        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl)
+        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl,
+                            dist)
         cache = precompute_cross_kv(p["attn"], cfg, ctx["aux"])
     elif kind == "xdec":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, self_c = _attn_prefill(p["attn"], cfg, h, window=None,
-                                  max_len=max_len, impl=impl)
+                                  max_len=max_len, impl=impl, dist=dist)
         x = _cross_residual(p["xattn"], cfg, x + y, p["norm_x"],
-                            ctx["aux"], impl)
+                            ctx["aux"], impl, dist)
         cache = {"self": self_c,
                  "cross": precompute_cross_kv(p["xattn"], cfg, ctx["aux"])}
     elif kind == "mamba2":
@@ -328,7 +433,7 @@ def block_prefill(p, cfg, kind, x, ctx):
         x = x + y
     else:
         raise ValueError(kind)
-    return _mlp_residual(p, cfg, x, ctx.get("dist", mlp.NO_DIST))[0], cache
+    return _mlp_residual(p, cfg, x, dist)[0], cache
 
 
 def block_cache_init(cfg, kind, batch, max_len, dtype, device):
@@ -360,20 +465,21 @@ def block_cache_init(cfg, kind, batch, max_len, dtype, device):
 def block_decode(p, cfg, kind, cache, x, pos, ctx):
     """x: (B, d) one token. Returns (x_out, cache), the cache updated in
     place."""
+    dist = ctx.get("dist", mlp.NO_DIST)
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = attn_decode(p["attn"], cfg, cache, h, pos,
-                               window=_window_for(cfg, kind))
+                               window=_window_for(cfg, kind), dist=dist)
         x = x + y
     elif kind == "cross_attn":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + cross_decode(p["attn"], cfg, cache, h)
+        x = x + cross_decode(p["attn"], cfg, cache, h, dist)
     elif kind == "xdec":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
-        y, _ = attn_decode(p["attn"], cfg, cache["self"], h, pos)
+        y, _ = attn_decode(p["attn"], cfg, cache["self"], h, pos, dist=dist)
         x = x + y
         h = common.rms_norm(x, p["norm_x"], cfg.norm_eps)
-        x = x + cross_decode(p["xattn"], cfg, cache["cross"], h)
+        x = x + cross_decode(p["xattn"], cfg, cache["cross"], h, dist)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = ssm.decode_step(p["ssm"], cfg, cache, h)
@@ -386,7 +492,6 @@ def block_decode(p, cfg, kind, cache, x, pos, ctx):
         raise ValueError(kind)
     if "mlp" in p:
         h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
-        y, _ = mlp_apply(p["mlp"], cfg, h[:, None],
-                         ctx.get("dist", mlp.NO_DIST))
+        y, _ = mlp_apply(p["mlp"], cfg, h[:, None], dist)
         x = x + y[:, 0]
     return x, cache

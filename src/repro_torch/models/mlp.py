@@ -102,10 +102,19 @@ def dense_mlp_init(gen, d_model, d_ff, dtype):
     }
 
 
-def dense_mlp_apply(p, x, act_name="silu"):
+def dense_mlp_apply(p, x, act_name="silu", dist=NO_DIST):
+    """The gated MLP. With ``dist`` enabled, p holds the rank's slice of
+    ff (the column-parallel ``wi``/``wg``, the row-parallel ``wo``): x
+    enters through ``pvary`` and the ranks' outputs are summed over the
+    model axis (``psum``), as the shared experts run."""
+    if dist.enabled:
+        x = sharding.pvary(x, dist.mesh, dist.model_axis)
     act = common.activation(act_name)
     h = act(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    y = h @ p["wo"]
+    if dist.enabled:
+        y = sharding.psum(y, dist.mesh, dist.model_axis)
+    return y
 
 
 # ---------------------------------------------------------------------------

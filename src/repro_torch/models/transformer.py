@@ -17,10 +17,15 @@ over every block (0 for dense stacks).
 
 Each entry point takes ``dist`` (``mlp.Dist``, default ``NO_DIST``) as
 the reference's does: enabled, its inputs are this rank's batch shard
-and the MoE runs expert-parallel, on the full params or on the shards a
-rank holds (``shard_params``: the expert weights split by
-``mlp.moe_specs``, every other leaf whole; ``gather_params`` puts the
-tree back together).
+and its params the blocks the rank holds (``shard_params``: each leaf
+the block of the reference's ``param_specs`` for the rank, as
+``held_specs`` gives it; ``gather_params`` puts the tree back
+together). The rank computes on them one unit at a time
+(``for_use``): attention on its own heads and the dense MLP on its own
+ff slice where "model" splits them (tensor-parallel, the output summed
+over "model"), the MoE expert-parallel, every other split leaf
+(``embed``, ``lm_head``, d_model over "data", the SSM's and RG-LRU's
+leaves) gathered whole where it is read.
 
 Encoder-decoder (``cfg.enc_dec``): the leading groups that fall inside
 ``cfg.enc_layers`` form the bidirectional encoder over the stub audio
@@ -31,8 +36,11 @@ embeddings passed as ``aux``. Encoder groups hold ``None`` for caches.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import sharding
 from repro_torch.convert import tree_leaves, tree_map, tree_stack
@@ -99,34 +107,178 @@ def param_count(params):
 
 
 # ---------------------------------------------------------------------------
-# What each rank holds under a Dist
+# What each rank holds under a Dist, and what it computes on
 # ---------------------------------------------------------------------------
+
+# the first keys of a params tree's paths (a tree whose paths start
+# otherwise is a unit's views, as ``_layer`` gives them: no ``R`` axis)
+_TOP_KEYS = ("embed", "lm_head", "final_norm", "enc_norm", "groups")
+_EXPERT_LEAVES = ("wi", "wg", "wo")
+
+
+def _is_expert(cfg, path):
+    """A MoE's expert weight (its shared experts' are not)."""
+    return (cfg.moe is not None and path[-1] in _EXPERT_LEAVES
+            and len(path) >= 2 and path[-2] == "mlp")
+
+
+@functools.lru_cache(maxsize=None)
+def whole_shapes(cfg):
+    """{path: shape} of ``cfg``'s whole params: a top-level leaf's by its
+    path, a group leaf's by its path within a block (no ``R`` axis), from
+    an ``init`` on fake tensors (no storage), outside any dispatch mode
+    the caller runs under (the dry run's analysis sees none of it)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes(), FakeTensorMode():
+        params = init(torch.Generator().manual_seed(0), cfg)
+    table = {}
+
+    def note(path, t):
+        if path[0] == "groups":
+            key, shape = path[3:], tuple(t.shape[1:])
+            if table.setdefault(key, shape) != shape:
+                raise ValueError(f"{cfg.name}: {'/'.join(key)} has two "
+                                 f"shapes, {table[key]} and {shape}")
+        else:
+            table[path] = tuple(t.shape)
+
+    sharding.map_with_path(note, params)
+    return table
+
+
+def _whole_shape(path, cfg):
+    """The whole shape of the leaf at ``path`` (``held_specs``'s paths),
+    whatever block of the rank's the caller holds; a stacked leaf's
+    ``R`` axis, never split, as 1."""
+    if path[0] == "groups":
+        return (1,) + whole_shapes(cfg)[path[3:]]
+    if path[0] in _TOP_KEYS:
+        return whole_shapes(cfg)[path]
+    return whole_shapes(cfg)[path[1:] if path[0].isdigit() else path]
+
+
+def _spec_of(path, cfg, dist):
+    """One leaf's spec as a rank of ``dist`` holds it: the reference's
+    ``param_specs`` rule for its path and its whole shape
+    (``sharding.leaf_spec``, or ``unit_spec`` for a unit's view); a MoE's
+    expert weight checked against ``mlp.moe_specs``, which its
+    expert-parallel body reads."""
+    shape = _whole_shape(path, cfg)
+    if path[0] in _TOP_KEYS:
+        spec = sharding.leaf_spec(path, shape, dist.mesh)
+    else:
+        spec = sharding.unit_spec(path, shape, dist.mesh)
+    if _is_expert(cfg, path) or (cfg.moe is not None and "shared" in path):
+        want = moe_specs({"shared": None}, dist)
+        if "shared" in path:
+            # the shared experts' d_model is gathered before the body
+            want = want["shared"][path[-1]]
+            got = _drop(spec, lambda a: a != dist.model_axis)
+        else:
+            want, got = want[path[-1]], spec
+        if tuple(got[-len(want):]) != tuple(want):
+            raise ValueError(
+                f"{'/'.join(path)} {tuple(shape)}: the rules give "
+                f"{spec}, the expert-parallel MoE reads {want}")
+    return tuple(spec)
+
+
+def _drop(spec, gone):
+    """``spec`` without the axes for which ``gone(axis)`` holds."""
+    out = []
+    for e in spec:
+        left = () if e is None else tuple(
+            a for a in sharding._names(e) if not gone(a))
+        out.append(None if not left else left[0] if len(left) == 1
+                   else left)
+    return tuple(out)
+
 
 def held_specs(tree, cfg, dist):
     """The spec of each leaf of ``tree`` (the params, Adam's ``m`` or
-    ``v``, a unit's views), in ``tree_leaves`` order, as a rank holds it
-    under ``dist``: the MoE's weights by ``mlp.moe_specs`` (on their
-    trailing dims; a stacked group's leading axis is not split), every
-    other leaf whole, replicated on every rank."""
+    ``v``, a unit's views, or a dict of top-level leaves), in
+    ``tree_leaves`` order, as a rank holds it under ``dist``: the block
+    that the reference's ``param_specs`` gives its device (attention
+    heads and the dense MLP's ff on "model", d_model on "data", ``embed``
+    and ``lm_head`` vocab-parallel, the experts on "model" and their
+    d_model on "data"; an axis that does not divide its dim dropped);
+    every leaf whole under ``NO_DIST``."""
     out = []
 
     def spec_of(path, t):
-        spec = ()
-        if dist.enabled and cfg.moe is not None and "mlp" in path:
-            sub = path[path.index("mlp") + 1:]
-            spec = moe_specs({"shared": None} if "shared" in sub else {},
-                             dist)
-            for k in sub:
-                spec = spec[k]
-        out.append((None,) * (t.dim() - len(spec)) + tuple(spec))
+        if not dist.enabled:
+            out.append((None,) * len(t.shape))
+        else:
+            out.append(_spec_of(path, cfg, dist))
 
     sharding.map_with_path(spec_of, tree)
     return out
 
 
+def tensor_parallel_heads(cfg, dist):
+    """Whether attention runs tensor-parallel under ``dist``: each rank
+    on its ``H / m`` query heads, its ``wo`` rows summed over the model
+    axis. Only where "model" is not a batch axis (its ranks then hold
+    the same tokens) and splits the heads; else every rank runs every
+    head on the gathered weights."""
+    m = dist.model_size()
+    return (m > 1 and dist.model_axis not in dist.batch_axes
+            and cfg.n_heads % m == 0)
+
+
+def kv_heads_split(cfg, dist):
+    """Whether a rank's attention computes, and its decode caches hold,
+    its own ``KV / m`` kv heads (tensor-parallel heads and KV divides
+    m, as the reference's ``cache_specs_tree`` splits them); else every
+    kv head."""
+    return (tensor_parallel_heads(cfg, dist)
+            and cfg.n_kv % dist.model_size() == 0)
+
+
+def _kept(path, cfg, dist):
+    """The axes of a held leaf's spec that stay split while a rank
+    computes on it: "model" on the heads of attention's leaves and on
+    the ff of the dense MLP's (tensor-parallel), on the MoE's shared
+    experts' ff; every axis of an expert weight (the MoE body gathers
+    its d_model itself); none of any other leaf."""
+    if _is_expert(cfg, path):
+        return None
+    if dist.model_axis in dist.batch_axes:
+        return ()
+    if "attn" in path or "xattn" in path:
+        return (dist.model_axis,) if tensor_parallel_heads(cfg, dist) \
+            else ()
+    if "mlp" in path:
+        return (dist.model_axis,)
+    return ()
+
+
+def for_use(tree, cfg, dist):
+    """``tree`` (leaves a rank holds: a unit's views, or a dict of
+    top-level leaves such as ``{"embed": ...}``) as the rank computes on
+    it: each leaf gathered (``sharding.gather_for_use``) over every axis
+    of its held spec but those ``_kept`` keeps split. Called one unit
+    at a time inside the layer loops, so at most one unit's weights are
+    whole at once. The tree itself under ``NO_DIST``."""
+    if not dist.enabled:
+        return tree
+
+    def one(path, t):
+        spec = _spec_of(path, cfg, dist)
+        kept = _kept(path, cfg, dist)
+        if kept is None:
+            return t
+        return sharding.gather_for_use(t, _drop(spec, lambda a: a in kept),
+                                       dist.mesh, dist.batch_axes)
+
+    return sharding.map_with_path(one, tree)
+
+
 def shard_params(tree, cfg, dist):
-    """This rank's shards of a whole tree (params or Adam state; copies
-    of the expert weights' blocks, the rest as it is)."""
+    """This rank's blocks of a whole tree (params or Adam state): copies
+    of the blocks of every split leaf, the rest as it is."""
     return sharding.shard_tree(tree, held_specs(tree, cfg, dist), dist.mesh)
 
 
@@ -141,19 +293,26 @@ def gather_params(tree, cfg, dist):
 # Apply
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg, tokens):
+def top_leaf(params, key, cfg, dist=NO_DIST):
+    """The top-level leaf ``params[key]`` whole (``for_use``): under a
+    ``Dist``, ``embed`` and ``lm_head`` are gathered from the ranks'
+    vocab-parallel blocks where they are read, and die after."""
+    return for_use({key: params[key]}, cfg, dist)[key]
+
+
+def embed_tokens(params, cfg, tokens, dist=NO_DIST):
     """The embedding rows of ``tokens``. ``F.embedding`` rather than an
     index: its backward has a deterministic CUDA kernel, which the LM
     trainers' bit-exact gates run under."""
-    return F.embedding(tokens.long(), params["embed"])
+    return F.embedding(tokens.long(), top_leaf(params, "embed", cfg, dist))
 
 
-def unembed(params, cfg, x):
+def unembed(params, cfg, x, dist=NO_DIST):
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = x @ top_leaf(params, "embed", cfg, dist).T
     else:
-        logits = x @ params["lm_head"]
+        logits = x @ top_leaf(params, "lm_head", cfg, dist)
     logits = common.softcap(logits.float(), cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab:       # mask pad-row logits
         pad_mask = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
@@ -161,15 +320,40 @@ def unembed(params, cfg, x):
     return logits
 
 
+def unit_of(params, cfg, gi, r, dist=NO_DIST):
+    """Unit ``r`` of group ``gi`` as a rank computes on it: its views
+    (``_layer``), each leaf gathered for use (``for_use``)."""
+    return for_use(_layer(params["groups"][gi], r), cfg, dist)
+
+
+def _unit_apply(unit, cfg, pattern, x, ctx):
+    """x through one unit's blocks (the unit's held views, gathered
+    here): (x, the unit's summed router aux losses)."""
+    aux_loss = torch.zeros((), device=x.device)
+    for kind, bp in zip(pattern, for_use(unit, cfg, ctx["dist"])):
+        x, a = blocks.block_apply(bp, cfg, kind, x, ctx)
+        aux_loss = aux_loss + a
+    return x, aux_loss
+
+
 def _apply_groups(params, cfg, groups, x, ctx):
     """x through every unit of ``groups`` ((index, pattern, repeat)
-    triples): (x, the summed router aux losses)."""
+    triples): (x, the summed router aux losses). Under a ``Dist`` with
+    grad enabled each unit is recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's remat), so only one
+    unit's gathered weights are alive at a time there too."""
     aux_loss = torch.zeros((), device=x.device)
+    remat = ctx["dist"].enabled and torch.is_grad_enabled()
     for gi, pattern, repeat in groups:
         for r in range(repeat):
-            for kind, bp in zip(pattern, _layer(params["groups"][gi], r)):
-                x, a = blocks.block_apply(bp, cfg, kind, x, ctx)
-                aux_loss = aux_loss + a
+            unit = _layer(params["groups"][gi], r)
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    _unit_apply, unit, cfg, pattern, x, ctx,
+                    use_reentrant=False)
+            else:
+                x, a = _unit_apply(unit, cfg, pattern, x, ctx)
+            aux_loss = aux_loss + a
     return x, aux_loss
 
 
@@ -206,11 +390,11 @@ def forward(params, cfg, tokens, *, aux=None, dist=NO_DIST, impl="auto"):
     aux_loss). With ``dist`` enabled, tokens and aux are this rank's
     batch shard and the MoE runs expert-parallel (``mlp.Dist``)."""
     cross_src, enc_loss = _cross_source(params, cfg, aux, impl, dist)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, dist)
     x, aux_loss = _apply_groups(params, cfg, groups_of(cfg), x,
                                 {"causal": True, "aux": cross_src,
                                  "impl": impl, "dist": dist})
-    return unembed(params, cfg, x), enc_loss + aux_loss
+    return unembed(params, cfg, x, dist), enc_loss + aux_loss
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +446,7 @@ def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
     B, S = tokens.shape
     max_len = max_len or S
     cross_src, _ = _cross_source(params, cfg, aux, impl, dist)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, dist)
     ctx = {"causal": True, "aux": cross_src, "max_len": max_len,
            "impl": impl, "dist": dist}
     caches = []
@@ -273,14 +457,14 @@ def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
         layers = []
         for r in range(repeat):
             ucaches = []
-            for kind, bp in zip(pattern, _layer(params["groups"][gi], r)):
+            for kind, bp in zip(pattern, unit_of(params, cfg, gi, r, dist)):
                 x, c = blocks.block_prefill(bp, cfg, kind, x, ctx)
                 ucaches.append(c)
             layers.append(tuple(ucaches))
         caches.append(tree_stack(layers))
     if last_only:
         x = x[:, -1]
-    return unembed(params, cfg, x), tuple(caches)
+    return unembed(params, cfg, x, dist), tuple(caches)
 
 
 def serve_step(params, cfg, caches, tokens, pos, *, dist=NO_DIST):
@@ -288,12 +472,12 @@ def serve_step(params, cfg, caches, tokens, pos, *, dist=NO_DIST):
     position. Returns (logits (B, V), caches), the caches updated in
     place. ``dist``: as ``forward``'s (tokens and caches this rank's
     batch shard)."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, dist)
     ctx = {"dist": dist}
     for gi, pattern, repeat in groups_of(cfg):
         for r in range(repeat):
-            unit_p = _layer(params["groups"][gi], r)
+            unit_p = unit_of(params, cfg, gi, r, dist)
             unit_c = _layer(caches[gi], r)
             for kind, bp, c in zip(pattern, unit_p, unit_c):
                 x, _ = blocks.block_decode(bp, cfg, kind, c, x, pos, ctx)
-    return unembed(params, cfg, x), caches
+    return unembed(params, cfg, x, dist), caches

@@ -39,7 +39,11 @@ calls the collectives below on the mesh's axis groups: ``all_reduce``
 for ``psum``/``pmean``, ``all_gather_into_tensor`` for ``all_gather``,
 ``all_to_all_single`` for ``all_to_all``, ``batch_isend_irecv`` for
 ``ppermute``; each but the last is an autograd Function with its
-transpose as its backward (below). A mesh is a
+transpose as its backward (below). A rank's params are the blocks these
+rules give it (``models.transformer.held_specs``); what GSPMD does with
+such blocks, the rank does itself: ``gather_for_use`` makes a leaf
+whole where it is read, and the tensor-parallel blocks sum their parts
+with ``psum``. A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh``, or, where no collective
 runs (the rules, ``local_shard`` given its coordinates), any object
 with a ``.shape`` mapping of axis sizes. On an axis of size 1 no
@@ -192,16 +196,30 @@ def map_with_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+def leaf_spec(names, shape, mesh):
+    """The spec of one leaf of a params tree by its path ``names`` (from
+    the tree's root: a group leaf's path starts with "groups" and its
+    shape with the stacked ``R`` axis) and its shape."""
+    shape = tuple(shape)
+    for key, make_spec in _RULES:
+        if names and names[0] == key:
+            return _fit(make_spec(), shape, mesh)
+    return _fit(_leaf_spec(names, shape), shape, mesh)
+
+
+def unit_spec(names, shape, mesh):
+    """The spec of a leaf of one unit's views (a stacked group's layer
+    ``r``, no ``R`` axis; ``names`` from the unit's root): the stacked
+    leaf's spec with its leading ``R`` entry dropped."""
+    return leaf_spec(("groups",) + tuple(names), (1,) + tuple(shape),
+                     mesh)[1:]
+
+
 def param_specs(params, mesh):
     """The params' tree with each tensor's spec in its place (Adam's m
     and v take the same)."""
-    def spec_for(names, leaf):
-        for key, make_spec in _RULES:
-            if names and names[0] == key:
-                return _fit(make_spec(), leaf.shape, mesh)
-        return _fit(_leaf_spec(names, leaf.shape), leaf.shape, mesh)
-
-    return map_with_path(spec_for, params)
+    return map_with_path(lambda names, leaf: leaf_spec(names, leaf.shape,
+                                                       mesh), params)
 
 
 def batch_axes(mesh):
@@ -284,7 +302,10 @@ def local_shard(t, spec, mesh, coords=None):
 #   pvary       (a replica entering per-rank work, forward the identity)
 #               the sum of the cotangents over the axis;
 #   pmean_equal (the mean of values already equal over the axis, forward
-#               the identity) 1/n of the cotangent.
+#               the identity) 1/n of the cotangent;
+#   gather_for_use (a held block gathered whole for work every rank runs
+#               alike) over a batch axis a reduce-scatter, over any other
+#               axis the rank's own block of the cotangent.
 # ---------------------------------------------------------------------------
 
 def _gather_single():
@@ -359,6 +380,23 @@ class _AllToAll(torch.autograd.Function):
         return _exchange(g, ctx.group), None
 
 
+class _GatherOwn(torch.autograd.Function):
+    """``all_gather`` forward; backward the rank's own block of the
+    cotangent, with no sum: the ranks of the axis hold the same rows and
+    compute alike on the gathered tensor, so each one's cotangent is
+    already the whole one."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, dim, index):
+        ctx.dim, ctx.index, ctx.step = dim, index, t.shape[dim]
+        return _AllGather.forward(ctx, t, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.step, ctx.step),
+                None, None, None, None)
+
+
 class _PVary(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
@@ -405,6 +443,34 @@ def all_gather(t, mesh, axis, dim=0):
     if group is None:
         return t
     return _AllGather.apply(t, group, axis_size(mesh, axis), dim)
+
+
+def gather_for_use(t, spec, mesh, batch_axes):
+    """The whole tensor from every rank's block of ``t`` under ``spec``
+    (``gather_tree``'s gather, one leaf), for work that every rank runs
+    on the whole leaf. Its backward hands each rank its block of the
+    cotangent: over an axis of ``batch_axes``, whose ranks hold
+    different rows, the ranks' cotangents summed (a reduce-scatter);
+    over any other axis, whose ranks hold the same rows and so compute
+    the same cotangent, the rank's own block with no sum. The batch axes
+    gather first, so that their reduce-scatters run last in the
+    backward, on the rank's block of every other axis (a dim split over
+    several axes takes them all of one kind)."""
+    for e in spec:
+        if e is not None and len({a in batch_axes for a in _names(e)}) > 1:
+            raise ValueError(f"{e} mixes batch and other axes on one dim")
+    for batch in (True, False):
+        for dim, entry in enumerate(spec):
+            for a in reversed(_names(entry) if entry is not None else ()):
+                group = axis_group(mesh, a)
+                if group is None or (a in batch_axes) != batch:
+                    continue
+                if batch:
+                    t = _AllGather.apply(t, group, axis_size(mesh, a), dim)
+                else:
+                    t = _GatherOwn.apply(t, group, axis_size(mesh, a), dim,
+                                         axis_index(mesh, a))
+    return t
 
 
 def all_to_all(t, mesh, axis):

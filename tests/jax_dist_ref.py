@@ -6,7 +6,8 @@ devices it needs must be set before JAX starts.
         PYTHONPATH=src:tests python -m jax_dist_ref OUTDIR CASE...
 
 reads ``OUTDIR/dist_inputs.pkl`` (the test's inputs: numpy params, token
-batches), runs under ``jax.jit`` on a (data 2, model 2) mesh
+batches), runs under ``jax.jit`` on a (data 2, model 2) mesh, with the
+params placed by the reference's ``param_specs``,
 ``make_ff_train_step`` (random negatives at S 16 and 80, AdaptiveNEG at
 S 16) and ``make_bp_train_step`` of the reduced deepseek-moe-16b
 (``Dist(batch ("data",), model "model", fsdp "data")``)
@@ -15,8 +16,17 @@ folded into the batch axes, each one step from the given params, and
 records ``launch.dryrun.make_dist``'s fields for every config on that
 mesh and on a (pod 1, data 2, model 2) one: the CASEs ``ff16``,
 ``ff80``, ``ada16``, ``bp``, ``fold`` and ``make_dist``, side by side.
-Writes each case's new params and metrics (or the fields) to
-``OUTDIR/ref_<CASE>.pkl``.
+A CASE ``tp:NAME`` runs the tensor-parallel case NAME of the inputs
+(``inputs["tp"][NAME]``: a reduced config with fields replaced, its
+batch and prompts): it draws the case's params with the reference's own
+``init`` (cross-attention gates set to 1, since init's 0 hides the cross
+path) and writes them to ``OUTDIR/tp_params_<NAME>.pkl`` for the ranks
+first, then runs under ``make_dist`` one FF step, one backprop step
+where the case asks for it, and prefill then greedy decode steps
+(``prefill``, ``serve_step``), each token the argmax of the last
+logits.
+Writes each case's new params and metrics (or the fields, or the
+logits and tokens) to ``OUTDIR/ref_<CASE>.pkl``.
 
 The mesh is built with ``jax.sharding.Mesh``: ``jax.make_mesh`` gives
 Explicit axes on this jax, under which ``Dist.constrain_batch`` raises.
@@ -38,10 +48,11 @@ def main(outdir, cases):
     # the backend starts here, with XLA_FLAGS's 4 devices: launch.dryrun
     # sets another device count when it is imported
     devs = np.array(jax.devices())
-    from repro import optim
+    from repro import optim, sharding
     from repro.configs import get_config, list_configs
     from repro.core import train
     from repro.launch import dryrun
+    from repro.models import transformer
     from repro.models.mlp import Dist
 
     with open(os.path.join(outdir, "dist_inputs.pkl"), "rb") as f:
@@ -58,15 +69,69 @@ def main(outdir, cases):
                 for d in [dryrun.make_dist(get_config(name), m,
                                            batch_fold_model=fold)]}
 
-    def run(cfg, make, dist, npp, tokens):
+    def placed(npp):
         params = jax.tree_util.tree_map(jnp.asarray, npp)
+        return jax.device_put(params, sharding.shardings(
+            sharding.param_specs(params, mesh), mesh))
+
+    def run(cfg, make, dist, npp, tokens, aux=None):
+        params = placed(npp)
         step = jax.jit(make(cfg, dist=dist, lr=1e-3))
+        batch = {"tokens": jnp.asarray(tokens)}
+        if aux is not None:
+            batch["aux"] = jnp.asarray(aux)
         with mesh:
-            new, _, metrics = step(params, optim.adam_init(params),
-                                   {"tokens": jnp.asarray(tokens)},
+            new, _, metrics = step(params, optim.adam_init(params), batch,
                                    jnp.int32(1))
         return (jax.tree_util.tree_map(np.asarray, new),
                 {k: float(v) for k, v in metrics.items()})
+
+    def serve(cfg, dist, npp, prompts, gen, aux=None):
+        params = placed(npp)
+        P = prompts.shape[1]
+        pre = jax.jit(lambda p, t, a: transformer.prefill(
+            p, cfg, t, aux=a, dist=dist, max_len=P + gen))
+        dec = jax.jit(lambda p, c, t, pos: transformer.serve_step(
+            p, cfg, c, t, pos, dist=dist))
+        a = None if aux is None else jnp.asarray(aux)
+        with mesh:
+            logits, caches = pre(params, jnp.asarray(prompts), a)
+            out, toks = [np.asarray(logits)], []
+            for i in range(gen):
+                tok = jnp.argmax(logits[:, -1] if logits.ndim == 3
+                                 else logits, axis=-1).astype(jnp.int32)
+                toks.append(np.asarray(tok))
+                logits, caches = dec(params, caches, tok, jnp.int32(P + i))
+                out.append(np.asarray(logits))
+        return {"logits": out, "tokens": toks}
+
+    def tp_params(name, cfg):
+        params = jax.tree_util.tree_map(
+            np.asarray, transformer.init(jax.random.PRNGKey(0), cfg))
+        for g in params["groups"]:
+            for blk in g:
+                if "gate" in blk.get("attn", {}):
+                    blk["attn"]["gate"] = np.ones_like(blk["attn"]["gate"])
+        path = os.path.join(outdir, f"tp_params_{name}.pkl")
+        with open(path + ".part", "wb") as f:
+            pickle.dump(params, f)
+        os.replace(path + ".part", path)
+        return params
+
+    def tp_case(name):
+        case = inputs["tp"][name]
+        cfg = dataclasses.replace(get_config(case["base"]).reduced(),
+                                  **dict(case["fields"]))
+        d = dryrun.make_dist(cfg, mesh)
+        params = tp_params(name, cfg)
+        out = {"ff": run(cfg, train.make_ff_train_step, d, params,
+                         case["tokens"], case.get("aux")),
+               "serve": serve(cfg, d, params, case["prompts"], case["gen"],
+                              case.get("aux"))}
+        if case["bp"]:
+            out["bp"] = run(cfg, train.make_bp_train_step, d, params,
+                            case["tokens"], case.get("aux"))
+        return out
 
     moe = get_config("deepseek-moe-16b").reduced()
     ada = dataclasses.replace(moe, ff=dataclasses.replace(
@@ -84,6 +149,7 @@ def main(outdir, cases):
     # one thread a case: XLA compiles them side by side
     with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
         futs = {case: pool.submit(make_dists) if case == "make_dist" else
+                pool.submit(tp_case, case[3:]) if case.startswith("tp:") else
                 pool.submit(run, *steps[case][:3],
                             (qw if case == "fold" else ds)["params"],
                             steps[case][3])

@@ -1,5 +1,8 @@
-"""The port's LM steps and entry points under a ``Dist`` (expert
-parallelism over a (data 2, model 2) mesh, fsdp on data) on the CPU.
+"""The port's LM steps and entry points under a ``Dist`` on the CPU:
+each rank holds the blocks of the reference's ``param_specs`` (checked
+leaf by leaf against the reference's own rules for every config on four
+meshes), attention and the dense MLP tensor-parallel over "model", the
+MoE expert-parallel, fsdp on "data".
 
 Two processes start together from the module's fixture, on inputs this
 file writes (initial params of the reduced configs, token batches, and
@@ -10,15 +13,22 @@ the reference's random draws recorded by their fold/split path,
   the MoE's dense-local branch; S 80, the sorted one; AdaptiveNEG at S
   16, whose draw is recorded as its Gumbel noise) and
   ``make_bp_train_step`` of the reduced deepseek-moe-16b under its
-  ``Dist``, and the reduced qwen2-0.5b's FF step with the model axis
-  folded into the batch, under ``jax.jit`` on 4 host devices;
+  ``Dist``, the reduced qwen2-0.5b's FF step with the model axis folded
+  into the batch, and the tensor-parallel cases
+  (``torch_gloo_ranks.TP_CASES``, which hit the three head cases: heads
+  and kv heads split, query heads only, none), under ``jax.jit`` on 4
+  host devices, its params placed by its ``param_specs``;
 * ``torch_gloo_ranks dist`` runs the port's on 4 gloo ranks that load
-  no jax, each holding its shards of the expert weights and their Adam
-  state, the negatives replayed from the recorded draws.
+  no jax, each holding its blocks and their Adam state, the negatives
+  replayed from the recorded draws; the tensor-parallel cases on (data
+  2, model 2) and (data 1, model 4).
 
 Each rank's tree, gathered back, is held against the reference's at the
 repo's leaf rule (``test_torch_lm_train._assert_params_close``), and its
-metrics within ``LOSS_TOL``. The MoE's grads on each rank's shards are
+metrics within ``LOSS_TOL``; the tensor-parallel cases' raw grads
+against ``NO_DIST``'s within ``MOE_TOL``, their prefill and greedy
+decode against the reference's logits and tokens within ``SERVE_TOL``,
+the tokens ``NO_DIST``'s too. The MoE's grads on each rank's shards are
 held within ``MOE_TOL`` (relative to the leaf's largest grad) of the
 grads of the mean of the per-shard ``NO_DIST`` losses, in both branches
 of both MoE configs; ``prefill`` and ``serve_step`` on a rank's shard of
@@ -35,9 +45,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from jax.sharding import PartitionSpec
 import torch
 
+from repro import optim as joptim, sharding as jsharding
 from repro.configs import get_config as jget
+from repro.models import transformer as jtransformer
 from repro_torch import sharding
 from repro_torch.configs import get_config as tget, list_configs
 from repro_torch.convert import (params_from_numpy, params_to_numpy,
@@ -108,11 +121,33 @@ class RecordingKey:
         return torch.tensor(np.asarray(draw))
 
 
+def _tp_inputs(rng):
+    """Each tensor-parallel case's inputs: its config, a token batch,
+    prompts and the stub embeddings where the config reads them, and
+    whether its backprop step runs (its params are the reference's own
+    init, drawn by ``jax_dist_ref``)."""
+    out = {}
+    for name, base, fields in gr.TP_CASES:
+        jc = gr.tp_config(jget, base, fields)
+        case = {"base": base, "fields": fields, "bp": name in gr.TP_BP,
+                "gen": gr.TP_GEN,
+                "tokens": rng.integers(0, jc.vocab, (
+                    gr.TP_BATCH, gr.TP_SEQ + 1)).astype(np.int32),
+                "prompts": rng.integers(0, jc.vocab, (
+                    gr.TP_BATCH, gr.TP_PROMPT)).astype(np.int32)}
+        if jc.vision_tokens:
+            case["aux"] = rng.standard_normal(
+                (gr.TP_BATCH, jc.vision_tokens, jc.d_model)
+            ).astype(np.float32)
+        out[name] = case
+    return out
+
+
 def _inputs():
     """The reduced configs' initial params (the port's init, as numpy)
-    and token batches."""
+    and token batches; the tensor-parallel cases' (``_tp_inputs``)."""
     rng = np.random.default_rng(26)
-    out = {}
+    out = {"tp": _tp_inputs(np.random.default_rng(28))}
     for name, key, cases in (
             ("deepseek-moe-16b", "deepseek", gr.DIST_STEPS),
             ("qwen2-0.5b", "qwen2", {"ff": 16})):
@@ -146,11 +181,19 @@ def _draws(inputs):
                     tuple(pos.shape) + (tget(name).reduced().padded_vocab,)))
             else:
                 tff.corrupt_tokens(rk, pos, vocab)
+    for case in inputs["tp"].values():
+        rk = RecordingKey(JaxKey(0), (0,), draws).fold_in(1)
+        tff.corrupt_tokens(rk, torch.as_tensor(case["tokens"][:, :-1]),
+                           jget(case["base"]).reduced().vocab)
     return draws
 
 
 # the reference's cases, split over two processes that run side by side
-REF_CASES = (("make_dist", "ff16", "ff80"), ("bp", "ada16", "fold"))
+TP_NAMES = [name for name, _, _ in gr.TP_CASES]
+REF_CASES = (("make_dist", "ff16", "ff80", "tp:qwen3-8b",
+              "tp:recurrentgemma-2b"),
+             ("bp", "ada16", "fold", "tp:qwen2-odd",
+              "tp:llama-3.2-vision-90b", "tp:mamba2-780m"))
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +229,8 @@ def runs(tmp_path_factory):
             ref[case] = pickle.load(f)
     ranks = [torch.load(out / f"rank{r}.pt") for r in range(gr.WORLD)]
     assert all(r["leaked"] == [] for r in ranks)      # no rank loaded jax
+    for name, case in inputs["tp"].items():
+        case["params"] = gr.tp_params(out, name, timeout=0)
     return inputs, ref, ranks
 
 
@@ -240,15 +285,21 @@ def test_steps_under_dist_match_the_references(runs, case):
 
 
 def test_each_rank_holds_its_expert_shards_only(runs):
-    """The expert weights and their Adam m and v are the rank's blocks
-    (copies: the storage holds the block alone); every other leaf is
-    whole."""
+    """The expert weights, and now every other leaf too, with their Adam
+    m and v, are the rank's blocks of the reference's rules
+    (``sharding.param_specs``: the experts' and their d_model's, and the
+    dense leaves' heads, ff, d_model and vocab), copies whose storage
+    holds the block alone; a leaf the rules replicate is whole."""
     inputs, _, ranks = runs
     cfg = tget("deepseek-moe-16b").reduced()
     full = params_from_numpy(inputs["deepseek"]["params"], "cpu")
     specs = _specs(full, cfg)
+    rules = []
+    sharding.map_with_path(lambda path, t: rules.append(
+        sharding.leaf_spec(path, t.shape, MESH)), full)
+    assert specs == rules
     split = [any(e is not None for e in s) for s in specs]
-    assert sum(split) == 6      # wi, wg, wo and the shared experts' three
+    assert sum(split) == 12     # embed, lm_head, attn 4, experts 3, shared 3
     for res in ranks:
         for case in ("ff16", "ff80", "bp", "ada16"):
             held = res[case]["held"]
@@ -301,3 +352,180 @@ def test_make_dist_matches_the_references(runs):
             d = make_dist(tget(name), pod, batch_fold_model=fold)
             assert (d.batch_axes, d.model_axis, d.fsdp_axis) == \
                 ref["make_dist"][name, "pod", fold]
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel dense weights: what a rank holds, and its steps
+# ---------------------------------------------------------------------------
+
+class _Sizes:
+    """A mesh of axis sizes, for the reference's rules (``.shape``)."""
+
+    def __init__(self, shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+SPEC_MESHES = {"2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4},
+               "pod1": {"data": 16, "model": 16},
+               "pod2": {"pod": 2, "data": 16, "model": 16}}
+
+
+def _jax_paths(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return ["/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path) for path, _ in flat]
+
+
+@pytest.mark.parametrize("name", list_configs())
+def test_held_specs_are_the_references_param_specs(name):
+    """For every leaf of the params and of Adam's m and v (the
+    reference's init and ``adam_init``, ``jax.eval_shape``'d: published
+    widths, no storage), the port's held spec on a mesh of sizes equals
+    the reference's ``param_specs``, on (2, 2), (1, 4), pod1 and pod2;
+    and a unit's views take their stacked leaf's spec without its R
+    entry."""
+    jc = jget(name)
+    params = jax.eval_shape(lambda: jtransformer.init(jax.random.PRNGKey(0),
+                                                      jc))
+    opt = jax.eval_shape(joptim.adam_init, params)
+    cfg = tget(name)
+    for label, sizes in SPEC_MESHES.items():
+        d = make_dist(cfg, SizesMesh(sizes))
+        for tree in (params, opt["m"], opt["v"]):
+            want = dict(zip(_jax_paths(tree), (
+                tuple(p) for p in jax.tree_util.tree_leaves(
+                    jsharding.param_specs(tree, _Sizes(sizes)),
+                    is_leaf=lambda x: isinstance(x, PartitionSpec)))))
+            got = transformer.held_specs(tree, cfg, d)
+            paths = []
+            sharding.map_with_path(lambda p, t: paths.append("/".join(p)),
+                                   tree)
+            assert len(got) == len(want) == len(paths)
+            for path, spec in zip(paths, got):
+                assert spec == want[path], (label, path)
+        unit = tuple(jax.tree_util.tree_map(
+            lambda t: jax.ShapeDtypeStruct(t.shape[1:], t.dtype), blk)
+            for blk in params["groups"][0])
+        stacked = transformer.held_specs({"groups": (params["groups"][0],)},
+                                         cfg, d)
+        assert transformer.held_specs(unit, cfg, d) == [s[1:]
+                                                        for s in stacked]
+
+
+def _rows(t, coords, layout):
+    """Rank ``coords``'s block of the batch rows of ``t`` (data-major)."""
+    n = layout[0]
+    return np.split(np.asarray(t), n)[coords["data"]]
+
+
+TP_IDS = [f"{n}-{a}x{b}" for n in TP_NAMES for a, b in gr.TP_LAYOUTS]
+TP_PARAMS = [(n, layout) for n in TP_NAMES for layout in gr.TP_LAYOUTS]
+TP_STEPS = [("ff",) + p for p in TP_PARAMS] + [
+    ("bp",) + p for p in TP_PARAMS if p[0] in gr.TP_BP]
+
+
+@pytest.mark.parametrize("kind,name,layout", TP_STEPS,
+                         ids=[f"{k}-{n}-{a}x{b}" for k, n, (a, b)
+                              in TP_STEPS])
+def test_tensor_parallel_steps_match_the_references(runs, kind, name,
+                                                    layout):
+    """The FF step (random negatives, replayed) of each tensor-parallel
+    case, and the backprop step of the three head cases (``TP_BP``), on
+    4 gloo ranks, each holding the blocks of the reference's whole
+    params (its own init) that its ``param_specs`` gives it:
+    every rank's tree gathered back and its metrics against the
+    reference's step on its placed params, at the repo's leaf rule and
+    ``LOSS_TOL``."""
+    _, ref, ranks = runs
+    want, want_metrics = ref[f"tp:{name}"][kind]
+    for res in ranks:
+        got = res[f"tp:{name}:{layout}"][kind]
+        _assert_params_close(got["params"], want)
+        assert sorted(got["metrics"]) == sorted(want_metrics)
+        for k, v in want_metrics.items():
+            assert _rel(got["metrics"][k], v) <= LOSS_TOL, \
+                (k, got["metrics"][k], v)
+
+
+@pytest.mark.parametrize("name,layout", TP_PARAMS, ids=TP_IDS)
+def test_tensor_parallel_grads_match_no_dist(runs, name, layout,
+                                             one_thread):
+    """The backprop loss's grads of the blocks each rank holds (summed
+    as the step sums them) against the rank's blocks of ``NO_DIST``'s
+    grads of the whole params, within ``MOE_TOL`` of each leaf's largest:
+    a transpose off by the model axis's size shows here, where Adam's
+    first step, which divides each grad by its size, would hide it."""
+    inputs, _, ranks = runs
+    case = inputs["tp"][name]
+    cfg = gr.tp_config(tget, case["base"], case["fields"])
+    params = params_from_numpy(case["params"], "cpu")
+    tokens = torch.as_tensor(case["tokens"])
+    aux = case.get("aux")
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    logits, _ = transformer.forward(
+        params, cfg, tokens[:, :-1], impl="ref",
+        aux=None if aux is None else torch.as_tensor(aux))
+    ce = -torch.log_softmax(logits, -1).gather(
+        -1, tokens[:, 1:].long()[..., None])[..., 0]
+    want = [torch.zeros_like(t) if g is None else g for t, g in zip(
+        leaves, torch.autograd.grad(ce.mean(), leaves, allow_unused=True))]
+    mesh = SizesMesh(dict(zip(("data", "model"), layout)))
+    specs = transformer.held_specs(params, cfg, make_dist(cfg, mesh))
+    for res in ranks:
+        got = res[f"tp:{name}:{layout}"]["grads"]
+        assert len(got) == len(want)
+        for g, w, spec in zip(got, want, specs):
+            w = sharding.local_shard(w, spec, mesh, res[f"coords:{layout}"])
+            assert g.shape == w.shape
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= MOE_TOL * max(scale, 1e-30)
+
+
+@pytest.mark.parametrize("name,layout", TP_PARAMS, ids=TP_IDS)
+def test_tensor_parallel_serve_matches_the_reference(runs, name, layout,
+                                                     one_thread):
+    """Prefill and ``TP_GEN`` greedy decode steps on each rank's block
+    of the prompts: its logits within ``SERVE_TOL`` of the reference's
+    (placed params, the whole batch) on its rows, its tokens the
+    reference's and ``NO_DIST``'s; its caches hold its own kv heads
+    where KV splits over "model", else every one."""
+    inputs, ref, ranks = runs
+    case = inputs["tp"][name]
+    cfg = gr.tp_config(tget, case["base"], case["fields"])
+    want = ref[f"tp:{name}"]["serve"]
+    params = params_from_numpy(case["params"], "cpu")
+    for res in ranks:
+        coords = res[f"coords:{layout}"]
+        got = res[f"tp:{name}:{layout}"]["serve"]
+        for g, w in zip(got["logits"], want["logits"]):
+            w = _rows(w, coords, layout)
+            assert g.shape == w.shape
+            assert float(np.abs(g.numpy() - w).max()) <= SERVE_TOL * float(
+                np.abs(w).max())
+        for g, w in zip(got["tokens"], want["tokens"]):
+            assert np.array_equal(g.numpy(), _rows(w, coords, layout))
+        rows = torch.as_tensor(_rows(case["prompts"], coords, layout))
+        aux = case.get("aux")
+        aux = None if aux is None else torch.as_tensor(
+            _rows(aux, coords, layout))
+        logits, caches = transformer.prefill(
+            params, cfg, rows, aux=aux, max_len=gr.TP_PROMPT + gr.TP_GEN,
+            impl="ref")
+        for i, tok in enumerate(got["tokens"]):
+            last = logits[:, -1] if logits.dim() == 3 else logits
+            assert torch.equal(tok, last.argmax(-1).int())
+            logits, caches = transformer.serve_step(
+                params, cfg, caches, tok, gr.TP_PROMPT + i)
+        m = layout[1]
+        split = cfg.n_heads % m == 0 and cfg.n_kv % m == 0
+        has_attn = any(k != "mamba2" for p, _ in cfg.groups for k in p)
+        assert got["kv_heads"] == ([cfg.n_kv // m if split else cfg.n_kv]
+                                   if has_attn else [])
+
+
+@pytest.mark.parametrize("layout", gr.TP_LAYOUTS)
+def test_gather_params_undoes_shard_params_for_every_config(runs, layout):
+    for res in runs[2]:
+        for name in list_configs():
+            assert res[f"identity:{name}:{layout}"], name

@@ -355,15 +355,17 @@ def test_reduced_config_traces_with_fake_outputs(arch, kind):
     mem = an["memory"]
     assert an["flops"] > 0 and an["bytes"] > 0
     assert mem["peak_size_in_bytes"] >= mem["argument_size_in_bytes"] > 0
-    # the rank holds every dense leaf whole, where the reference's rules
-    # split them over both axes
+    # the rank holds its params (and Adam state) as the reference's rules
+    # split them; its inputs are no smaller than the rules' blocks (the
+    # train step takes the whole batch; an SSM state stays whole over
+    # "model")
+    assert mem["rank_param_bytes"] == mem["rules_param_bytes"] > 0
     assert 0 < mem["per_device_argument_bytes"] \
-        < mem["argument_size_in_bytes"]
-    # per rank: the train step sums its grads over "data", the MoE runs
-    # expert-parallel; a dense config's prefill and decode are the rank's
-    # own rows, with no collective
-    moves = kind == "train" or cfg.moe is not None
-    assert (an["collective_bytes"] > 0) == moves
+        <= mem["argument_size_in_bytes"]
+    # every config splits some leaf over (2, 2) (embed at least): each
+    # step gathers it, and the train step sums its grads too
+    assert an["collective_bytes"] > 0
+    assert an["collective_by_type"]["all-gather"] > 0
     assert an["collective_bytes"] == sum(an["collective_by_type"].values())
 
 
@@ -393,7 +395,12 @@ def test_analyze_combo_keys_and_terms(monkeypatch):
         assert k in res
     assert res["chips"] == 256 and res["per_device"] == "rank"
     assert res["rank"] == 0 and res["opts"] == []
-    assert res["collective_term_s"] == 0.0     # dense decode: none
+    # dense decode gathers the leaves a rank holds split (embed, lm_head,
+    # d_model over "data"), and sums its heads' and ff's parts over
+    # "model"
+    assert res["collective_term_s"] > 0.0
+    assert res["collective_by_type"]["all-gather"] > 0
+    assert res["collective_by_type"]["all-reduce"] > 0
     # every term the rank's own, as the reference's per-device program's
     assert res["compute_term_s"] == res["op_flops_total"] \
         / dryrun.PEAK_FLOPS

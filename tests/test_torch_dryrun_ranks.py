@@ -6,10 +6,13 @@ each rank's run recorded by ``launch.op_analysis``: the collectives'
 counts and bytes by type and the argument bytes are equal, the peak
 within ``PEAK_TOL``, for the reduced qwen2-0.5b (dense) and
 deepseek-moe-16b (MoE), train and prefill, on the (4 x 1) and (2 x 2)
-(data, model) layouts. Then what the traces say against hand counts and
-against each other: the dense train step's all-reduce bytes are its held
-leaves' bytes, once per batch axis; ``batch_fold_model`` adds the
-all-reduce over "model" on a dense config and raises on a MoE one;
+(data, model) layouts: the dense config runs tensor-parallel on (2 x 2).
+Then what the traces say against hand counts and against each other:
+the dense train step all-reduces the grads of the leaves it holds whole
+over "data" and reduce-scatters those it holds split (the gather's
+transpose), and on (2 x 2) sums its heads' and ff's activations;
+``batch_fold_model`` sums no activation and reduces each grad over
+"model" too, and raises on a MoE config;
 ``causal_skip`` and ``pv_bf16`` raise; two ranks' counts agree; a batch
 the batch axes do not divide stays whole on every rank; and no default
 process group outlives a trace. The reference's GSPMD numbers are no
@@ -25,9 +28,11 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.convert import tree_leaves
 from repro_torch.launch import dryrun, specs
+from repro_torch.models import transformer
 
 import torch_gloo_ranks as gr
 
@@ -89,8 +94,10 @@ def test_fake_trace_equals_the_gloo_ranks(runs, layout, name, kind):
 def test_the_cases_reach_every_collective_of_the_steps(runs):
     """The MoE's expert all-gathers and their reduce-scatters over
     "data" and, on (2 x 2), its all-to-alls over "model" (the sorted
-    branch); the dense steps' all-reduces and scalar all-gathers only,
-    and no collective in dense prefill."""
+    branch); the dense train step's all-reduces, its gathers of the
+    leaves it holds split and their reduce-scatters, and no all-to-all;
+    dense prefill's gathers, and on (2 x 2) the all-reduces of its
+    tensor-parallel heads and ff, on (4 x 1) none."""
     res = runs[0][0]
     moe = res[(2, 2), "deepseek-moe-16b", "train"]["collective_counts"]
     assert all(moe[k] > 0 for k in ("all-reduce", "all-gather",
@@ -100,41 +107,86 @@ def test_the_cases_reach_every_collective_of_the_steps(runs):
     assert res[(4, 1), "deepseek-moe-16b", "train"][
         "collective_counts"]["all-to-all"] == 0          # model axis 1
     dense = res[(2, 2), "qwen2-0.5b", "train"]["collective_counts"]
-    assert dense["all-reduce"] > 0 and dense["all-gather"] > 0
-    assert dense["reduce-scatter"] == dense["all-to-all"] == 0
+    assert all(dense[k] > 0 for k in ("all-reduce", "all-gather",
+                                      "reduce-scatter"))
+    assert dense["all-to-all"] == 0
     for layout in gr.DRY_LAYOUTS:
-        assert res[layout, "qwen2-0.5b", "prefill"][
-            "collective_bytes"] == 0.0
+        pre = res[layout, "qwen2-0.5b", "prefill"]["collective_counts"]
+        assert pre["all-gather"] > 0
+        assert pre["reduce-scatter"] == pre["all-to-all"] == 0
+        assert (pre["all-reduce"] > 0) == (layout[1] > 1)
+
+
+def _held(cfg, layout):
+    """(whole params as stand-ins, their held specs, each leaf's block
+    bytes) of ``cfg`` on a (data, model) ``layout`` of sizes."""
+    mesh = specs.SizesMesh(dict(zip(AXES, layout)))
+    params, _ = specs.param_specs_abstract(cfg, with_opt=False)
+    held = transformer.held_specs(params, cfg, dryrun.make_dist(cfg, mesh))
+    coords = dict.fromkeys(AXES, 0)
+    nbytes = [sharding.local_shard(t, sp, mesh, coords).numel()
+              * t.element_size() for t, sp in zip(tree_leaves(params), held)]
+    return params, held, nbytes
+
+
+def _names(spec):
+    return {a for e in spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
+
+
+def _activation_sums(cfg, layout):
+    """The dense FF step's all-reduces of activations a unit: on a
+    model axis above 1, the attention's and the MLP's row-parallel
+    outputs forward and their column-parallel inputs' cotangents
+    backward, each the rank's (rows, S, d) f32; none else."""
+    if layout[1] == 1:
+        return 0, 0
+    rows = 2 * gr.DRY_BATCH // layout[0]
+    return 4, 4 * rows * gr.DRY_SEQ * cfg.d_model * 4
 
 
 @pytest.mark.parametrize("layout", gr.DRY_LAYOUTS)
 def test_dense_train_all_reduce_bytes_are_the_held_leaves(layout):
-    """Every leaf of the dense config is held whole and trained, so its
-    grads are all-reduced over "data" once a step: the all-reduce bytes
-    are the params' bytes, one bucket per unit and one for the embedding
-    and head; the scalars' all-gather is the five metrics' values from
-    every data rank."""
+    """Every leaf of the dense config is held as the reference's rules
+    split it, and trained. A leaf split over "data" is gathered where it
+    is used, and its grad reduce-scattered back by the gather's
+    transpose (the tied embedding twice: the embedding's loss and the
+    head's); a leaf held whole over "data" has its grad all-reduced
+    over it once a step, one bucket per unit and one for the head. On
+    (2 x 2) each unit adds its tensor-parallel activation sums."""
     cfg = get_config("qwen2-0.5b").reduced()
-    params, _ = specs.param_specs_abstract(cfg, with_opt=False)
-    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    params, held, nbytes = _held(cfg, layout)
     an, _ = _trace("qwen2-0.5b", "train", layout)
     units = sum(r for _, r in cfg.groups)
-    assert an["collective_by_type"]["all-reduce"] == nbytes
-    assert an["collective_counts"]["all-reduce"] == units + 1
-    assert an["collective_by_type"]["all-gather"] == layout[0] * 5 * 4
-    assert an["memory"]["argument_size_in_bytes"] == 3 * nbytes + 4 * (
+    n_act, act_bytes = _activation_sums(cfg, layout)
+    whole = sum(b for b, sp in zip(nbytes, held) if "data" not in _names(sp))
+    split = sum(b for b, sp in zip(nbytes, held) if "data" in _names(sp))
+    embed = nbytes[0]
+    assert an["collective_by_type"]["all-reduce"] == whole + units * act_bytes
+    assert an["collective_counts"]["all-reduce"] == units + 1 + units * n_act
+    assert an["collective_by_type"]["reduce-scatter"] == split + embed
+    assert an["memory"]["argument_size_in_bytes"] == 3 * sum(nbytes) + 4 * (
         gr.DRY_BATCH * (gr.DRY_SEQ + 1))                # params, m, v, tokens
 
 
 def test_batch_fold_model_adds_the_all_reduce_over_model():
-    base, _ = _trace("qwen2-0.5b", "train", (2, 2))
+    """With "model" folded into the batch axes no activation is summed
+    (every rank runs its own rows through the gathered weights): a grad
+    is all-reduced over each batch axis its leaf is held whole over, and
+    reduce-scattered over each one it is split over. The prompts split
+    over data x model. A MoE config raises."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    _, held, nbytes = _held(cfg, (2, 2))
     fold, meta = _trace("qwen2-0.5b", "train", (2, 2),
                         opts=("batch_fold_model",))
     assert meta["opts"] == ["batch_fold_model"]
-    for k in ("all-reduce", "all-gather"):
-        assert fold["collective_counts"][k] == 2 * base["collective_counts"][k]
-    assert fold["collective_by_type"]["all-reduce"] \
-        == 2 * base["collective_by_type"]["all-reduce"]
+    want = sum(b * len({"data", "model"} - _names(sp))
+               for b, sp in zip(nbytes, held))
+    assert fold["collective_by_type"]["all-reduce"] == want
+    # the tied embedding is gathered twice, over both axes
+    uses = [2] + [1] * (len(held) - 1)
+    assert fold["collective_counts"]["reduce-scatter"] == sum(
+        u * len(_names(sp)) for u, sp in zip(uses, held))
     # the prompts split over data x model: a quarter of them on each rank
     pre, _ = _trace("qwen2-0.5b", "prefill", (2, 2))
     pre_fold, _ = _trace("qwen2-0.5b", "prefill", (2, 2),
@@ -142,6 +194,7 @@ def test_batch_fold_model_adds_the_all_reduce_over_model():
     tok = 4 * gr.DRY_SEQ
     assert pre["memory"]["argument_size_in_bytes"] \
         - pre_fold["memory"]["argument_size_in_bytes"] == tok * (2 - 1)
+    assert pre_fold["collective_counts"]["all-reduce"] == 0
     with pytest.raises(ValueError, match="batch_fold_model"):
         _trace("deepseek-moe-16b", "train", (2, 2),
                opts=("batch_fold_model",))
@@ -174,24 +227,25 @@ def test_ranks_0_and_3_report_equal_counts(name):
 
 
 def test_a_batch_the_axes_do_not_divide_stays_whole():
-    """Decode at B 1 (as long_500k): every rank holds the whole batch and
-    every cache, as one device does; at B 4 on (2 x 2) the caches and
-    tokens are the rank's half."""
+    """Decode at B 1 (as long_500k): every rank holds the whole batch of
+    every cache, as one device does, its kv heads the rank's half on
+    model 2 (qwen2's 2 kv heads split, as its 4 query heads do); at B 4
+    on (2 x 2) the caches and tokens are the rank's half of the batch
+    too. The params are the rank's blocks either way."""
     cfg = get_config("qwen2-0.5b").reduced()
+    _, _, nbytes = _held(cfg, (2, 2))
+    p_bytes = sum(nbytes)
+    R = sum(r for _, r in cfg.groups)
+    kv = 2 * R * 64 * cfg.n_kv * cfg.resolved_head_dim * 4   # k, v per row
+    kpos = 4 * 64 * R                                         # int32 (R, S)
     one = dataclasses.replace(INPUT_SHAPES["long_500k"], seq_len=64)
-    _, whole, _ = dryrun.trace_combo(cfg, one)
     ranked, _ = _trace("qwen2-0.5b", "decode", (2, 2), shape=one)
     assert ranked["memory"]["argument_size_in_bytes"] \
-        == whole["memory"]["argument_size_in_bytes"]
+        == p_bytes + kv // 2 + kpos + 4
     four = dataclasses.replace(one, global_batch=4)
-    _, whole4, _ = dryrun.trace_combo(cfg, four)
     ranked4, _ = _trace("qwen2-0.5b", "decode", (2, 2), shape=four)
-    params, _ = specs.param_specs_abstract(cfg, with_opt=False)
-    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    kpos = 4 * 64 * sum(r for _, r in cfg.groups)      # int32 (R, S)
-    assert 2 * (ranked4["memory"]["argument_size_in_bytes"] - p_bytes
-                - kpos) == whole4["memory"]["argument_size_in_bytes"] \
-        - p_bytes - kpos
+    assert ranked4["memory"]["argument_size_in_bytes"] \
+        == p_bytes + 4 * kv // 4 + kpos + 4 * 4 // 2
 
 
 def test_no_default_group_outlives_a_trace():

@@ -25,12 +25,20 @@ dist  over a (data=2, model=2) mesh, on the inputs the test wrote to
       step of the reduced deepseek-moe-16b under ``make_dist`` and one
       AdaptiveNEG FF step at S 16 (its no-grad forward on the rank's
       rows, the logits gathered before the draw), each rank
-      holding its expert shards (``transformer.shard_params``), the
-      negatives replayed from the reference's recorded draws
-      (``ReplayKey``), the tree gathered back; one FF step of the reduced
-      qwen2-0.5b with the model axis folded into the batch; ``prefill``
-      and ``serve_step`` of the reduced deepseek on the rank's shard of
-      the prompts; ``make_dist``'s fields for every config.
+      holding its blocks of the reference's rules
+      (``transformer.shard_params``), the negatives replayed from the
+      reference's recorded draws (``ReplayKey``), the tree gathered back;
+      one FF step of the reduced qwen2-0.5b with the model axis folded
+      into the batch; ``prefill`` and ``serve_step`` of the reduced
+      deepseek on the rank's shard of the prompts; ``make_dist``'s fields
+      for every config; then over (data 2, model 2) and (data 1, model
+      4) meshes (``TP_LAYOUTS``) the tensor-parallel cases
+      (``TP_CASES``): an FF step, a backprop step (``TP_BP``), the
+      backprop loss's grads of the leaves the rank holds, and
+      prefill then greedy decode on the rank's block of the prompts,
+      from the reference's own params (``tp_params``: written by
+      ``jax_dist_ref``); and every config's params through
+      ``shard_params`` and back through ``gather_params``.
 dryrun
       the steps ``launch.dryrun`` traces per rank (``DRY_KINDS`` of
       ``DRY_CFGS``, reduced) on real tensors over (data, model) meshes of
@@ -225,6 +233,45 @@ def run_pod(outdir):
 DIST_MOE_SEED, DIST_AUX = 7, 0.01
 DIST_BATCH, DIST_PROMPT, DIST_GEN = 4, 80, 4
 DIST_STEPS = {"ff16": 16, "ff80": 80, "bp": 80, "ada16": 16}
+# the tensor-parallel cases, each on every layout of TP_LAYOUTS: (name,
+# base config, fields replaced in its reduced()). On (data 2, model 2)
+# and (data 1, model 4): qwen3-8b's 4 / 4 heads split, q and kv alike;
+# qwen2-odd's 6 / 3 (hd 32) split its q heads but not its kv heads on
+# model 2 (each rank's 3 queries read kv heads 0 0 1 or 1 2 2), and no
+# head on model 4; recurrentgemma-2b's 4 / 1 split its q heads alone,
+# beside its RG-LRU's gathered leaves; llama-3.2-vision-90b's cross
+# attention (gates set to 1); mamba2-780m's gathered SSM leaves.
+TP_CASES = (("qwen3-8b", "qwen3-8b", ()),
+            ("qwen2-odd", "qwen2-0.5b",
+             (("n_heads", 6), ("n_kv", 3), ("head_dim", 32))),
+            ("recurrentgemma-2b", "recurrentgemma-2b", ()),
+            ("llama-3.2-vision-90b", "llama-3.2-vision-90b", ()),
+            ("mamba2-780m", "mamba2-780m", ()))
+TP_LAYOUTS = ((2, 2), (1, 4))
+TP_BATCH, TP_SEQ, TP_PROMPT, TP_GEN = 4, 16, 12, 4
+# the cases whose backprop step runs too: the three head cases
+TP_BP = ("qwen3-8b", "qwen2-odd", "recurrentgemma-2b")
+
+
+def tp_params(outdir, name, timeout=600):
+    """A tensor-parallel case's params as the reference's process wrote
+    them (``jax_dist_ref``: its own init, numpy), waited for."""
+    import pickle
+    import time
+    path = os.path.join(outdir, f"tp_params_{name}.pkl")
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} not written in {timeout} s")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def tp_config(get_config, base, fields):
+    """A tensor-parallel case's config: ``base``'s reduced one with
+    ``fields`` replaced (``get_config`` of either package)."""
+    return dataclasses.replace(get_config(base).reduced(), **dict(fields))
 
 
 def moe_cotangent(x):
@@ -316,7 +363,9 @@ def run_dist(outdir):
         leaves = [t.requires_grad_() for t in tree_leaves(held)]
         rows = sharding.block_of(x, mesh, ep.batch_axes)
         c = sharding.block_of(moe_cotangent(x), mesh, ep.batch_axes)
-        y, aux = mlp.moe_apply(held, rows, cfg.moe, cfg.act, ep)
+        y, aux = mlp.moe_apply(transformer.for_use({"mlp": held}, cfg,
+                                                   ep)["mlp"],
+                               rows, cfg.moe, cfg.act, ep)
         loss = (y * c).sum() / sharding.axes_size(mesh, ep.batch_axes) \
             + DIST_AUX * aux
         grads = train.RankPart(cfg, ep).grads(
@@ -324,13 +373,15 @@ def run_dist(outdir):
         out[f"grad:{name}:{B}x{S}"] = grads
 
     # (b, c) the steps; each rank's tree gathered back whole
-    def step(cfg, dist, make, npp, tokens, **kw):
+    def step(cfg, dist, make, npp, tokens, aux=None, **kw):
         params = params_from_numpy(npp, "cpu")
         held = transformer.shard_params(params, cfg, dist)
         opt = optim.adam_init(held)
         fn = make(cfg, dist=dist, lr=1e-3, **kw)
-        held, opt, metrics = fn(held, opt, {"tokens": torch.as_tensor(
-            tokens)}, 1)
+        batch = {"tokens": torch.as_tensor(tokens)}
+        if aux is not None:
+            batch["aux"] = torch.as_tensor(aux)
+        held, opt, metrics = fn(held, opt, batch, 1)
         return {"params": transformer.gather_params(held, cfg, dist),
                 "metrics": {k: float(v) for k, v in metrics.items()},
                 "held": [(tuple(t.shape), t.untyped_storage().nbytes())
@@ -370,6 +421,81 @@ def run_dist(outdir):
             DIST_PROMPT + i, dist=ep)
         served.append(logits)
     out["serve"] = served
+
+    # (e) the tensor-parallel cases, on each layout: the steps, and
+    # prefill and greedy decode on the rank's block of the prompts
+    def serve(cfg, dist, npp, prompts, aux):
+        params = transformer.shard_params(params_from_numpy(npp, "cpu"),
+                                          cfg, dist)
+        rows = sharding.block_of(torch.as_tensor(prompts), dist.mesh,
+                                 dist.batch_axes)
+        if aux is not None:
+            aux = sharding.block_of(torch.as_tensor(aux), dist.mesh,
+                                    dist.batch_axes)
+        logits, caches = transformer.prefill(
+            params, cfg, rows, aux=aux, dist=dist,
+            max_len=TP_PROMPT + TP_GEN, impl="ref")
+        heads = set()
+        sharding.map_with_path(
+            lambda path, t: heads.add(t.shape[3]) if path[-1] in ("k", "v")
+            else None, caches)
+        res = {"logits": [logits], "tokens": [], "kv_heads": sorted(heads)}
+        for i in range(TP_GEN):
+            tok = logits[:, -1].argmax(-1).to(torch.int32) \
+                if logits.dim() == 3 else logits.argmax(-1).to(torch.int32)
+            res["tokens"].append(tok)
+            logits, caches = transformer.serve_step(
+                params, cfg, caches, tok, TP_PROMPT + i, dist=dist)
+            res["logits"].append(logits)
+        return res
+
+    def bp_grads(cfg, dist, npp, tokens, aux):
+        # the backprop step's loss (its rows' mean CE, over the whole
+        # batch's count) and its grads of the leaves the rank holds,
+        # summed as the step sums them: the raw grads, which Adam's first
+        # step would hide a uniform factor in
+        held = transformer.shard_params(params_from_numpy(npp, "cpu"), cfg,
+                                        dist)
+        part = train.RankPart(cfg, dist)
+        tokens = torch.as_tensor(tokens)
+        rows = part.rows(tokens)
+        aux = None if aux is None else part.rows(torch.as_tensor(aux))
+        tp = train.trainable(held)
+        logits, _ = transformer.forward(tp, cfg, rows[:, :-1], aux=aux,
+                                        dist=dist, impl="ref")
+        ce = -torch.log_softmax(logits, -1).gather(
+            -1, rows[:, 1:].long()[..., None])[..., 0]
+        loss = ce.mean() * (rows.shape[0] / tokens.shape[0])
+        return part.grads(train.grads_of(loss, tp), held)
+
+    for layout in TP_LAYOUTS:
+        tmesh = make_mesh(layout, ("data", "model"))
+        out[f"coords:{layout}"] = {a: sharding.axis_index(tmesh, a)
+                                   for a in ("data", "model")}
+        for name, base, fields in TP_CASES:
+            case = inputs["tp"][name]
+            params = tp_params(outdir, name)
+            cfg = tp_config(get_config, base, fields)
+            d = make_dist(cfg, tmesh)
+            aux = case.get("aux")
+            res = out[f"tp:{name}:{layout}"] = {
+                "ff": step(cfg, d, train.make_ff_train_step, params,
+                           case["tokens"], aux, key_fn=key_fn),
+                "serve": serve(cfg, d, params, case["prompts"], aux)}
+            if name in TP_BP:
+                res["bp"] = step(cfg, d, train.make_bp_train_step, params,
+                                 case["tokens"], aux)
+            res["grads"] = bp_grads(cfg, d, params, case["tokens"], aux)
+        # (f) every config's tree through shard_params and gather_params
+        for name in list_configs():
+            cfg = get_config(name).reduced()
+            d = make_dist(cfg, tmesh)
+            params = transformer.init(torch.Generator().manual_seed(0), cfg)
+            back = transformer.gather_params(
+                transformer.shard_params(params, cfg, d), cfg, d)
+            out[f"identity:{name}:{layout}"] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                  tree_leaves(back)))
     return out
 
 
