@@ -258,24 +258,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
     the rest of the phase), its wall time printed; then ``--all --mesh
     pod1``, each combo's step as rank 0 runs it, its wall
     time and tally printed (each rank's peak, whether it fits 80 GB, its
-    arguments beside the reference rules' blocks, its params and Adam
-    state equal to them, its collective bytes by type; every train
-    combo's above 0).
+    arguments beside the reference rules' blocks, equal to them, its
+    params and Adam state too, its collective bytes by type; every
+    train combo's above 0).
 34. Tensor-parallel ranks on the one card: the attention kernel at the
-    ranks' shapes (qwen3-8b's (4, 2048, 16 / 4, 128) and recurrentgemma-
-    2b's (4, 4096, 5 / 1, 256, window 2048)) against its plain version
-    and timed beside its bound and SDPA; qwen3-8b at published width and
-    depth in bf16, prefill of (4, 2048) and 8 decode steps, and one FF
-    step of its 2-unit cut in f32 (B 4, S 256), first under ``NO_DIST``
-    in this process, then on two processes of a gloo group on CUDA
-    tensors, a (data 1, model 2) mesh, each rank holding the blocks of
-    the reference's ``param_specs``: 36 attention kernel calls per
-    prefill per rank, its caches holding its 4 of the 8 kv heads, its
-    logits within ``LM_BF16_TOL`` of ``NO_DIST``'s and its argmax
-    ``NO_DIST``'s on decided rows, the leaves ``gather_params`` returns
-    after the step within the leaf rule, its arguments equal to the
-    per-rank dry run's and its temp memory on the plain route within
-    ``DRYRUN_MEM_FACTOR``; the phase's wall time.
+    ranks' shapes (qwen3-8b's (4, 2048, 16 / 4, 128), recurrentgemma-
+    2b's (4, 4096, 5 / 1, 256, window 2048) and its batch-1 rank's (1,
+    4096, 5 / 1, 256, window 2048)) and the SSD kernel at mamba2's
+    prefill shape against their plain versions, the attention timed
+    beside its bound and SDPA; three configs whole in bf16, first under
+    ``NO_DIST`` in this process, then on two processes of a gloo group
+    on CUDA tensors, a (data 1, model 2) mesh, each rank holding the
+    blocks of the reference's ``param_specs``, its vocab block of the
+    logits and its blocks of the caches by ``cache_specs_tree``:
+    qwen3-8b at (4, 2048) (36 attention kernel calls per prefill per
+    rank, its caches holding its 4 of the 8 kv heads), recurrentgemma-2b
+    at batch 1 with a 4096-token prompt that wraps its 2048 window (8
+    calls, its caches' slots split), mamba2-780m at (4, 2048) (48 SSD
+    calls, its state split on hd); prefill and 8 decode steps fed
+    ``NO_DIST``'s tokens, the logits made whole within ``LM_BF16_TOL``
+    of ``NO_DIST``'s and the greedy tokens picked over the vocab blocks
+    ``NO_DIST``'s argmax on decided rows, each rank's caches its blocks
+    of ``NO_DIST``'s (shapes; values too but for qwen3-8b's), its
+    prefill and decode step timed; one FF step of qwen3-8b's 2-unit cut
+    in f32 (B 4, S 256, vocab-parallel CE), the leaves ``gather_params``
+    returns within the leaf rule; each rank's arguments equal to the
+    per-rank dry run's (prefill, decode and the step) and its temp
+    memory on the plain route within ``DRYRUN_MEM_FACTOR`` (prefill and
+    the step; decode's printed); the phase's wall time.
 35. Isolation: no ``jax`` and no ``repro`` module was loaded.
 
 Phases 1-31 run the kernels at their default tiles: ``main`` points
@@ -613,24 +623,37 @@ LEAF_SHARE, LEAF_TOL = 1e-4, 1e-3
 # Phase 34: tensor-parallel ranks on the one card. TP_MESH (data 1, model
 # 2) over two processes in a gloo group (NCCL refuses two ranks on one
 # device), on CUDA tensors, each holding the blocks of the reference's
-# param_specs. TP_CFG at published width and depth in bf16: prefill of
-# (LM_BATCH, LM_PROMPT) and TP_DECODE decode steps fed NO_DIST's greedy
-# tokens, each rank's last-position logits within LM_BF16_TOL of
-# NO_DIST's and its argmax NO_DIST's on decided rows (phase 23's rule),
-# TP_CALLS attention kernel calls per prefill per rank; one FF step of its
+# param_specs, its vocab block of the logits, its blocks of the decode
+# caches by cache_specs_tree. TP_SERVE's configs whole in bf16 (name,
+# batch, prompt, the kernel its prefill runs, its calls per rank):
+# prefill and TP_DECODE decode steps fed NO_DIST's greedy tokens, each
+# rank's last-position logits made whole within LM_BF16_TOL of NO_DIST's
+# and its greedy tokens over the vocab blocks NO_DIST's argmax on decided
+# rows (phase 23's rule); qwen3-8b's caches split on kv heads,
+# recurrentgemma-2b's at batch 1 on their slots (the ring of its 2048
+# window, wrapped by the 4096-token prompt), mamba2-780m's state on hd;
+# each rank's caches after the decode steps its blocks of NO_DIST's, in
+# shape, and within LM_BF16_TOL scaled where TP_CACHE_VALUES keeps
+# NO_DIST's (qwen3-8b's 1.2 GB are not kept). One FF step of TP_CFG's
 # TP_TRAIN_UNITS-unit cut at (POD_BATCH, POD_SEQ) in f32, the leaves
 # gather_params returns against NO_DIST's by the leaf rule (f32: Adam's
 # first step moves an element by lr times the sign of its grad, and in
 # bf16 a grad within rounding of zero takes either sign under two
 # summation orders); each rank's argument bytes equal to the per-rank dry
-# run's for its rank of (1, 2), its temp memory on the plain route within
-# DRYRUN_MEM_FACTOR of the prediction; the kernel at the ranks' attention
+# run's for its rank of (1, 2), prefill, decode and the step, its temp
+# memory on the plain route within DRYRUN_MEM_FACTOR of the prediction
+# (prefill and the step; decode's printed); the kernels at the ranks'
 # shapes (TP_RANK_ATTN: qwen3-8b's 16 / 4 heads a rank, recurrentgemma-
-# 2b's 5 / 1) against its plain version and timed.
-TP_CFG, TP_MESH, TP_DECODE, TP_TRAIN_UNITS, TP_CALLS = \
-    "qwen3-8b", (1, 2), 8, 2, 36
+# 2b's 5 / 1 at batch 4 and at batch 1; MAMBA_SSD, the SSD's shape in
+# mamba2's prefill under a Dist) against their plain versions and timed.
+TP_CFG, TP_MESH, TP_DECODE, TP_TRAIN_UNITS = "qwen3-8b", (1, 2), 8, 2
+TP_SERVE = (("qwen3-8b", LM_BATCH, LM_PROMPT, "flash_attention", 36),
+            ("recurrentgemma-2b", 1, 4096, "flash_attention", 8),
+            ("mamba2-780m", LM_BATCH, LM_PROMPT, "mamba2_ssd", 48))
+TP_CACHE_VALUES = ("recurrentgemma-2b", "mamba2-780m")
 TP_RANK_ATTN = [(4, 2048, 2048, 16, 4, 128, True, None),
-                (4, 4096, 4096, 5, 1, 256, True, 2048)]
+                (4, 4096, 4096, 5, 1, 256, True, 2048),
+                (1, 4096, 4096, 5, 1, 256, True, 2048)]
 TP_TIMEOUT = 900
 POD_CLI = ["-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
@@ -3655,7 +3678,8 @@ def pod1_tally(out, ok, last, all_s):
         print(f"[33 pod1] rank {r['rank']} {r['arch']} {r['shape']}: peak "
               f"{mem['peak_size_in_bytes'] / 2 ** 30:.1f} GiB, "
               f"fits 80 GB {r['fits_hbm']}; arguments "
-              f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB, the "
+              f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB "
+              f"(rank_argument_bytes {mem['rank_argument_bytes']}), the "
               f"reference rules' {mem['per_device_argument_bytes'] / 2 ** 30:.3f}"
               f" (params and Adam state {mem['rank_param_bytes']} bytes, the "
               f"rules' {mem['rules_param_bytes']}); collective bytes {moved} "
@@ -3676,6 +3700,11 @@ def pod1_tally(out, ok, last, all_s):
     check(all(r["memory"]["rank_param_bytes"]
               == r["memory"]["rules_param_bytes"] for r in recs),
           "a rank on pod1 holds params other than the reference rules' "
+          "blocks")
+    check(all(r["memory"]["rank_argument_bytes"]
+              == r["memory"]["per_device_argument_bytes"]
+              == r["memory"]["argument_size_in_bytes"] for r in recs),
+          "a rank on pod1 holds arguments other than the reference rules' "
           "blocks")
 
 
@@ -3786,77 +3815,136 @@ def tp_rank(rank, port, tmp):
         dist.destroy_process_group()
 
 
+def tp_serve_path(name):
+    return f"tp_no_dist_{name}.pt"
+
+
+def tp_cache_errs(caches, want, cfg, B, max_len, mesh):
+    """(every leaf of ``caches`` shaped as its block of the whole caches
+    under ``cache_specs_tree(seq_axis_model=(B == 1))``, the largest
+    scaled error of a leaf against its block of ``want``, NO_DIST's
+    whole caches, or None without them)."""
+    from repro_torch import sharding
+    from repro_torch.models import transformer
+
+    seq = B == 1
+    held, whole, ref = [], [], []
+    sharding.map_with_path(lambda p, t: held.append(t), caches)
+    sharding.map_with_path(
+        lambda p, t: whole.append(sharding.local_shard(
+            t, sharding.cache_leaf_spec(t.shape, mesh, seq), mesh).shape),
+        transformer.cache_specs(cfg, B, max_len))
+    shaped = [tuple(t.shape) for t in held] == [tuple(s) for s in whole]
+    if want is None:
+        return shaped, None
+    sharding.map_with_path(
+        lambda p, t: ref.append(sharding.local_shard(
+            t, sharding.cache_leaf_spec(t.shape, mesh, seq), mesh)), want)
+    errs = [scaled_err(h.float(), r.to(h.device).float())
+            for h, r in zip(held, ref) if r.is_floating_point()]
+    same = all(torch.equal(h.cpu(), r) for h, r in zip(held, ref)
+               if not r.is_floating_point())
+    return shaped and same, max(errs)
+
+
 def tp_rank_work(rank, tmp, dev="cuda"):
-    """34, per rank: the held blocks of TP_CFG (whole init from seed 0 on
-    the card, cut by ``shard_params``, the whole freed), prefill through
-    the kernels and decode fed NO_DIST's tokens, against NO_DIST's
-    logits (``tmp/tp_no_dist.pt``); the plain-route prefill's temp
-    memory; the FF step of the cut and its temp memory, its gathered
-    leaves against NO_DIST's (rank 0, ``tmp/tp_no_dist_train.pt``).
-    Returns the figures."""
-    from repro_torch import optim
+    """34, per rank: for each config of TP_SERVE the held blocks (whole
+    init from seed 0 on the card, cut by ``shard_params``, the whole
+    freed), prefill through the kernels and decode fed NO_DIST's tokens,
+    against NO_DIST's logits, argmax and caches (``tmp/tp_no_dist_*``);
+    the plain-route prefill's temp memory and the last decode step's;
+    the FF step of TP_CFG's cut and its temp memory, its gathered leaves
+    against NO_DIST's (rank 0, ``tmp/tp_no_dist_train.pt``). Returns the
+    figures."""
+    from repro_torch import optim, sharding
     from repro_torch.convert import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.core import pff_lm, train as train_lib
     from repro_torch.kernels import counts, flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.launch.dryrun import make_dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer
 
-    ref = torch.load(os.path.join(tmp, "tp_no_dist.pt"))
     mesh = make_mesh(TP_MESH, ("data", "model"))
-    cfg = get_config(TP_CFG)
-    d = make_dist(cfg, mesh)
     out = {"rank": rank, "model": int(mesh.get_local_rank("model"))}
-    params = transformer.shard_params(pff_lm.init_params(cfg, 0, dev), cfg,
-                                      d)
-    torch.cuda.empty_cache()
-    prompts = ref["prompts"].to(dev)
-    out["prefill_args"] = tree_bytes(params) + tree_bytes(prompts)
-    V, P = cfg.vocab, prompts.shape[1]
-    errs, decided, same = [], [], []
+    kernels = {"flash_attention": fa, "mamba2_ssd": ssd}
+    for name, B, P, op, _ in TP_SERVE:
+        ref = torch.load(os.path.join(tmp, tp_serve_path(name)), mmap=True)
+        cfg = get_config(name)
+        d = make_dist(cfg, mesh)
+        res = out[name] = {}
+        params = transformer.shard_params(pff_lm.init_params(cfg, 0, dev),
+                                          cfg, d)
+        torch.cuda.empty_cache()
+        prompts = ref["prompts"].to(dev)
+        res["prefill_args"] = tree_bytes(params) + tree_bytes(prompts)
+        V = cfg.vocab
+        errs, decided, same = [], [], []
 
-    def gate(logits, want):
-        lk, lr = logits[:, :V].float(), want.to(dev)
-        errs.append(scaled_err(lk, lr))
-        ok = top2_margin(lr) > 2 * float((lk - lr).abs().max())
-        decided.append(int(ok.sum()))
-        same.append(int((lk.argmax(-1) == lr.argmax(-1))[ok].sum()))
+        def gate(logits, want):
+            whole = transformer.whole_logits(logits, cfg, d)
+            lk, lr = whole[:, :V].float(), want.to(dev)
+            errs.append(scaled_err(lk, lr))
+            ok = top2_margin(lr) > 2 * float((lk - lr).abs().max())
+            decided.append(int(ok.sum()))
+            picked = transformer.greedy(logits, cfg, d).long()
+            same.append(int((picked == lr.argmax(-1))[ok].sum()))
 
-    with torch.no_grad():
-        counts.reset(fa)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, caches = transformer.prefill(
-            params, cfg, prompts, dist=d, max_len=P + TP_DECODE,
-            last_only=True)
-        torch.cuda.synchronize()
-        out["prefill_s"] = time.perf_counter() - t0
-        out["calls"] = fa.LAUNCHES.total
-        out["kv_heads"] = int(caches[0][0]["k"].shape[3])
-        gate(logits, ref["logits"][0])
-        t0 = time.perf_counter()
-        for i, tok in enumerate(ref["tokens"]):
-            logits, caches = transformer.serve_step(
-                params, cfg, caches, tok.to(dev), P + i, dist=d)
-            gate(logits, ref["logits"][i + 1])
-        torch.cuda.synchronize()
-        out["decode_step_s"] = (time.perf_counter() - t0) / TP_DECODE
-        out["decode_calls"] = fa.LAUNCHES.total - out["calls"]
-        del caches, logits
-        # the plain route, as the dry run traces it, for the memory check
-        _, out["prefill_temp"] = peak_over(lambda: transformer.prefill(
-            params, cfg, prompts, dist=d, last_only=True, impl="ref"))
-    out.update(errs=errs, decided=decided, same=same)
-    del params, prompts
-    torch.cuda.empty_cache()
+        with torch.no_grad():
+            counts.reset(fa, ssd)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = transformer.prefill(
+                params, cfg, prompts, dist=d, max_len=P + TP_DECODE,
+                last_only=True)
+            torch.cuda.synchronize()
+            res["prefill_s"] = time.perf_counter() - t0
+            res["calls"] = kernels[op].LAUNCHES.total
+            res["vocab_block"] = int(logits.shape[-1])
+            heads = set()
+            sharding.map_with_path(
+                lambda p, t: heads.add(t.shape[3]) if p[-1] == "k" else None,
+                caches)
+            res["kv_heads"] = sorted(heads)
+            gate(logits, ref["logits"][0])
+            res["decode_args"] = (tree_bytes(params) + tree_bytes(caches)
+                                  + 4 * B)
+            steps = []
+            for i, tok in enumerate(ref["tokens"]):
+                tok = tok.to(dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == len(ref["tokens"]) - 1:
+                    (logits, caches), res["decode_temp"] = peak_over(
+                        lambda: transformer.serve_step(
+                            params, cfg, caches, tok, P + i, dist=d))
+                else:
+                    logits, caches = transformer.serve_step(
+                        params, cfg, caches, tok, P + i, dist=d)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                gate(logits, ref["logits"][i + 1])
+            res["decode_step_s"] = sum(steps) / len(steps)
+            res["decode_calls"] = kernels[op].LAUNCHES.total - res["calls"]
+            res["caches_ok"], res["cache_err"] = tp_cache_errs(
+                caches, ref.get("caches"), cfg, B, P + TP_DECODE, mesh)
+            del caches, logits
+            # the plain route, as the dry run traces it, for the memory check
+            _, res["prefill_temp"] = peak_over(lambda: transformer.prefill(
+                params, cfg, prompts, dist=d, last_only=True, impl="ref"))
+        res.update(errs=errs, decided=decided, same=same)
+        del params, prompts, ref
+        torch.cuda.empty_cache()
 
     cut = tp_train_cfg()
+    d = make_dist(cut, mesh)
     params = transformer.shard_params(pff_lm.init_params(cut, 0, dev), cut,
                                       d)
     opt = optim.adam_init(params)
     torch.cuda.empty_cache()
-    tokens = ref["train_tokens"].to(dev)
+    tokens = torch.load(os.path.join(tmp, tp_serve_path(TP_CFG)))[
+        "train_tokens"].to(dev)
     out["train_args"] = tree_bytes((params, opt, tokens))
     step = train_lib.make_ff_train_step(cut, dist=d, lr=1e-3)
     t0 = time.perf_counter()
@@ -3879,18 +3967,20 @@ def tp_rank_work(rank, tmp, dev="cuda"):
 
 def phase_tensor_parallel(gen, flush, tmp, smi):
     """34. Tensor-parallel ranks on one card (TP_MESH, two processes in a
-    gloo group, CUDA tensors): the kernel at the ranks' attention shapes
-    against its plain version and timed; TP_CFG's prefill, decode and FF
-    step under NO_DIST in this process (results kept on the host), the
-    per-rank dry run of each rank's prefill and step, then the ranks
-    (``tp_rank``) held to them. Returns (the kernel rows, the ranks'
-    attention kernel calls, the phase's wall time)."""
+    gloo group, CUDA tensors): the attention kernel at the ranks' shapes
+    against its plain version and timed, the SSD kernel at mamba2's
+    prefill shape against its plain version; each config of TP_SERVE's
+    prefill and decode, and TP_CFG's cut's FF step, under NO_DIST in this
+    process (results kept on the host), the per-rank dry run of each
+    rank's prefill, decode and step, then the ranks (``tp_rank``) held
+    to them. Returns (the attention rows, the ranks' kernel calls by
+    kernel, the phase's wall time)."""
     import torch.multiprocessing as mp
 
     from repro_torch import optim
     from repro_torch.configs import InputShape, get_config
-    from repro_torch.convert import tree_leaves
     from repro_torch.core import pff_lm, train as train_lib
+    from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer
 
@@ -3899,57 +3989,81 @@ def phase_tensor_parallel(gen, flush, tmp, smi):
     for shape in TP_RANK_ATTN:
         fa_check(gen, shape, fa_errs, "34 check")
         rows += attention_rows(gen, shape, fa_errs, flush, "34 time")
+    B, S, H, hd, N, chunk = MAMBA_SSD
+    xbar, dA, b, c = ssd_inputs(gen, B, S, H, hd, N, "mild")
+    y, hT = ssd.mamba2_ssd(xbar, dA, b, c, chunk=chunk)
+    yp, hp = ssd.mamba2_ssd_plain(xbar, dA, b, c, chunk=chunk)
+    e = max(scaled_err(y, yp), scaled_err(hT, hp))
+    print(f"[34 check] mamba2_ssd {MAMBA_SSD} (mamba2-780m's prefill under "
+          f"a Dist: every rank runs every head) mild decay: err {e:.3e} "
+          f"(<= {SSD_TOL})")
+    check(e <= SSD_TOL, f"mamba2_ssd disagrees with its plain version at "
+          f"{MAMBA_SSD}")
+    del xbar, dA, b, c, y, hT, yp, hp
 
     # NO_DIST on the card, kept on the host
-    cfg = get_config(TP_CFG)
-    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
-                            generator=torch.Generator().manual_seed(34),
-                            dtype=torch.int32)
-    params = pff_lm.init_params(cfg, 0, "cuda")
-    ref = {"prompts": prompts, "logits": [], "tokens": []}
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        logits, caches = transformer.prefill(
-            params, cfg, prompts.cuda(), max_len=LM_PROMPT + TP_DECODE,
-            last_only=True)
-        for i in range(TP_DECODE + 1):
-            ref["logits"].append(logits[:, :cfg.vocab].float().cpu())
-            if i == TP_DECODE:
-                break
-            tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
-            ref["tokens"].append(tok.cpu())
-            logits, caches = transformer.serve_step(params, cfg, caches, tok,
-                                                    LM_PROMPT + i)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    del params, caches, logits
-    torch.cuda.empty_cache()
-    cut = tp_train_cfg()
-    ref["train_tokens"] = torch.randint(
-        0, cut.vocab, (POD_BATCH, POD_SEQ + 1),
-        generator=torch.Generator().manual_seed(35), dtype=torch.int32)
+    serve_s = {}
+    for i, (name, B, P, _, _) in enumerate(TP_SERVE):
+        cfg = get_config(name)
+        prompts = torch.randint(0, cfg.vocab, (B, P),
+                                generator=torch.Generator().manual_seed(
+                                    34 + i), dtype=torch.int32)
+        params = pff_lm.init_params(cfg, 0, "cuda")
+        ref = {"prompts": prompts, "logits": [], "tokens": []}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = transformer.prefill(
+                params, cfg, prompts.cuda(), max_len=P + TP_DECODE,
+                last_only=True)
+            for k in range(TP_DECODE + 1):
+                ref["logits"].append(logits[:, :cfg.vocab].float().cpu())
+                if k == TP_DECODE:
+                    break
+                tok = logits[:, :cfg.vocab].argmax(-1).to(torch.int32)
+                ref["tokens"].append(tok.cpu())
+                logits, caches = transformer.serve_step(params, cfg, caches,
+                                                        tok, P + k)
+        torch.cuda.synchronize()
+        serve_s[name] = time.perf_counter() - t0
+        if name in TP_CACHE_VALUES:
+            ref["caches"] = tree_map_cpu(caches)
+        if name == TP_CFG:
+            cut = tp_train_cfg()
+            ref["train_tokens"] = torch.randint(
+                0, cut.vocab, (POD_BATCH, POD_SEQ + 1),
+                generator=torch.Generator().manual_seed(35),
+                dtype=torch.int32)
+        torch.save(ref, os.path.join(tmp, tp_serve_path(name)))
+        del params, caches, logits, ref
+        torch.cuda.empty_cache()
     params = pff_lm.init_params(cut, 0, "cuda")
     opt = optim.adam_init(params)
+    tokens = torch.load(os.path.join(tmp, tp_serve_path(TP_CFG)))[
+        "train_tokens"]
     t0 = time.perf_counter()
     train_lib.make_ff_train_step(cut, lr=1e-3)(
-        params, opt, {"tokens": ref["train_tokens"].cuda()}, 1)
+        params, opt, {"tokens": tokens.cuda()}, 1)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     torch.save(tree_map_cpu(params), os.path.join(tmp, "tp_no_dist_train.pt"))
-    torch.save(ref, os.path.join(tmp, "tp_no_dist.pt"))
     del params, opt
     torch.cuda.empty_cache()
 
-    # the per-rank dry run of each rank's prefill and FF step
+    # the per-rank dry run of each rank's prefill, decode and FF step
     sizes = dict(zip(("data", "model"), TP_MESH))
     pred = {}
     for r in range(math.prod(TP_MESH)):
-        for kind, c, (B, S) in (("prefill", cfg, (LM_BATCH, LM_PROMPT)),
-                                ("train", cut, (POD_BATCH, POD_SEQ))):
-            _, an, _ = dryrun.trace_combo(
-                c, InputShape(f"chip_smoke_tp_{kind}", S, B, kind),
-                mesh=sizes, rank=r)
-            pred[r, kind] = an["memory"]
+        for name, B, P, _, _ in TP_SERVE:
+            for kind, S in (("prefill", P), ("decode", P + TP_DECODE)):
+                _, an, _ = dryrun.trace_combo(
+                    get_config(name), InputShape(f"chip_smoke_tp_{kind}", S,
+                                                 B, kind),
+                    mesh=sizes, rank=r)
+                pred[r, name, kind] = an["memory"]
+        _, an, _ = dryrun.trace_combo(
+            cut, InputShape("chip_smoke_tp_train", POD_SEQ, POD_BATCH,
+                            "train"), mesh=sizes, rank=r)
+        pred[r, "train"] = an["memory"]
     check(not dist.is_initialized(), "the per-rank trace left its fake "
           "process group initialized")
 
@@ -3971,58 +4085,85 @@ def phase_tensor_parallel(gen, flush, tmp, smi):
                 p.terminate()
             p.join()
     ranks_s = time.perf_counter() - t0
-    calls = 0
-    for r in range(math.prod(TP_MESH)):
-        res = torch.load(os.path.join(tmp, f"tp_rank{r}.pt"))
-        calls += res["calls"]
-        kv = cfg.n_kv // TP_MESH[1]
-        print(f"[34 tp] rank {r} (model {res['model']}) of (data "
-              f"{TP_MESH[0]}, model {TP_MESH[1]}), gloo on CUDA tensors, "
-              f"{TP_CFG} bf16 at published width and depth, {cfg.n_heads // TP_MESH[1]} "
-              f"/ {res['kv_heads']} heads: prefill (B {LM_BATCH}, S "
-              f"{LM_PROMPT}) {res['prefill_s']:.4f} s with {res['calls']} "
-              f"attention kernel calls ({res['decode_calls']} in decode), "
-              f"decode step {res['decode_step_s'] * 1e3:.2f} ms; logits vs "
-              f"NO_DIST, prefill then {TP_DECODE} steps fed NO_DIST's "
-              f"tokens: {[f'{e:.3e}' for e in res['errs']]} (<= "
-              f"{LM_BF16_TOL}); argmax equal on {sum(res['same'])}/"
-              f"{sum(res['decided'])} decided rows; FF step of the "
-              f"{TP_TRAIN_UNITS}-unit f32 cut (B {POD_BATCH}, S {POD_SEQ}) "
-              f"{res['train_s']:.4f} s")
-        check(res["calls"] == TP_CALLS and res["decode_calls"] == 0,
-              f"rank {r} prefill launched {res['calls']} attention kernels "
-              f"({res['decode_calls']} in decode), expected {TP_CALLS}")
-        check(res["kv_heads"] == kv, f"rank {r}'s caches hold "
-              f"{res['kv_heads']} kv heads, expected its {kv}")
-        check(max(res["errs"]) <= LM_BF16_TOL, f"rank {r}: logits differ "
-              f"from NO_DIST by {max(res['errs'])} > {LM_BF16_TOL}")
-        check(res["same"] == res["decided"], f"rank {r}: greedy tokens "
-              f"differ from NO_DIST's on decided rows")
-        if r == 0:
-            print(f"[34 tp] gathered leaves after the FF step vs NO_DIST: max "
-                  f"abs diff {res['worst']:.3e} (<= {LEAF_TOL}), worst share "
-                  f"beyond {WEIGHT_TOL} {res['share']:.2e} (<= "
-                  f"{LEAF_SHARE}); NO_DIST's step {train_s:.4f} s, its "
-                  f"prefill and decode {serve_s:.4f} s")
-            check(res["finite"] and res["worst"] <= LEAF_TOL
-                  and res["share"] <= LEAF_SHARE,
-                  f"the tensor-parallel FF step differs from NO_DIST beyond "
-                  f"the leaf rule: {res['worst']}, {res['share']}")
-        for kind in ("prefill", "train"):
-            mem, held = pred[r, kind], res[f"{kind}_args"]
-            ratio = res[f"{kind}_temp"] / mem["temp_size_in_bytes"]
-            print(f"[34 tp] rank {r} {kind} on the plain route, on {smi}: "
-                  f"arguments {held} bytes held, {mem['argument_size_in_bytes']}"
-                  f" traced (the rules' placed {mem['per_device_argument_bytes']}); "
-                  f"temp measured {res[f'{kind}_temp'] / 2 ** 30:.4f} GiB, "
-                  f"predicted {mem['temp_size_in_bytes'] / 2 ** 30:.4f} GiB: "
-                  f"{ratio:.4f} (within {DRYRUN_MEM_FACTOR}x either way)")
-            check(held == mem["argument_size_in_bytes"],
-                  f"rank {r} {kind}: the card holds {held} argument bytes, "
-                  f"the per-rank trace {mem['argument_size_in_bytes']}")
+    calls = {"flash_attention": 0, "mamba2_ssd": 0}
+    m = TP_MESH[1]
+
+    def memory(r, kind, held, temp, mem, gated=True):
+        line = (f"[34 tp] rank {r} {kind} on the plain route, on {smi}: "
+                f"arguments {held} bytes held, "
+                f"{mem['argument_size_in_bytes']} traced (the rules' "
+                f"placed {mem['per_device_argument_bytes']})")
+        check(held == mem["argument_size_in_bytes"],
+              f"rank {r} {kind}: the card holds {held} argument bytes, the "
+              f"per-rank trace {mem['argument_size_in_bytes']}")
+        ratio = temp / max(mem["temp_size_in_bytes"], 1)
+        print(line + f"; temp measured {temp / 2 ** 30:.4f} GiB, predicted "
+              f"{mem['temp_size_in_bytes'] / 2 ** 30:.4f} GiB: {ratio:.4f}"
+              + (f" (within {DRYRUN_MEM_FACTOR}x either way)" if gated
+                 else " (printed, not gated)"))
+        if gated:
             check(1 / DRYRUN_MEM_FACTOR <= ratio <= DRYRUN_MEM_FACTOR,
                   f"rank {r} {kind}: measured / predicted temp {ratio:.4f} "
                   f"outside {DRYRUN_MEM_FACTOR}x")
+
+    for r in range(math.prod(TP_MESH)):
+        out = torch.load(os.path.join(tmp, f"tp_rank{r}.pt"))
+        for name, B, P, op, want_calls in TP_SERVE:
+            cfg = get_config(name)
+            res = out[name]
+            calls[op] += res["calls"]
+            cache = ("no cache values kept" if res["cache_err"] is None
+                     else f"values within {res['cache_err']:.3e} scaled "
+                          f"(<= {LM_BF16_TOL})")
+            print(f"[34 tp] rank {r} (model {out['model']}) of (data "
+                  f"{TP_MESH[0]}, model {m}), gloo on CUDA tensors, {name} "
+                  f"bf16 at published width and depth, B {B}, prompt {P}: "
+                  f"vocab block {res['vocab_block']} of {cfg.padded_vocab}; "
+                  f"prefill {res['prefill_s']:.4f} s with {res['calls']} "
+                  f"{op} kernel calls ({res['decode_calls']} in decode), "
+                  f"decode step {res['decode_step_s'] * 1e3:.2f} ms; logits "
+                  f"vs NO_DIST, prefill then {TP_DECODE} steps fed NO_DIST's "
+                  f"tokens: {[f'{e:.3e}' for e in res['errs']]} (<= "
+                  f"{LM_BF16_TOL}); greedy over the vocab blocks equal to "
+                  f"NO_DIST's argmax on {sum(res['same'])}/"
+                  f"{sum(res['decided'])} decided rows; caches (kv heads "
+                  f"{res['kv_heads']}) the blocks of cache_specs_tree"
+                  f"(seq_axis_model={B == 1}): {res['caches_ok']}, {cache}; "
+                  f"NO_DIST's prefill and decode {serve_s[name]:.4f} s")
+            check(res["calls"] == want_calls and res["decode_calls"] == 0,
+                  f"rank {r} {name}: prefill launched {res['calls']} {op} "
+                  f"kernels ({res['decode_calls']} in decode), expected "
+                  f"{want_calls}")
+            check(res["vocab_block"] == cfg.padded_vocab // m,
+                  f"rank {r} {name}: logits of {res['vocab_block']} entries, "
+                  f"not its vocab block")
+            check(res["caches_ok"], f"rank {r} {name}: its caches are not "
+                  f"its blocks of cache_specs_tree's")
+            check(res["cache_err"] is None or res["cache_err"] <= LM_BF16_TOL,
+                  f"rank {r} {name}: caches differ from NO_DIST's blocks by "
+                  f"{res['cache_err']}")
+            check(max(res["errs"]) <= LM_BF16_TOL, f"rank {r} {name}: logits "
+                  f"differ from NO_DIST by {max(res['errs'])} > {LM_BF16_TOL}")
+            check(res["same"] == res["decided"], f"rank {r} {name}: greedy "
+                  f"tokens differ from NO_DIST's on decided rows")
+            memory(r, f"{name} prefill", res["prefill_args"],
+                   res["prefill_temp"], pred[r, name, "prefill"])
+            memory(r, f"{name} decode step", res["decode_args"],
+                   res["decode_temp"], pred[r, name, "decode"], gated=False)
+        print(f"[34 tp] rank {r}: FF step of the {TP_TRAIN_UNITS}-unit f32 "
+              f"cut of {TP_CFG} (B {POD_BATCH}, S {POD_SEQ}, vocab-parallel "
+              f"CE) {out['train_s']:.4f} s")
+        memory(r, "FF step", out["train_args"], out["train_temp"],
+               pred[r, "train"])
+        if r == 0:
+            print(f"[34 tp] gathered leaves after the FF step vs NO_DIST: max "
+                  f"abs diff {out['worst']:.3e} (<= {LEAF_TOL}), worst share "
+                  f"beyond {WEIGHT_TOL} {out['share']:.2e} (<= "
+                  f"{LEAF_SHARE}); NO_DIST's step {train_s:.4f} s")
+            check(out["finite"] and out["worst"] <= LEAF_TOL
+                  and out["share"] <= LEAF_SHARE,
+                  f"the tensor-parallel FF step differs from NO_DIST beyond "
+                  f"the leaf rule: {out['worst']}, {out['share']}")
     wall = time.perf_counter() - t_phase
     print(f"[34 tp] the ranks ran in {ranks_s:.1f} s; phase 34 took "
           f"{wall:.1f} s")
@@ -4839,8 +4980,7 @@ def run(t_start, tmp):
     tp_rows, tp_calls, tp_s = phase_tensor_parallel(gen, flush, tmp, smi)
     del flush
     for row in lm_rows:
-        if row["name"] == "flash_attention":
-            row["launches"] += tp_calls
+        row["launches"] += tp_calls.get(row["name"], 0)
     for row in tp_rows:
         row["launches"] = next(r["launches"] for r in lm_rows
                                if r["name"] == "flash_attention")

@@ -108,21 +108,45 @@ def _block_ff_loss(delta, is_pos, theta):
     return ff.ff_loss_masked(g, is_pos, theta), g
 
 
-def _ce_chunk(hc, lc, mc, w, softcap):
+def vocab_ce(logits, labels, vocab=None):
+    """Per-position CE of ``logits`` (..., V) f32 against ``labels``
+    (...). ``vocab``: None where the logits are whole, else (mesh, axis,
+    the global index of the block's first entry) of the rank's vocab
+    block of them (``transformer.vocab_block``): the log-sum-exp
+    combined over the axis (``sharding.logsumexp``), the label's logit
+    the owner's pick summed over it (``psum``; every rank of the axis
+    computes the CE alike, and each one's cotangent reaches its block)."""
+    labels = labels.long()
+    if vocab is None:
+        lp = torch.log_softmax(logits, dim=-1)
+        return -lp.gather(-1, labels[..., None])[..., 0]
+    mesh, axis, off = vocab
+    n = logits.shape[-1]
+    local = labels - off
+    inside = (local >= 0) & (local < n)
+    pick = logits.gather(-1, torch.where(inside, local, 0)[..., None])[..., 0]
+    pick = sharding.psum(torch.where(inside, pick, torch.zeros(
+        (), dtype=pick.dtype, device=pick.device)), mesh, axis)
+    return sharding.logsumexp(logits, mesh, axis) - pick
+
+
+def _ce_chunk(hc, lc, mc, w, softcap, vocab):
     logits = torch.einsum("bsd,vd->bsv", hc.float(), w.float())
     logits = common.softcap(logits, softcap)
-    lp = torch.log_softmax(logits, dim=-1)
-    ce = -lp.gather(-1, lc[..., None])[..., 0]
-    return torch.sum(ce * mc)
+    return torch.sum(vocab_ce(logits, lc, vocab) * mc)
 
 
-def _ce_chunked(h, w_unembed, labels, mask, softcap=0.0):
+def _ce_chunked(h, w_unembed, labels, mask, softcap=0.0, vocab=None):
     """Cross-entropy without holding (B, S, V) logits for the backward.
 
     One sequence chunk at a time; each chunk's logits are recomputed in
     the backward (``torch.utils.checkpoint``), so the backward never
     holds more than one chunk's logits either.
     h: (B, S, d); w_unembed: (V, d); labels/mask: (B, S).
+    ``vocab``: ``vocab_ce``'s, where ``w_unembed`` is the rank's vocab
+    block (V/m, d): ``h`` enters through ``pvary`` (its cotangent summed
+    over the blocks), and each chunk's recompute issues its forward's
+    collectives again, the same on every rank of the axis.
     Returns summed CE (summed mask weight is the caller's).
     """
     B, S, d = h.shape
@@ -131,6 +155,8 @@ def _ce_chunked(h, w_unembed, labels, mask, softcap=0.0):
         # scores an encoder's frames against the token labels)
         raise ValueError(f"labels {tuple(labels.shape)} do not match the "
                          f"features' (batch, positions) {(B, S)}")
+    if vocab is not None:
+        h = sharding.pvary(h, vocab[0], vocab[1])
     c = min(CE_CHUNK, S)
     labels = labels.long()
     if S % c:
@@ -142,7 +168,7 @@ def _ce_chunked(h, w_unembed, labels, mask, softcap=0.0):
     total = torch.zeros((), device=h.device)
     for i in range(0, S, c):
         args = (h[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c],
-                w_unembed, softcap)
+                w_unembed, softcap, vocab)
         if torch.is_grad_enabled():
             part = torch.utils.checkpoint.checkpoint(
                 _ce_chunk, *args, use_reentrant=False)
@@ -152,26 +178,30 @@ def _ce_chunked(h, w_unembed, labels, mask, softcap=0.0):
     return total
 
 
-def _local_ce(h, embed_sg, labels, mask, count=None):
-    """Local classifier loss via the (detached) embedding table: the CE
-    summed over ``mask``, over ``count`` (default the mask's sum; under a
-    ``Dist`` the whole batch's)."""
+def _local_ce(h, embed_sg, labels, mask, count=None, vocab=None):
+    """Local classifier loss via the (detached) embedding table, or the
+    rank's vocab block of it (``vocab``, as ``_ce_chunked``'s): the CE
+    summed over ``mask``, over ``count`` (default the mask's sum; under
+    a ``Dist`` the whole batch's)."""
     z = common.rms_normalize(h)
-    total = _ce_chunked(z, embed_sg, labels, mask)
+    total = _ce_chunked(z, embed_sg, labels, mask, vocab=vocab)
     count = torch.sum(mask) if count is None else count
     return total / torch.clamp(count, min=1.0)
 
 
-def head_ce(x, hp, cfg, labels, count=None):
+def head_ce(x, hp, cfg, labels, count=None, dist=NO_DIST):
     """The softmax head's CE on features ``x`` (detached by the caller):
     ``final_norm``, then the tied table or ``lm_head`` as the softmax
-    layer (pad rows unmasked, as the reference has them); summed over
-    ``count`` positions (default ``labels``'s; under a ``Dist`` the whole
+    layer (pad rows unmasked, as the reference has them), the rank's
+    vocab block of it under ``dist`` where ``transformer.vocab_parallel``
+    (``hp`` as ``transformer.for_use`` gives it); summed over ``count``
+    positions (default ``labels``'s; under a ``Dist`` the whole
     batch's)."""
     h = common.rms_norm(x, hp["final_norm"], cfg.norm_eps)
     w = hp["embed"] if cfg.tie_embeddings else hp["lm_head"].T
     ones = torch.ones(labels.shape, device=x.device)
-    total = _ce_chunked(h, w, labels, ones, softcap=cfg.logit_softcap)
+    total = _ce_chunked(h, w, labels, ones, softcap=cfg.logit_softcap,
+                        vocab=transformer.vocab_block(cfg, dist, w.shape[0]))
     return total / (labels.numel() if count is None else count)
 
 
@@ -180,12 +210,13 @@ def head_ce(x, hp, cfg, labels, count=None):
 # ---------------------------------------------------------------------------
 
 class RankPart:
-    """What a step under ``dist`` does per rank, as the reference's
-    ``shard_map`` in_spec ``P(batch_axes)`` splits its batch: the rank's
-    contiguous block of rows (``rows``), the grads of the leaves it holds
-    summed over the batch axes they are replicated over (``grads``), and
-    scalars summed over the batch axes in rank order (``total``). Each a
-    no-op under ``NO_DIST``."""
+    """What a step under ``dist`` does per rank, where the reference's
+    step is one GSPMD program whose activations ``constrain_batch`` pins
+    to the batch axes: the rank's contiguous block of rows (``rows``;
+    ``stacked`` of a stack of the batch), the grads of the leaves it
+    holds summed over the batch axes they are replicated over
+    (``grads``), and scalars summed over the batch axes in rank order
+    (``total``). Each a no-op under ``NO_DIST``."""
 
     def __init__(self, cfg, dist):
         self.cfg, self.dist = cfg, dist
@@ -207,6 +238,18 @@ class RankPart:
             return t
         return sharding.gather_blocks(t, self.dist.mesh,
                                       self.dist.batch_axes)
+
+    def stacked(self, t, copies):
+        """This rank's block of ``copies`` copies of the batch stacked on
+        the rows, from ``t``, its block of the batch: rows moved point to
+        point from the ranks that hold them (``sharding.stacked_block``),
+        never gathered whole."""
+        if t is None or copies == 1:
+            return t
+        if not self.on:
+            return torch.cat([t] * copies, dim=0)
+        return sharding.stacked_block(t, self.dist.mesh,
+                                      self.dist.batch_axes, copies)
 
     def grads(self, grads, tree):
         """``grads`` (of ``tree``'s leaves, in order) summed over the batch
@@ -243,19 +286,23 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
     ``impl`` routes the no-grad forward of AdaptiveNEG
     (``cfg.ff.neg_mode == "adaptive"``).
 
-    Under an enabled ``dist`` (``mlp.Dist``) each rank runs this step on
-    the whole batch, with params and opt_state the trees it holds
-    (``transformer.shard_params``: each leaf and its Adam state the
-    rank's block of the reference's rules), each unit's leaves gathered
-    for use inside its loop (``transformer.for_use``), so that a grad
-    reaches the rank's block alone. Every rank draws the
-    same negatives over the whole batch (AdaptiveNEG's forward runs on
-    the rank's rows of ``pos_tok``, its logits gathered before the
-    draw), then keeps its block of the stacked [pos; neg] rows and of
-    aux. Each loss term is its rows' part of the whole batch's (their
-    sum over the global count), a replicated leaf's grads are summed over
-    the batch axes before its Adam step, and the metrics are the whole
-    batch's, summed in rank order.
+    Under an enabled ``dist`` (``mlp.Dist``) ``batch`` is the rank's
+    block of the batch's rows over ``dist.batch_axes`` (as ``prefill``
+    and ``serve_step`` take theirs), and params and opt_state the trees
+    it holds (``transformer.shard_params``: each leaf and its Adam state
+    the rank's block of the reference's rules), each unit's leaves
+    gathered for use inside its loop (``transformer.for_use``), so that
+    a grad reaches the rank's block alone. The token ids are gathered
+    (a few MB) and every rank draws the same negatives over the whole
+    batch (AdaptiveNEG's forward runs on the rank's rows, its logits
+    gathered whole before the draw), then keeps its block of the
+    stacked [pos; neg] rows, in the reference's row layout (the MoE's
+    capacity drops depend on which tokens share a rank); its rows of the
+    stacked aux come point to point from the ranks that hold them
+    (``RankPart.stacked``). Each loss term is its rows' part of the
+    whole batch's (their sum over the global count), a replicated leaf's
+    grads are summed over the batch axes before its Adam step, and the
+    metrics are the whole batch's, summed in rank order.
     """
     perf_opt = cfg.ff.goodness == "perf_opt"
     theta = cfg.ff.theta
@@ -263,12 +310,13 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
     part = RankPart(cfg, dist)
 
     def step_fn(params, opt_state, batch, step):
-        tokens = batch["tokens"]
+        own = batch["tokens"]                # the rank's rows
+        tokens = part.gather(own)            # every rank's token ids
         B, S1 = tokens.shape
         S = S1 - 1
         dev = tokens.device
         pos_tok, labels = tokens[:, :-1], tokens[:, 1:]
-        aux_in = batch.get("aux")
+        aux_in = batch.get("aux")            # the rank's rows
         key = key_fn(seed).fold_in(step)
         metrics = {}
 
@@ -282,9 +330,10 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
                 # AdaptiveNEG cost the paper reports), no grad: kernels
                 with torch.no_grad():
                     logits0, _ = transformer.forward(
-                        params, cfg, part.rows(pos_tok),
-                        aux=part.rows(aux_in), dist=dist, impl=impl)
-                    logits0 = part.gather(logits0)
+                        params, cfg, own[:, :-1], aux=aux_in, dist=dist,
+                        impl=impl)
+                    logits0 = part.gather(transformer.whole_logits(
+                        logits0, cfg, dist))
                 neg_tok = ff.adaptive_corrupt_tokens(key, pos_tok, logits0)
                 del logits0
             else:
@@ -295,34 +344,37 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
             is_pos = torch.cat([torch.ones((B,), device=dev),
                                 torch.zeros((B,), device=dev)])
             lab_all = torch.cat([labels, labels], dim=0)
-        if aux_in is not None and x_tok.shape[0] != aux_in.shape[0]:
-            aux_in = torch.cat([aux_in, aux_in], dim=0)
+        # the rank's rows of the stacked aux, as of the tokens below
+        aux_in = part.stacked(aux_in, x_tok.shape[0] // B)
         # the whole batch's counts, then this rank's rows of it
         npos = torch.clamp(is_pos.sum(), min=1.0)
         nneg = torch.clamp((1 - is_pos).sum(), min=1.0)
         ce_count = is_pos.sum() * S
         n_rows = x_tok.shape[0]
-        x_tok, is_pos, lab_all, aux_in = (
-            part.rows(t) for t in (x_tok, is_pos, lab_all, aux_in))
+        x_tok, is_pos, lab_all = (part.rows(t)
+                                  for t in (x_tok, is_pos, lab_all))
         share = x_tok.shape[0] / n_rows      # of each mean over the rows
         # the rank's positive rows lead its block (the positives are the
         # whole batch's first B rows)
         n_pos_here = max(0, min(x_tok.shape[0],
                                 B - part.index * x_tok.shape[0]))
 
-        # the whole table where the local CE reads it (perf_opt)
+        # the table where the local CE reads it (perf_opt): whole, or the
+        # rank's vocab block
         embed_sg = (transformer.top_leaf(params, "embed", cfg, dist)
                     .detach() if perf_opt else None)
+        vocab = (transformer.vocab_block(cfg, dist, embed_sg.shape[0])
+                 if perf_opt else None)
         ce_mask = is_pos[:, None] * torch.ones((1, S), device=dev)
 
         # ---- embedding: FF layer 1 (local loss); grad now, update later
         # (tied archs add the head-CE grad below)
         with torch.enable_grad():
             emb = params["embed"].detach().requires_grad_()
-            h = F.embedding(x_tok.long(), transformer.top_leaf(
-                {"embed": emb}, "embed", cfg, dist))
+            h = transformer.embed_tokens({"embed": emb}, cfg, x_tok, dist)
             if perf_opt:
-                emb_l = _local_ce(h, embed_sg, lab_all, ce_mask, ce_count)
+                emb_l = _local_ce(h, embed_sg, lab_all, ce_mask, ce_count,
+                                  vocab)
             else:
                 g = ff.mean_goodness(common.rms_normalize(h))
                 emb_l = ff.ff_loss_masked(g, is_pos, theta) * share
@@ -356,7 +408,7 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
                                                             h_sg, ctx)
                             if perf_opt:
                                 loss = _local_ce(y, embed_sg, lab_all,
-                                                 ce_mask, ce_count)
+                                                 ce_mask, ce_count, vocab)
                             else:
                                 loss, g = _block_ff_loss(y - h_sg, is_pos,
                                                          theta)
@@ -410,7 +462,7 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
             hp["embed"] = params["embed"].detach().requires_grad_()
         with torch.enable_grad():
             ce_l = head_ce(x_pos_h, transformer.for_use(hp, cfg, dist), cfg,
-                           lab_all[:n_pos_here], count=B * S)
+                           lab_all[:n_pos_here], count=B * S, dist=dist)
             head_g = dict(zip(hp, grads_of(ce_l, hp)))
         emb_g_total = emb_g
         if cfg.tie_embeddings:
@@ -452,22 +504,21 @@ def make_bp_train_step(cfg, *, dist=NO_DIST, lr=1e-3):
     """Standard end-to-end cross-entropy training step, through the plain
     route (every forward here is differentiated). batch as
     ``make_ff_train_step`` takes it, its "aux" passed to the forward;
-    ``dist`` as there: each rank runs its block of the batch's rows, its
-    CE summed over the whole batch's count."""
+    ``dist`` as there: each rank runs its block of the batch's rows (the
+    batch it is given), the CE of its vocab block of the logits
+    (``vocab_ce``) summed over the whole batch's count."""
     part = RankPart(cfg, dist)
 
     def step_fn(params, opt_state, batch, step):
-        tokens = batch["tokens"]
-        n_rows = tokens.shape[0]
-        tokens, aux = part.rows(tokens), part.rows(batch.get("aux"))
+        tokens, aux = batch["tokens"], batch.get("aux")
         inp, labels = tokens[:, :-1], tokens[:, 1:]
         tp = trainable(params)
         with torch.enable_grad():
             logits, aux_l = transformer.forward(tp, cfg, inp, aux=aux,
                                                 dist=dist, impl="ref")
-            lp = torch.log_softmax(logits, dim=-1)
-            ce = -lp.gather(-1, labels.long()[..., None])[..., 0]
-            loss = torch.mean(ce) * (tokens.shape[0] / n_rows) \
+            ce = vocab_ce(logits, labels, transformer.vocab_block(
+                cfg, dist, logits.shape[-1]))
+            loss = torch.mean(ce) / part.n \
                 + AUX_WEIGHT * aux_l
             grads = part.grads(grads_of(loss, tp), params)
         adam_leaves(params, grads, opt_state["m"], opt_state["v"], lr=lr,

@@ -21,16 +21,17 @@ eager PyTorch has no counterpart for), the port traces what one rank
 (``--rank``) of its own ``Dist`` steps runs: a default process group on
 torch's ``fake`` backend (no communication, no storage) at the mesh's
 world size, a ``DeviceMesh`` over it, ``make_dist``, and the step with
-``dist=`` on the arguments that rank holds (``_rank_args``: its params
-and Adam state the blocks of the reference's rules, the train step's
-batch whole, prefill's and decode's batch the rank's block, the caches'
-kv heads its own where its attention splits them). Every term is the
-rank's (``"per_device": "rank"``): its flops, its bytes, the
-collectives it issues (c10d ops, counted by type and result bytes) and
-its own memory. ``per_device_argument_bytes`` beside it is what the
-reference's rules give rank 0 for every argument, and
-``rules_param_bytes`` / ``rank_param_bytes`` the params' and Adam
-state's part of each (equal). ``--opts batch_fold_model`` folds "model"
+``dist=`` on the arguments that rank holds (``_rank_args``: every one
+the block of the reference's rules, its params and Adam state, its rows
+of the batch, its blocks of the decode caches by ``cache_specs_tree``).
+Every term is the rank's (``"per_device": "rank"``): its flops, its
+bytes, the collectives it issues (c10d ops, counted by type and result
+bytes) and its own memory. ``per_device_argument_bytes`` beside it is
+what the reference's rules give rank 0 for every argument,
+``rank_argument_bytes`` what the rank holds (equal; ``argument_bytes``
+gives both without a trace), and ``rules_param_bytes`` /
+``rank_param_bytes`` the params' and Adam state's part of each
+(equal). ``--opts batch_fold_model`` folds "model"
 into the batch axes (dense configs only: every split leaf is then
 gathered where it is read); the reference's ``causal_skip`` and
 ``pv_bf16`` are not ported and raise. Nothing here sets process-wide
@@ -219,23 +220,48 @@ def _args(cfg, shape, kind, mode, mesh=None):
 
 def _rank_args(cfg, kind, args, dist, mode):
     """``args`` (whole) as one rank of ``dist`` holds them in the port's
-    ``Dist`` steps: params and Adam state by ``transformer.held_specs``
-    (the reference's rules); the train step's batch whole (it draws the
-    negatives over the whole batch and keeps its own rows); prefill's
-    and decode's the rank's block of the batch, the caches' kv heads the
-    rank's where its attention splits them
-    (``transformer.kv_heads_split``), every other state whole."""
+    ``Dist`` steps, each leaf the block of the reference's rules: params
+    and Adam state by ``transformer.held_specs``; the train step's batch
+    by rows (every leaf split over the batch axes, as the rules'
+    ``data_spec``; the step raises on a batch they do not divide);
+    prefill's batch and decode's tokens the rank's block where the axes
+    divide them; the caches by ``sharding.cache_specs_tree`` with
+    ``seq_axis_model`` at a batch of 1, as ``transformer.prefill``
+    leaves them (``specs.cache_block``)."""
     params, opt = specs_lib.held_params(cfg, dist, with_opt=(kind == "train"),
-                                        mode=mode)
+                                        mode=mode, params=args[0])
     if kind == "train":
-        return (params, opt) + tuple(args[2:])
+        return (params, opt, specs_lib.batch_block(
+            args[2], dist, mode=mode, exact=True), args[3])
     if kind == "prefill":
         return params, specs_lib.batch_block(args[1], dist, mode=mode)
     caches, tokens, pos = args[1:]
-    return (params, specs_lib.batch_block(
-        caches, dist, mode=mode, caches=True,
-        kv_heads=transformer.kv_heads_split(cfg, dist)),
+    return (params, specs_lib.cache_block(
+        caches, dist, mode=mode, seq_axis_model=tokens.shape[0] == 1),
         specs_lib.batch_block(tokens, dist, mode=mode), pos)
+
+
+def _tensor_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def argument_bytes(cfg, shape, *, mesh, rank=0, opts=(), step_kind=None):
+    """(``rank_argument_bytes``, ``per_device_argument_bytes``) of one
+    combination on a mesh, with no trace: the bytes of the arguments
+    rank ``rank`` holds (``_rank_args``, on stand-ins, inside a
+    ``fake_group``) and of rank 0's blocks under the reference's rules.
+    """
+    kind = step_kind or shape.kind
+    sizes = mesh_sizes(mesh)
+    check_opts(cfg, tuple(opts), sizes)
+    mode = specs_lib.new_mode()
+    sizes_mesh = specs_lib.SizesMesh(sizes)
+    args, pairs = _args(cfg, shape, kind, mode, sizes_mesh)
+    with fake_group(sizes, rank) as dmesh:
+        d = make_dist(cfg, dmesh, batch_fold_model="batch_fold_model" in opts)
+        held = _tensor_bytes(_rank_args(cfg, kind, args, d, mode))
+    return held, _local_bytes(pairs, sizes_mesh)
 
 
 def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
@@ -249,8 +275,10 @@ def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
     that mesh, traced over a fake process group (``fake_group``), on the
     arguments the rank holds (``_rank_args``); the memory analysis adds
     ``per_device_argument_bytes``, what the reference's rules would give
-    rank 0, and the params' part of each (``rank_param_bytes``,
-    ``rules_param_bytes``). ``opts``: the
+    rank 0, beside ``rank_argument_bytes``, what the rank holds (equal
+    wherever the batch splits as the rules split it), and the params'
+    part of each (``rank_param_bytes``, ``rules_param_bytes``). ``opts``:
+    the
     reference's §Perf options (``check_opts``)."""
     kind = step_kind or shape.kind
     sizes = mesh_sizes(mesh)
@@ -273,12 +301,13 @@ def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
         d = make_dist(cfg, dmesh,
                       batch_fold_model="batch_fold_model" in opts)
         args = _rank_args(cfg, kind, args, d, mode)
-        held = sum(t.numel() * t.element_size() for t in tree_leaves(
-            args[:2] if kind == "train" else args[0]))
+        held = _tensor_bytes(args[:2] if kind == "train" else args[0])
+        rank_bytes = _tensor_bytes(args)
         with mode:
             out, an = op_analysis.trace(step_fn(cfg, kind, d, lr), *args)
     mem = an["memory"]
     mem["per_device_argument_bytes"] = ref_bytes
+    mem["rank_argument_bytes"] = rank_bytes
     # the params' and Adam state's part of each (the rules', rank 0's)
     mem["rank_param_bytes"] = held
     mem["rules_param_bytes"] = _local_bytes(pairs[:n_state], sizes_mesh)
@@ -423,7 +452,10 @@ def ok_line(tag, res):
         line += (f" fits {HBM_BYTES / 1e9:.0f} GB: "
                  f"{'yes' if res['fits_hbm'] else 'no'}; arguments "
                  f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f} GiB (the "
-                 f"rules' {mem['per_device_argument_bytes'] / 2 ** 30:.3f};"
+                 f"rank's rank_argument_bytes {mem['rank_argument_bytes']},"
+                 f" the rules' per_device_argument_bytes "
+                 f"{mem['per_device_argument_bytes']}: "
+                 f"{mem['per_device_argument_bytes'] / 2 ** 30:.3f} GiB;"
                  f" params and Adam state "
                  f"{mem['rank_param_bytes'] / 2 ** 30:.3f}, the rules' "
                  f"{mem['rules_param_bytes'] / 2 ** 30:.3f}); collective "

@@ -24,8 +24,8 @@ an int where the reference's takes an int32 scalar.
 Those specs are the reference's rules (tensor-parallel dense weights),
 which one rank of the port's ``Dist`` steps holds its params and Adam
 state by too (``transformer.held_specs``; ``held_params``), beside the
-rank's block of a batch and of the decode caches (``batch_block``), for
-``launch.dryrun``'s per-rank trace.
+rank's block of a batch (``batch_block``) and of the decode caches
+(``cache_block``), for ``launch.dryrun``'s per-rank trace.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from repro_torch import optim, sharding
 from repro_torch.configs.base import SUBQUADRATIC
 from repro_torch.convert import tree_map
 from repro_torch.models import common, transformer
+from repro_torch.models.mlp import model_split
 
 
 class SizesMesh:
@@ -168,15 +169,18 @@ def param_specs_abstract(cfg, mesh=None, with_opt=True, seed=0, *,
     return _placed(mode, (params, opt), specs, mesh, local), specs
 
 
-def held_params(cfg, dist, with_opt=True, seed=0, *, mode=None):
+def held_params(cfg, dist, with_opt=True, seed=0, *, mode=None,
+                params=None):
     """(params, Adam state or None) as one rank of ``dist`` holds them in
     the port's ``Dist`` steps: each leaf a fresh stand-in of its block
     under ``transformer.held_specs`` (the reference's rules), and Adam's
     f32 zeros of those. ``dist.mesh`` is a ``DeviceMesh``: the block is
-    this process's."""
+    this process's. ``params``: the whole params' stand-ins, if the
+    caller has them (default: ``param_specs_abstract``'s)."""
     mode = mode or new_mode()
-    params, _ = param_specs_abstract(cfg, with_opt=False, seed=seed,
-                                     mode=mode)
+    if params is None:
+        params, _ = param_specs_abstract(cfg, with_opt=False, seed=seed,
+                                         mode=mode)
     it = iter(transformer.held_specs(params, cfg, dist))
     params = tree_map(lambda t: _fake(mode, sharding.local_shard(
         t, next(it), dist.mesh).shape, t.dtype), params)
@@ -185,32 +189,53 @@ def held_params(cfg, dist, with_opt=True, seed=0, *, mode=None):
     return params, opt
 
 
-def batch_block(tree, dist, *, mode=None, caches=False, kv_heads=False):
-    """``tree`` of stand-ins with each leaf's batch dim cut to this
-    rank's block over ``dist.batch_axes``, where their product divides it
-    (``sharding._fit``'s rule; else the leaf stays whole, as at batch 1).
-    The batch dim is 0, or with ``caches`` 1 (``(R, B, ...)``: every
-    position whole; a leaf of fewer than 3 dims, ``kpos``, whole); with
-    ``kv_heads`` too (``transformer.kv_heads_split``) an attention
-    cache's kv heads (``k``/``v``, (R, B, S, KV, hd)) are cut to the
-    rank's block over the model axis, every other state whole."""
+def batch_block(tree, dist, *, mode=None, exact=False):
+    """``tree`` of stand-ins with each leaf's batch dim (0) cut to this
+    rank's block over ``dist.batch_axes``, where their product divides
+    it (``sharding._fit``'s rule; else the leaf stays whole, as at batch
+    1). ``exact``: the block or ``ValueError`` (the train step's
+    batch, which its ranks split by rows whatever the rules say)."""
     mode = mode or new_mode()
     mesh, axes = dist.mesh, tuple(dist.batch_axes)
 
     def one(path, t):
-        if caches and t.dim() < 3:
-            return t
         spec = [None] * t.dim()
-        spec[1 if caches else 0] = axes
-        if caches and kv_heads and path[-1] in ("k", "v"):
-            spec[3] = dist.model_axis
-        spec = sharding._fit(spec, t.shape, mesh)
+        spec[0] = axes
+        if not exact:
+            spec = sharding._fit(spec, t.shape, mesh)
+            if all(e is None for e in spec):
+                return t
+        return _fake(mode, sharding.local_shard(t, spec, mesh).shape,
+                     t.dtype)
+
+    return sharding.map_with_path(one, tree)
+
+
+def cache_block(caches, dist, *, mode=None, seq_axis_model=False):
+    """Decode ``caches`` (stand-ins of the whole ones) as one rank of
+    ``dist`` holds them, what ``transformer.prefill`` leaves it: each
+    leaf its block of ``sharding.cache_specs_tree(seq_axis_model=)``'s
+    spec where "model" splits work (``mlp.model_split``); else (the
+    model axis folded into the batch) its block of the batch dim (1, of
+    ``(R, B, ...)``) over the batch axes, every other dim whole."""
+    mode = mode or new_mode()
+    mesh = dist.mesh
+
+    def one(path, t):
+        if model_split(dist):
+            spec = sharding.cache_leaf_spec(t.shape, mesh, seq_axis_model)
+        elif t.dim() < 3:
+            return t
+        else:
+            spec = [None] * t.dim()
+            spec[1] = tuple(dist.batch_axes)
+            spec = sharding._fit(spec, t.shape, mesh)
         if all(e is None for e in spec):
             return t
         return _fake(mode, sharding.local_shard(t, spec, mesh).shape,
                      t.dtype)
 
-    return sharding.map_with_path(one, tree)
+    return sharding.map_with_path(one, caches)
 
 
 def combo_is_applicable(cfg, shape_name):

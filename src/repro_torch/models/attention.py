@@ -113,3 +113,27 @@ def decode_attention(q, k_cache, v_cache, k_pos, cur_pos, *, window=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_attention_part(q, k_cache, v_cache, k_pos, cur_pos, *,
+                          window=None):
+    """``decode_attention`` over a part of the keys (a rank's slots of a
+    cache split over a mesh axis): each head's (max score, sum of
+    ``exp(score - max)``, those weights times the values), (B, H),
+    (B, H), (B, H, hd) f32, for ``sharding.softmax_combine``. Masked
+    slots score ``NEG_INF``: a part with none valid weighs nothing once
+    combined with one that has."""
+    B, H, hd = q.shape
+    _, S, KV, _ = k_cache.shape
+    G = H // KV
+    qf = q.reshape(B, KV, G, hd).float() * hd ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    valid = (k_pos >= 0) & (k_pos <= cur_pos)
+    if window is not None:
+        valid &= (cur_pos - k_pos) < window
+    s = torch.where(valid[None, None, None], s,
+                    torch.full((), NEG_INF, device=s.device))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return m.reshape(B, H), p.sum(-1).reshape(B, H), o.reshape(B, H, hd)

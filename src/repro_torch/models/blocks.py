@@ -230,41 +230,111 @@ def _attn_prefill(p, cfg, x, *, window, max_len, causal=True, impl="auto",
     }
 
 
+def _seq_split(cache):
+    """The rank's slot count of a KV cache whose slots are split over
+    "model" (``cache_specs_tree``'s sequence layout, at batch 1), or
+    None where it holds every slot (``kpos`` is whole either way)."""
+    n, whole = cache["k"].shape[1], cache["kpos"].shape[0]
+    return None if n == whole else n
+
+
+def _every_head(t, heads):
+    """Every head of ``t`` (B, heads, hd), which holds the rank's own
+    where ``heads`` splits them: gathered over the model axis."""
+    if heads is None:
+        return t
+    return sharding.all_gather(t, heads.mesh, heads.axis, 1)
+
+
+def _cached_heads(t, heads, cfg):
+    """The kv heads (dim 2 of (B, S, KV, hd)) of a cache that the rank's
+    queries read: ``heads.select``'s of every kv head; where the rank
+    computes its own kv heads (``heads.kv`` None), the cache itself, or
+    its own block of a cache holding every kv head."""
+    if heads is None:
+        return t
+    if heads.kv is not None:
+        return heads.select(t)
+    if t.shape[2] != cfg.n_kv:
+        return t
+    n = t.shape[2] // sharding.axis_size(heads.mesh, heads.axis)
+    return t.narrow(2, sharding.axis_index(heads.mesh, heads.axis) * n, n)
+
+
+def _split_decode(q, cache, pos, window, heads, dist):
+    """One token's attention against a cache whose slots are split over
+    "model": every head's softmax part over the rank's slots
+    (``attention.decode_attention_part``), combined over the axis in
+    f32 (``sharding.softmax_combine``); q (B, H, hd) every head's. The
+    rank's query heads of the output where ``heads`` holds them."""
+    n = cache["k"].shape[1]
+    r = sharding.axis_index(dist.mesh, dist.model_axis)
+    m, l, o = attention.decode_attention_part(
+        q, cache["k"], cache["v"], cache["kpos"][r * n:(r + 1) * n], pos,
+        window=window)
+    y = sharding.softmax_combine(m, l, o, dist.mesh,
+                                 dist.model_axis).to(q.dtype)
+    if heads is not None:
+        h = y.shape[1] // sharding.axis_size(heads.mesh, heads.axis)
+        y = y.narrow(1, sharding.axis_index(heads.mesh, heads.axis) * h, h)
+    return y
+
+
 def attn_decode(p, cfg, cache, x, pos, *, window=None, dist=mlp.NO_DIST):
     """x: (B, d) one token; cache: {k, v, kpos}, written in place at the
-    token's slot. Returns (y, cache)."""
+    token's slot. Returns (y, cache). Where the cache holds the rank's
+    slots of a sequence split over "model", the token's k and v (every
+    kv head) are written by the rank that owns its slot (a window's ring
+    slot ``pos % W``), and every head's query attends over every rank's
+    slots (``_split_decode``)."""
     heads = _heads(p, cfg, dist)
     q, k, v = _qkv(p, cfg, x[:, None], heads=heads)
     posv = torch.full((1, 1), pos, device=x.device)
     q = common.apply_rope(q, posv, cfg.rope_theta)
     k = common.apply_rope(k, posv, cfg.rope_theta)
-    S = cache["k"].shape[1]
+    S = cache["kpos"].shape[0]
     slot = pos % S if window is not None else pos
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+    k, v = k[:, 0], v[:, 0]
+    if k.shape[1] != cache["k"].shape[2]:
+        # its own kv heads computed, every one cached (a sequence layout)
+        k, v = _every_head(k, heads), _every_head(v, heads)
+    n = _seq_split(cache)
+    first = 0 if n is None else \
+        sharding.axis_index(dist.mesh, dist.model_axis) * n
+    if n is None or first <= slot < first + n:     # the slot's owner
+        cache["k"][:, slot - first] = k
+        cache["v"][:, slot - first] = v
     cache["kpos"][slot] = pos
-    ck, cv = cache["k"], cache["v"]
-    if heads is not None:
-        ck, cv = heads.select(ck), heads.select(cv)
-    y = attention.decode_attention(q[:, 0], ck, cv, cache["kpos"], pos,
-                                   window=window)
+    if n is not None:
+        y = _split_decode(_every_head(q[:, 0], heads), cache, pos, window,
+                          heads, dist)
+        return _out(p, y, heads, "bhk,hkd->bd"), cache
+    y = attention.decode_attention(
+        q[:, 0], _cached_heads(cache["k"], heads, cfg),
+        _cached_heads(cache["v"], heads, cfg), cache["kpos"], pos,
+        window=window)
     return _out(p, y, heads, "bhk,hkd->bd"), cache
 
 
 def cross_decode(p, cfg, cross_kv, x, dist=mlp.NO_DIST):
     """Cross attention for one decode token against the K/V that
     ``precompute_cross_kv`` made at prefill: the plain ``decode_attention``
-    with every slot visible (no kernel)."""
+    with every slot visible (no kernel), or its parts over the rank's
+    slots where they are split over "model" (``_split_decode``)."""
     heads = _heads(p, cfg, dist)
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     if cfg.qk_norm:
         q = common.rms_norm(q, p["q_norm"], cfg.norm_eps)
-    ck, cv = cross_kv["k"], cross_kv["v"]
-    if heads is not None:
-        ck, cv = heads.select(ck), heads.select(cv)
-    y = attention.decode_attention(q, ck, cv, cross_kv["kpos"], 2 ** 30)
+    if _seq_split(cross_kv) is not None:
+        y = _split_decode(_every_head(q, heads), cross_kv, 2 ** 30, None,
+                          heads, dist)
+    else:
+        y = attention.decode_attention(
+            q, _cached_heads(cross_kv["k"], heads, cfg),
+            _cached_heads(cross_kv["v"], heads, cfg), cross_kv["kpos"],
+            2 ** 30)
     y = _out(p, y, heads, "bhk,hkd->bd")
     if "gate" in p:
         y = _gated(p, y)
@@ -398,8 +468,49 @@ def block_apply(p, cfg, kind, x, ctx):
     return _mlp_residual(p, cfg, x, dist)
 
 
+def cache_block(cache, cfg, dist, seq_axis_model):
+    """One block's caches as its prefill computed them (every slot, the
+    kv heads its attention computed, every state) cut to the rank's
+    block of ``sharding.cache_specs_tree(seq_axis_model=)``'s spec
+    (copies, so nothing keeps the whole alive): kv heads or slots, an
+    SSM state's hd or H, over "model". k and v computed on the rank's
+    own kv heads move to its slots of every head by an all-to-all over
+    the axis. The batch is the rank's rows already; the caches as they
+    are where "model" splits no work (``mlp.model_split``)."""
+    if not mlp.model_split(dist):
+        return cache
+    mesh, axis = dist.mesh, dist.model_axis
+    m = sharding.axis_size(mesh, axis)
+
+    def one(path, t):
+        whole = list(t.shape)
+        kv = path[-1] in ("k", "v")
+        if kv:
+            whole[2] = cfg.n_kv
+        # the spec of each dim after the batch
+        spec = sharding.cache_leaf_spec((1,) + tuple(whole), mesh,
+                                        seq_axis_model)[2:]
+        if kv and t.shape[2] != cfg.n_kv:        # its own kv heads
+            if spec[0] is not None:              # to its slots, every head
+                B, S, KV, hd = t.shape
+                t = sharding.all_to_all(t.reshape(B, m, S // m, KV, hd)
+                                        .movedim(1, 0).contiguous(),
+                                        mesh, axis)
+                return t.movedim(0, 2).reshape(B, S // m, m * KV, hd)
+            if spec[1] is not None:
+                return t
+            return sharding.all_gather(t, mesh, axis, 2)
+        if all(e is None for e in spec):
+            return t
+        return sharding.local_shard(t, (None,) + spec, mesh).clone()
+
+    return sharding.map_with_path(one, cache)
+
+
 def block_prefill(p, cfg, kind, x, ctx):
-    """x: (B, S, d). Returns (x_out, cache) — cache matches block_decode."""
+    """x: (B, S, d). Returns (x_out, cache) — cache matches block_decode,
+    the rank's block of it under a ``Dist`` (``cache_block``, with
+    ``ctx["seq_axis_model"]``)."""
     max_len = ctx.get("max_len", x.shape[1])
     impl = ctx.get("impl", "auto")
     dist = ctx.get("dist", mlp.NO_DIST)
@@ -433,6 +544,7 @@ def block_prefill(p, cfg, kind, x, ctx):
         x = x + y
     else:
         raise ValueError(kind)
+    cache = cache_block(cache, cfg, dist, ctx.get("seq_axis_model", False))
     return _mlp_residual(p, cfg, x, dist)[0], cache
 
 
@@ -482,7 +594,7 @@ def block_decode(p, cfg, kind, cache, x, pos, ctx):
         x = x + cross_decode(p["xattn"], cfg, cache["cross"], h, dist)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
-        y, cache = ssm.decode_step(p["ssm"], cfg, cache, h)
+        y, cache = ssm.decode_step(p["ssm"], cfg, cache, h, dist)
         x = x + y
     elif kind == "rglru":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)

@@ -77,6 +77,14 @@ class Dist:
 NO_DIST = Dist()
 
 
+def model_split(dist):
+    """Whether "model" splits work under ``dist``: an axis of more than
+    one rank that is not a batch axis (its ranks then hold the same
+    tokens, and a leaf or cache split over it stays split where it is
+    used)."""
+    return dist.model_size() > 1 and dist.model_axis not in dist.batch_axes
+
+
 @contextlib.contextmanager
 def full_f32():
     """f32 matmuls at full precision inside the block (TF32 off on the

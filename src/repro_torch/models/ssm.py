@@ -18,9 +18,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd_plain
 from repro_torch.models import common
+from repro_torch.models.mlp import NO_DIST
 
 
 def init(gen, cfg):
@@ -86,7 +88,9 @@ def forward(p, cfg, x, return_cache=False, impl="auto"):
     """Full-sequence forward. x: (B, S, d) -> (B, S, d).
 
     With ``return_cache`` also returns {"h": final state, "conv": raw
-    pre-conv tail} ready for ``decode_step``.
+    pre-conv tail} ready for ``decode_step``: the whole state, which
+    ``blocks.block_prefill`` cuts to the rank's slice under a ``Dist``
+    (``blocks.cache_block``).
     """
     s = cfg.ssm
     B, S, d = x.shape
@@ -131,9 +135,26 @@ def init_cache(cfg, batch, dtype, device):
     }
 
 
-def decode_step(p, cfg, cache, x):
+def _state_block(cfg, h):
+    """Which block of the (B, H, hd, N) state the cache leaf ``h``
+    holds: (heads, head dims) slices and the dim of y (B, H, hd) split
+    over "model" (1: H, 2: hd), or None where it is whole."""
+    s = cfg.ssm
+    H = s.expand * cfg.d_model // s.head_dim
+    if h.shape[1] != H:
+        return 1, h.shape[1]
+    if h.shape[2] != s.head_dim:
+        return 2, h.shape[2]
+    return None
+
+
+def decode_step(p, cfg, cache, x, dist=NO_DIST):
     """x: (B, d) single token. Returns (y (B, d), cache), the cache's
-    ``h`` and ``conv`` updated in place."""
+    ``h`` and ``conv`` updated in place. Under a ``Dist`` whose caches
+    split ``h`` over "model" (``cache_specs_tree``: hd, or H at batch
+    1), the projections and conv run as ever on the gathered leaves, the
+    rank updates its slice of the state, and its slice of y is gathered
+    over "model" before the gated norm."""
     s = cfg.ssm
     B, d = x.shape
     d_inner = s.expand * d
@@ -149,11 +170,22 @@ def decode_step(p, cfg, cache, x):
     dt = common.softplus(dt_raw.float() + p["dt_bias"])       # (B, H)
     A = -torch.exp(p["A_log"])
     xh = xin.reshape(B, H, s.head_dim).float()
+    Dh = p["D"]
+    split = _state_block(cfg, cache["h"])
+    if split is not None:
+        dim, n = split
+        first = sharding.axis_index(dist.mesh, dist.model_axis) * n
+        xh = xh.narrow(dim, first, n)
+        if dim == 1:
+            dt, A, Dh = dt[:, first:first + n], A[first:first + n], \
+                Dh[first:first + n]
     dA = torch.exp(dt * A)                                    # (B, H)
     h = cache["h"] * dA[..., None, None] + torch.einsum(
         "bh,bhd,bn->bhdn", dt, xh, b.float())
     y = torch.einsum("bn,bhdn->bhd", c.float(), h)
-    y = y + p["D"][:, None] * xh
+    y = y + Dh[:, None] * xh
+    if split is not None:
+        y = sharding.all_gather(y, dist.mesh, dist.model_axis, split[0])
     y = y.reshape(B, d_inner) * F.silu(z.float())
     y = common.rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps)
     cache["h"].copy_(h)

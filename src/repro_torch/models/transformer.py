@@ -24,8 +24,15 @@ together). The rank computes on them one unit at a time
 (``for_use``): attention on its own heads and the dense MLP on its own
 ff slice where "model" splits them (tensor-parallel, the output summed
 over "model"), the MoE expert-parallel, every other split leaf
-(``embed``, ``lm_head``, d_model over "data", the SSM's and RG-LRU's
-leaves) gathered whole where it is read.
+(d_model over "data", the SSM's and RG-LRU's leaves) gathered whole
+where it is read. ``embed`` and ``lm_head`` stay vocab-parallel
+(``vocab_parallel``): each rank looks up the tokens of its V/m rows and
+the lookups are summed over "model", and the logits a rank computes,
+and the entry points return, are its block of the vocabulary
+(``whole_logits`` and ``greedy`` make them whole or pick from them).
+Decode caches are the rank's blocks of ``sharding.cache_specs_tree``
+(``prefill(seq_axis_model=)``): kv heads or, at batch 1, the sequence
+over "model", an SSM state's hd or H.
 
 Encoder-decoder (``cfg.enc_dec``): the leading groups that fall inside
 ``cfg.enc_layers`` form the bidirectional encoder over the stub audio
@@ -46,7 +53,7 @@ from repro_torch import sharding
 from repro_torch.convert import tree_leaves, tree_map, tree_stack
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, common
-from repro_torch.models.mlp import NO_DIST, moe_specs
+from repro_torch.models.mlp import NO_DIST, model_split, moe_specs
 
 
 def group_infos(cfg):
@@ -220,21 +227,27 @@ def held_specs(tree, cfg, dist):
 def tensor_parallel_heads(cfg, dist):
     """Whether attention runs tensor-parallel under ``dist``: each rank
     on its ``H / m`` query heads, its ``wo`` rows summed over the model
-    axis. Only where "model" is not a batch axis (its ranks then hold
-    the same tokens) and splits the heads; else every rank runs every
-    head on the gathered weights."""
-    m = dist.model_size()
-    return (m > 1 and dist.model_axis not in dist.batch_axes
-            and cfg.n_heads % m == 0)
+    axis. Only where "model" splits work (``model_split``) and the
+    heads; else every rank runs every head on the gathered weights."""
+    return model_split(dist) and cfg.n_heads % dist.model_size() == 0
 
 
-def kv_heads_split(cfg, dist):
-    """Whether a rank's attention computes, and its decode caches hold,
-    its own ``KV / m`` kv heads (tensor-parallel heads and KV divides
-    m, as the reference's ``cache_specs_tree`` splits them); else every
-    kv head."""
-    return (tensor_parallel_heads(cfg, dist)
-            and cfg.n_kv % dist.model_size() == 0)
+def vocab_parallel(cfg, dist):
+    """Whether ``embed`` and ``lm_head`` stay split over "model" where
+    they are used (the rules split the padded vocabulary, a multiple of
+    128, wherever "model" divides it): the lookup's and the logits'
+    work on the rank's V/m rows."""
+    return model_split(dist) and cfg.padded_vocab % dist.model_size() == 0
+
+
+def vocab_block(cfg, dist, n_rows):
+    """(mesh, model axis, the global index of the rank's first row) of a
+    vocab-parallel table block of ``n_rows`` rows, or None where the
+    table is used whole."""
+    if not vocab_parallel(cfg, dist):
+        return None
+    return (dist.mesh, dist.model_axis,
+            sharding.axis_index(dist.mesh, dist.model_axis) * n_rows)
 
 
 def _kept(path, cfg, dist):
@@ -242,11 +255,14 @@ def _kept(path, cfg, dist):
     computes on it: "model" on the heads of attention's leaves and on
     the ff of the dense MLP's (tensor-parallel), on the MoE's shared
     experts' ff; every axis of an expert weight (the MoE body gathers
-    its d_model itself); none of any other leaf."""
+    its d_model itself); "model" on the vocab of ``embed`` and
+    ``lm_head`` (``vocab_parallel``); none of any other leaf."""
     if _is_expert(cfg, path):
         return None
     if dist.model_axis in dist.batch_axes:
         return ()
+    if path[0] in ("embed", "lm_head"):
+        return (dist.model_axis,) if vocab_parallel(cfg, dist) else ()
     if "attn" in path or "xattn" in path:
         return (dist.model_axis,) if tensor_parallel_heads(cfg, dist) \
             else ()
@@ -294,30 +310,99 @@ def gather_params(tree, cfg, dist):
 # ---------------------------------------------------------------------------
 
 def top_leaf(params, key, cfg, dist=NO_DIST):
-    """The top-level leaf ``params[key]`` whole (``for_use``): under a
-    ``Dist``, ``embed`` and ``lm_head`` are gathered from the ranks'
-    vocab-parallel blocks where they are read, and die after."""
+    """The top-level leaf ``params[key]`` as a rank computes on it
+    (``for_use``): under a ``Dist``, ``embed`` and ``lm_head`` gathered
+    over d_model, their vocab the rank's block where ``vocab_parallel``
+    (else whole)."""
     return for_use({key: params[key]}, cfg, dist)[key]
 
 
 def embed_tokens(params, cfg, tokens, dist=NO_DIST):
     """The embedding rows of ``tokens``. ``F.embedding`` rather than an
     index: its backward has a deterministic CUDA kernel, which the LM
-    trainers' bit-exact gates run under."""
-    return F.embedding(tokens.long(), top_leaf(params, "embed", cfg, dist))
+    trainers' bit-exact gates run under. Vocab-parallel, each rank
+    looks up the tokens that fall in its rows, zero for the rest, and
+    the ranks' rows are summed over "model" (``psum``, whose transpose
+    hands each rank the whole cotangent: its block's grad is its
+    rows')."""
+    table = top_leaf(params, "embed", cfg, dist)
+    vb = vocab_block(cfg, dist, table.shape[0])
+    if vb is None:
+        return F.embedding(tokens.long(), table)
+    mesh, axis, off = vb
+    local = tokens.long() - off
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(inside, local, 0), table)
+    rows = torch.where(inside[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return sharding.psum(rows, mesh, axis)
 
 
 def unembed(params, cfg, x, dist=NO_DIST):
+    """Logits (..., V) f32 of the features ``x``: ``final_norm``, the
+    tied table or ``lm_head``, the softcap, pad rows masked. Under
+    ``vocab_parallel`` the rank's block (..., V/m) of them: ``x``
+    enters through ``pvary`` (its cotangent summed over the blocks),
+    the pad mask at the block's global indices."""
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = x @ top_leaf(params, "embed", cfg, dist).T
+        w = top_leaf(params, "embed", cfg, dist).T
     else:
-        logits = x @ top_leaf(params, "lm_head", cfg, dist)
+        w = top_leaf(params, "lm_head", cfg, dist)
+    vb = vocab_block(cfg, dist, w.shape[1])
+    off = 0
+    if vb is not None:
+        mesh, axis, off = vb
+        x = sharding.pvary(x, mesh, axis)
+    logits = x @ w
     logits = common.softcap(logits.float(), cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab:       # mask pad-row logits
-        pad_mask = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        pad_mask = (off + torch.arange(w.shape[1], device=x.device)
+                    >= cfg.vocab)
         logits = logits.masked_fill(pad_mask, -1e30)
     return logits
+
+
+def _vocab_split(logits, cfg, dist):
+    """Whether ``logits`` are a rank's vocab block."""
+    return (vocab_parallel(cfg, dist)
+            and logits.shape[-1] != cfg.padded_vocab)
+
+
+def whole_logits(logits, cfg, dist=NO_DIST):
+    """Logits over the whole vocabulary from each rank's block of them
+    (what the entry points return under ``vocab_parallel``), gathered
+    over "model"; ``logits`` themselves where they are whole."""
+    if not _vocab_split(logits, cfg, dist):
+        return logits
+    return sharding.all_gather(logits, dist.mesh, dist.model_axis,
+                               logits.dim() - 1)
+
+
+def first_max(vals, idx):
+    """Of the candidates ``vals`` (..., n) at global indices ``idx``
+    (..., n), the index of the largest value, the lowest index among
+    equal ones: ``torch.argmax``'s choice over the whole."""
+    best = vals.amax(-1, keepdim=True)
+    idx = torch.where(vals == best, idx, torch.iinfo(idx.dtype).max)
+    return idx.amin(-1)
+
+
+def greedy(logits, cfg, dist=NO_DIST):
+    """The greedy tokens (int32) of logits, whole or the rank's vocab
+    block: ``torch.argmax`` over the last dim, or each block's largest
+    value at its first global index, gathered over "model", and the
+    largest of those (``first_max``). Every rank of "model" gets the
+    same tokens."""
+    if not _vocab_split(logits, cfg, dist):
+        return logits.argmax(-1).to(torch.int32)
+    vals, idx = logits.max(-1)
+    idx = idx + sharding.axis_index(dist.mesh, dist.model_axis) \
+        * logits.shape[-1]
+    pair = torch.stack([vals.double(), idx.double()], -1)[..., None, :]
+    pair = sharding.all_gather(pair, dist.mesh, dist.model_axis,
+                               pair.dim() - 2)
+    return first_max(pair[..., 0], pair[..., 1].long()).to(torch.int32)
 
 
 def unit_of(params, cfg, gi, r, dist=NO_DIST):
@@ -388,7 +473,8 @@ def forward(params, cfg, tokens, *, aux=None, dist=NO_DIST, impl="auto"):
     """tokens: (B, S) integer; aux: (B, T, d) stub embeddings (audio
     frames or vision patches). Returns (logits (B, S, V) f32,
     aux_loss). With ``dist`` enabled, tokens and aux are this rank's
-    batch shard and the MoE runs expert-parallel (``mlp.Dist``)."""
+    batch shard, the MoE runs expert-parallel (``mlp.Dist``) and the
+    logits are the rank's vocab block (``vocab_parallel``)."""
     cross_src, enc_loss = _cross_source(params, cfg, aux, impl, dist)
     x = embed_tokens(params, cfg, tokens, dist)
     x, aux_loss = _apply_groups(params, cfg, groups_of(cfg), x,
@@ -432,7 +518,7 @@ def cache_specs(cfg, batch, max_len, dtype=None):
 # ---------------------------------------------------------------------------
 
 def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
-            last_only=False, impl="auto"):
+            last_only=False, impl="auto", seq_axis_model=None):
     """Full forward that also returns filled decode caches.
 
     Returns (logits, caches): logits over all S positions, or only the
@@ -441,14 +527,21 @@ def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
     ``max_len`` sizes the KV caches (defaults to S; pass S + generation
     budget for serving). ``impl`` reaches the attention and SSD kernel
     ops. ``dist``: as ``forward``'s (tokens, aux and the caches are this
-    rank's batch shard).
+    rank's batch shard; the logits its vocab block); each cache the
+    rank's block of ``sharding.cache_specs_tree(seq_axis_model=)``
+    (``blocks.cache_block``): ``seq_axis_model`` says whether the
+    sequence, and an SSM state's H, split over "model" rather than the
+    kv heads and an SSM state's hd, as the reference's specs do at a
+    whole batch of 1; by default where the rank holds one row.
     """
     B, S = tokens.shape
     max_len = max_len or S
+    if seq_axis_model is None:
+        seq_axis_model = B == 1
     cross_src, _ = _cross_source(params, cfg, aux, impl, dist)
     x = embed_tokens(params, cfg, tokens, dist)
     ctx = {"causal": True, "aux": cross_src, "max_len": max_len,
-           "impl": impl, "dist": dist}
+           "impl": impl, "dist": dist, "seq_axis_model": seq_axis_model}
     caches = []
     for gi, pattern, repeat, is_enc in group_infos(cfg):
         if is_enc:
@@ -470,8 +563,9 @@ def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
 def serve_step(params, cfg, caches, tokens, pos, *, dist=NO_DIST):
     """One decode step. tokens: (B,) integer; pos: the new token's
     position. Returns (logits (B, V), caches), the caches updated in
-    place. ``dist``: as ``forward``'s (tokens and caches this rank's
-    batch shard)."""
+    place. ``dist``: as ``forward``'s (tokens this rank's batch shard,
+    the caches its blocks as ``prefill`` leaves them, the logits its
+    vocab block)."""
     x = embed_tokens(params, cfg, tokens, dist)
     ctx = {"dist": dist}
     for gi, pattern, repeat in groups_of(cfg):

@@ -42,8 +42,10 @@ for ``psum``/``pmean``, ``all_gather_into_tensor`` for ``all_gather``,
 transpose as its backward (below). A rank's params are the blocks these
 rules give it (``models.transformer.held_specs``); what GSPMD does with
 such blocks, the rank does itself: ``gather_for_use`` makes a leaf
-whole where it is read, and the tensor-parallel blocks sum their parts
-with ``psum``. A mesh is a
+whole where it is read, the tensor-parallel blocks sum their parts
+with ``psum``, a softmax over a split dim combines the ranks' parts
+(``logsumexp``, ``softmax_combine``, over ``pmax``), and a decode
+cache is the rank's block of ``cache_specs_tree``'s spec. A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh``, or, where no collective
 runs (the rules, ``local_shard`` given its coordinates), any object
 with a ``.shape`` mapping of axis sizes. On an axis of size 1 no
@@ -235,32 +237,38 @@ def data_spec(mesh, rank, batch_dim=0):
     return tuple(dims)
 
 
+def cache_leaf_spec(shape, mesh, seq_axis_model=False):
+    """The spec of one stacked decode-cache leaf of ``shape`` (``R, B,
+    ...``), ``cache_specs_tree``'s rule for it."""
+    shape = tuple(shape)
+    if len(shape) < 3:
+        return (None,) * len(shape)
+    ba = batch_axes(mesh)
+    want = [None, ba if len(ba) > 1 else ba[0]]
+    if len(shape) == 5:                      # (R, B, S, KV, hd)
+        want += ["model" if seq_axis_model else None,
+                 None if seq_axis_model else "model", None]
+    elif len(shape) == 4:                    # (R, B, H, ...) state
+        want += ["model", None]
+    else:
+        want += [None] * (len(shape) - 2)
+    return _fit(want[:len(shape)], shape, mesh)
+
+
 def cache_specs_tree(caches, mesh, *, seq_axis_model=False):
     """Specs for decode caches.
 
     KV caches (R, B, S, KV, hd): batch -> data axes; with
     ``seq_axis_model`` S shards on 'model' (batch-1 long context, where
     the batch cannot use the data axis). SSM/RG-LRU states (R, B, ...):
-    batch -> data, trailing dims on model where divisible.
+    batch -> data, trailing dims on model where divisible (a 5-dim SSM
+    state (R, B, H, hd, N) by the KV rule: hd on 'model', or H with
+    ``seq_axis_model``). The one rule of which block of a cache a rank
+    holds, in the dry run and at runtime (``blocks.cache_block``).
     """
-    ba = batch_axes(mesh)
-    b_name = ba if len(ba) > 1 else ba[0]
-
-    def spec_for(_, leaf):
-        shape = tuple(leaf.shape)
-        if len(shape) >= 3:
-            want = [None, b_name]
-            if len(shape) == 5:                      # (R, B, S, KV, hd)
-                want += ["model" if seq_axis_model else None,
-                         None if seq_axis_model else "model", None]
-            elif len(shape) == 4:                    # (R, B, H, ...) state
-                want += ["model", None]
-            else:
-                want += [None] * (len(shape) - 2)
-            return _fit(want[:len(shape)], shape, mesh)
-        return (None,) * len(shape)
-
-    return map_with_path(spec_for, caches)
+    return map_with_path(
+        lambda _, leaf: cache_leaf_spec(leaf.shape, mesh, seq_axis_model),
+        caches)
 
 
 def local_shard(t, spec, mesh, coords=None):
@@ -497,6 +505,42 @@ def pmean_equal(t, mesh, axis):
     return t if n == 1 else _PMeanEqual.apply(t, n)
 
 
+def pmax(t, mesh, axis):
+    """The elementwise max of ``t`` over ``axis`` (``lax.pmax``), a new
+    tensor with no gradient: the shift of a softmax, whose value
+    cancels."""
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    group = axis_group(mesh, axis)
+    if group is not None:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def logsumexp(x, mesh, axis, dim=-1):
+    """``log(sum(exp(x)))`` over ``dim``, whose entries are split over
+    ``axis`` (each rank holds its block of them): the max all-reduced
+    (``pmax``), then the ranks' sums of ``exp(x - max)`` added
+    (``psum``: the ranks of ``axis`` compute the result alike, so each
+    one's cotangent passes through whole and reaches its block)."""
+    m = pmax(x.amax(dim), mesh, axis)
+    s = psum(torch.exp(x - m.unsqueeze(dim)).sum(dim), mesh, axis)
+    return m + torch.log(s)
+
+
+def softmax_combine(m, l, o, mesh, axis):
+    """A softmax-weighted sum whose keys are split over ``axis``, from
+    each rank's part over its keys: ``m`` the max of its scores, ``l``
+    the sum of ``exp(score - m)``, ``o`` the values weighted by those
+    (one trailing dim more than ``m`` and ``l``). Each part is rescaled
+    to the all-reduced max and the parts summed (``psum``): ``o / l``.
+    Forward only (decode)."""
+    M = pmax(m, mesh, axis)
+    scale = torch.exp(m - M)
+    lsum = psum(l * scale, mesh, axis)
+    osum = psum(o * scale.unsqueeze(-1), mesh, axis)
+    return osum / lsum.unsqueeze(-1)
+
+
 # ---------------------------------------------------------------------------
 # The batch over several axes, and trees of shards
 # ---------------------------------------------------------------------------
@@ -530,6 +574,71 @@ def gather_blocks(t, mesh, axes, dim=0):
     for a in reversed(tuple(axes)):
         t = all_gather(t, mesh, a, dim)
     return t
+
+
+def rank_of_block(mesh, axes, index):
+    """The global rank of the process whose block index over ``axes``
+    (the first major) is ``index`` and whose coordinates on every other
+    axis are this process's (read off the mesh's table of ranks outside
+    any dispatch mode the caller runs under, as the dry run's)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    coords = list(mesh.get_coordinate())
+    names = axis_names(mesh)
+    for a in reversed(tuple(axes)):
+        size = axis_size(mesh, a)
+        if a in names:
+            coords[names.index(a)] = index % size
+        index //= size
+    with _disable_current_modes():
+        return int(mesh.mesh[tuple(coords)])
+
+
+def stacked_block(t, mesh, axes, copies):
+    """This rank's block of ``cat([whole] * copies)`` over ``axes``,
+    where ``t`` is its block of ``whole``'s rows (``block_of``): each
+    row sent point to point from the rank that holds it, so that no rank
+    holds ``whole``. Each pair of ranks exchanges at most one run of
+    rows (``copies`` is at most the number of blocks; with one block
+    the rank's rows are ``whole``). No gradient."""
+    n, me = axes_size(mesh, axes), axes_index(mesh, axes)
+    if n == 1:
+        return torch.cat([t] * copies)
+    if copies > n:
+        raise ValueError(f"{copies} copies over {n} blocks")
+    b = t.shape[0]
+
+    def runs(d):
+        """The rows of block ``d`` of the stack: (source block, first
+        row there, count) in order."""
+        out, j, end = [], d * copies * b, (d + 1) * copies * b
+        while j < end:
+            src, r0 = divmod(j % (n * b), b)
+            k = min(b - r0, end - j)
+            out.append((src, r0, k))
+            j += k
+        return out
+
+    t = t.detach().contiguous()
+    parts, ops = [], []
+    for src, r0, k in runs(me):
+        if src == me:
+            parts.append(t[r0:r0 + k])
+        else:
+            buf = t.new_empty((k,) + tuple(t.shape[1:]))
+            ops.append(dist.P2POp(dist.irecv, buf,
+                                  rank_of_block(mesh, axes, src)))
+            parts.append(buf)
+    for d in range(n):
+        if d != me:
+            for src, r0, k in runs(d):
+                if src == me:
+                    ops.append(dist.P2POp(dist.isend, t[r0:r0 + k],
+                                          rank_of_block(mesh, axes, d)))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return torch.cat(parts)
 
 
 def sum_in_rank_order(x, mesh, axes):

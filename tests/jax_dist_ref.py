@@ -24,7 +24,9 @@ path) and writes them to ``OUTDIR/tp_params_<NAME>.pkl`` for the ranks
 first, then runs under ``make_dist`` one FF step, one backprop step
 where the case asks for it, and prefill then greedy decode steps
 (``prefill``, ``serve_step``), each token the argmax of the last
-logits.
+logits, keeping the caches after the last step. A CASE ``b1:NAME``
+serves the batch-1 case NAME (``inputs["b1"][NAME]``) the same way,
+its params written to ``OUTDIR/tp_params_b1-<NAME>.pkl``.
 Writes each case's new params and metrics (or the fields, or the
 logits and tokens) to ``OUTDIR/ref_<CASE>.pkl``.
 
@@ -103,7 +105,8 @@ def main(outdir, cases):
                 toks.append(np.asarray(tok))
                 logits, caches = dec(params, caches, tok, jnp.int32(P + i))
                 out.append(np.asarray(logits))
-        return {"logits": out, "tokens": toks}
+        return {"logits": out, "tokens": toks,
+                "caches": jax.tree_util.tree_map(np.asarray, caches)}
 
     def tp_params(name, cfg):
         params = jax.tree_util.tree_map(
@@ -133,6 +136,14 @@ def main(outdir, cases):
                             case["tokens"], case.get("aux"))
         return out
 
+    def b1_case(name):
+        case = inputs["b1"][name]
+        cfg = dataclasses.replace(get_config(case["base"]).reduced(),
+                                  **dict(case["fields"]))
+        params = tp_params(f"b1-{name}", cfg)
+        return {"serve": serve(cfg, dryrun.make_dist(cfg, mesh), params,
+                               case["prompts"], case["gen"])}
+
     moe = get_config("deepseek-moe-16b").reduced()
     ada = dataclasses.replace(moe, ff=dataclasses.replace(
         moe.ff, neg_mode="adaptive"))
@@ -150,6 +161,7 @@ def main(outdir, cases):
     with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
         futs = {case: pool.submit(make_dists) if case == "make_dist" else
                 pool.submit(tp_case, case[3:]) if case.startswith("tp:") else
+                pool.submit(b1_case, case[3:]) if case.startswith("b1:") else
                 pool.submit(run, *steps[case][:3],
                             (qw if case == "fold" else ds)["params"],
                             steps[case][3])

@@ -99,7 +99,8 @@ class RecordingKey:
         return self._record("permutation", (n,), self.key.permutation(n))
 
     def randint(self, shape, low, high):
-        return self._record("randint", shape,
+        # by its range too: the cases' vocabularies differ
+        return self._record(f"randint[{low},{high})", shape,
                             self.key.randint(shape, low, high))
 
     def normal(self, shape):
@@ -143,11 +144,21 @@ def _tp_inputs(rng):
     return out
 
 
+def _b1_inputs(rng):
+    """Each batch-1 decode case's config and its one prompt."""
+    return {name: {"base": base, "fields": fields, "gen": gen,
+                   "prompts": rng.integers(0, gr.tp_config(
+                       jget, base, fields).vocab, (1, P)).astype(np.int32)}
+            for name, base, fields, P, gen in gr.B1_CASES}
+
+
 def _inputs():
     """The reduced configs' initial params (the port's init, as numpy)
-    and token batches; the tensor-parallel cases' (``_tp_inputs``)."""
+    and token batches; the tensor-parallel cases' (``_tp_inputs``) and
+    the batch-1 decode cases' (``_b1_inputs``)."""
     rng = np.random.default_rng(26)
-    out = {"tp": _tp_inputs(np.random.default_rng(28))}
+    out = {"tp": _tp_inputs(np.random.default_rng(28)),
+           "b1": _b1_inputs(np.random.default_rng(29))}
     for name, key, cases in (
             ("deepseek-moe-16b", "deepseek", gr.DIST_STEPS),
             ("qwen2-0.5b", "qwen2", {"ff": 16})):
@@ -184,16 +195,20 @@ def _draws(inputs):
     for case in inputs["tp"].values():
         rk = RecordingKey(JaxKey(0), (0,), draws).fold_in(1)
         tff.corrupt_tokens(rk, torch.as_tensor(case["tokens"][:, :-1]),
-                           jget(case["base"]).reduced().vocab)
+                           gr.tp_config(jget, case["base"],
+                                        case["fields"]).vocab)
     return draws
 
 
 # the reference's cases, split over two processes that run side by side
 TP_NAMES = [name for name, _, _ in gr.TP_CASES]
+B1_NAMES = [name for name, *_ in gr.B1_CASES]
 REF_CASES = (("make_dist", "ff16", "ff80", "tp:qwen3-8b",
-              "tp:recurrentgemma-2b"),
+              "tp:recurrentgemma-2b", "b1:recurrentgemma-2b",
+              "b1:mamba2-780m"),
              ("bp", "ada16", "fold", "tp:qwen2-odd",
-              "tp:llama-3.2-vision-90b", "tp:mamba2-780m"))
+              "tp:llama-3.2-vision-90b", "tp:mamba2-780m",
+              "b1:h2o-danube-3-4b"))
 
 
 @pytest.fixture(scope="module")
@@ -231,6 +246,8 @@ def runs(tmp_path_factory):
     assert all(r["leaked"] == [] for r in ranks)      # no rank loaded jax
     for name, case in inputs["tp"].items():
         case["params"] = gr.tp_params(out, name, timeout=0)
+    for name, case in inputs["b1"].items():
+        case["params"] = gr.tp_params(out, f"b1-{name}", timeout=0)
     return inputs, ref, ranks
 
 
@@ -522,6 +539,99 @@ def test_tensor_parallel_serve_matches_the_reference(runs, name, layout,
         has_attn = any(k != "mamba2" for p, _ in cfg.groups for k in p)
         assert got["kv_heads"] == ([cfg.n_kv // m if split else cfg.n_kv]
                                    if has_attn else [])
+        assert got["vocab_block"] == cfg.padded_vocab // m
+        _assert_cache_blocks(got["caches"], want["caches"], layout, coords,
+                             seq_axis_model=False)
+
+
+def _assert_cache_blocks(got, want, layout, coords, *, seq_axis_model):
+    """Each cache leaf a rank holds is its block, under
+    ``sharding.cache_specs_tree(seq_axis_model=)``'s spec, of the
+    reference's whole leaf at the same path: the positions its slots
+    hold exactly, the values within ``SERVE_TOL`` of the leaf's
+    largest."""
+    mesh = SizesMesh(dict(zip(("data", "model"), layout)))
+    held = {}
+    sharding.map_with_path(lambda p, t: held.__setitem__(p, t), got)
+    n = 0
+
+    def one(path, w):
+        nonlocal n
+        spec = sharding.cache_leaf_spec(w.shape, mesh, seq_axis_model)
+        w = sharding.local_shard(torch.as_tensor(np.asarray(w)), spec,
+                                 mesh, coords)
+        g = held[path]
+        assert g.shape == w.shape, (path, spec)
+        if not g.dtype.is_floating_point:
+            assert torch.equal(g, w.to(g.dtype)), path
+        else:
+            scale = max(float(w.abs().max()), 1e-30)
+            assert float((g - w).abs().max()) <= SERVE_TOL * scale, path
+        n += 1
+
+    sharding.map_with_path(one, want)
+    assert n == len(held) > 0
+
+
+@pytest.mark.parametrize("name,layout", [(n, lay) for n in B1_NAMES
+                                         for lay in gr.TP_LAYOUTS],
+                         ids=[f"{n}-{a}x{b}" for n in B1_NAMES
+                              for a, b in gr.TP_LAYOUTS])
+def test_batch_one_decode_on_split_caches_matches_the_reference(
+        runs, name, layout):
+    """One prompt served on 4 gloo ranks, every rank holding it whole
+    (no data axis splits a batch of 1): prefill then greedy decode, the
+    logits made whole from the ranks' vocab blocks within ``SERVE_TOL``
+    of the reference's ``serve_step`` under its ``Dist``, the tokens its
+    own; each rank's caches its blocks of the reference's under
+    ``cache_specs_tree(seq_axis_model=True)``: attention's slots split
+    over "model" (the windows' rings wrapped), mamba2's state on its
+    heads."""
+    inputs, ref, ranks = runs
+    want = ref[f"b1:{name}"]["serve"]
+    case = inputs["b1"][name]
+    cfg = gr.tp_config(tget, case["base"], case["fields"])
+    assert case["prompts"].shape[1] > (cfg.rglru.window if cfg.rglru
+                                       else cfg.window or 0)
+    split = []
+    for res in ranks:
+        got = res[f"b1:{name}:{layout}"]
+        for g, w in zip(got["logits"], want["logits"]):
+            assert g.shape == w.shape
+            assert float(np.abs(g.numpy() - w).max()) <= SERVE_TOL * float(
+                np.abs(w).max())
+        for g, w in zip(got["tokens"], want["tokens"]):
+            assert np.array_equal(g.numpy(), w)
+        _assert_cache_blocks(got["caches"], want["caches"], layout,
+                             res[f"coords:{layout}"], seq_axis_model=True)
+        sharding.map_with_path(lambda p, t: split.append(t.shape[2]) if
+                               p[-1] in ("k", "h") and t.dim() == 5 else None,
+                               got["caches"])
+    # every rank holds 1 / m of each attention cache's slots, or of the
+    # SSM state's heads
+    whole = (cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim if cfg.ssm
+             else min(cfg.rglru.window if cfg.rglru else cfg.window,
+                      case["prompts"].shape[1] + case["gen"]))
+    assert set(split) == {whole // layout[1]}
+
+
+def test_greedy_over_vocab_blocks_is_argmax():
+    """``transformer.first_max`` over the blocks' (largest value, first
+    index) candidates picks what ``torch.argmax`` picks over the whole
+    row, ties to the lowest index, within a block and across a block
+    boundary."""
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randint(0, 6, (64, 16), generator=g).float()
+    logits[0, 3] = logits[0, 4] = 9.0       # a tie across blocks 0 and 1
+    logits[1, 9] = logits[1, 10] = 9.0      # a tie within block 2
+    logits[2, :] = 1.0                      # every entry equal
+    for m in (1, 2, 4, 8):
+        n = 16 // m
+        vals, idx = logits.reshape(64, m, n).max(-1)
+        idx = idx + torch.arange(m) * n
+        got = transformer.first_max(vals, idx)
+        assert torch.equal(got, logits.argmax(-1)), m
+    assert got[0] == 3 and got[1] == 9 and got[2] == 0
 
 
 @pytest.mark.parametrize("layout", gr.TP_LAYOUTS)

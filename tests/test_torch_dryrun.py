@@ -356,12 +356,11 @@ def test_reduced_config_traces_with_fake_outputs(arch, kind):
     assert an["flops"] > 0 and an["bytes"] > 0
     assert mem["peak_size_in_bytes"] >= mem["argument_size_in_bytes"] > 0
     # the rank holds its params (and Adam state) as the reference's rules
-    # split them; its inputs are no smaller than the rules' blocks (the
-    # train step takes the whole batch; an SSM state stays whole over
-    # "model")
+    # split them, and every other argument too: its rows of the train
+    # batch, its blocks of the caches (an SSM state's hd over "model")
     assert mem["rank_param_bytes"] == mem["rules_param_bytes"] > 0
     assert 0 < mem["per_device_argument_bytes"] \
-        <= mem["argument_size_in_bytes"]
+        == mem["rank_argument_bytes"] == mem["argument_size_in_bytes"]
     # every config splits some leaf over (2, 2) (embed at least): each
     # step gathers it, and the train step sums its grads too
     assert an["collective_bytes"] > 0

@@ -145,28 +145,47 @@ def _activation_sums(cfg, layout):
     return 4, 4 * rows * gr.DRY_SEQ * cfg.d_model * 4
 
 
+def _vocab_sums(cfg, layout):
+    """The dense FF step's all-reduces over "model" of its
+    vocab-parallel embedding and head, rank 0's (its rows the batch's
+    positives): on a model axis above 1, the lookup's rows summed
+    (rows, S, d) f32; the head CE's max, sum and label pick (rows, S)
+    f32 each, once forward and once in its chunk's recompute; its
+    features' cotangent (rows, S, d) f32; none else."""
+    if layout[1] == 1:
+        return 0, 0
+    rows, S, d = 2 * gr.DRY_BATCH // layout[0], gr.DRY_SEQ, cfg.d_model
+    return 8, 2 * rows * S * d * 4 + 6 * rows * S * 4
+
+
 @pytest.mark.parametrize("layout", gr.DRY_LAYOUTS)
 def test_dense_train_all_reduce_bytes_are_the_held_leaves(layout):
     """Every leaf of the dense config is held as the reference's rules
     split it, and trained. A leaf split over "data" is gathered where it
     is used, and its grad reduce-scattered back by the gather's
     transpose (the tied embedding twice: the embedding's loss and the
-    head's); a leaf held whole over "data" has its grad all-reduced
-    over it once a step, one bucket per unit and one for the head. On
-    (2 x 2) each unit adds its tensor-parallel activation sums."""
+    head's; its vocab stays split over "model"); a leaf held whole over
+    "data" has its grad all-reduced over it once a step, one bucket per
+    unit and one for the head. On (2 x 2) each unit adds its
+    tensor-parallel activation sums, and the embedding and head their
+    vocab-parallel ones. The rank's arguments: its blocks of the params
+    and Adam state and its rows of the batch."""
     cfg = get_config("qwen2-0.5b").reduced()
     params, held, nbytes = _held(cfg, layout)
     an, _ = _trace("qwen2-0.5b", "train", layout)
     units = sum(r for _, r in cfg.groups)
     n_act, act_bytes = _activation_sums(cfg, layout)
+    n_voc, voc_bytes = _vocab_sums(cfg, layout)
     whole = sum(b for b, sp in zip(nbytes, held) if "data" not in _names(sp))
     split = sum(b for b, sp in zip(nbytes, held) if "data" in _names(sp))
     embed = nbytes[0]
-    assert an["collective_by_type"]["all-reduce"] == whole + units * act_bytes
-    assert an["collective_counts"]["all-reduce"] == units + 1 + units * n_act
+    assert an["collective_by_type"]["all-reduce"] == \
+        whole + units * act_bytes + voc_bytes
+    assert an["collective_counts"]["all-reduce"] == \
+        units + 1 + units * n_act + n_voc
     assert an["collective_by_type"]["reduce-scatter"] == split + embed
     assert an["memory"]["argument_size_in_bytes"] == 3 * sum(nbytes) + 4 * (
-        gr.DRY_BATCH * (gr.DRY_SEQ + 1))                # params, m, v, tokens
+        gr.DRY_BATCH // layout[0] * (gr.DRY_SEQ + 1))   # params, m, v, rows
 
 
 def test_batch_fold_model_adds_the_all_reduce_over_model():
@@ -212,12 +231,21 @@ def test_unported_attention_options_raise(opt):
 def test_ranks_0_and_3_report_equal_counts(name):
     """Their collectives and arguments agree; their work need not: the
     train step's head CE runs on the batch's positive rows, which are
-    data rank 0's block alone."""
+    data rank 0's block alone, so its vocab-parallel sums over "model"
+    carry rank 0's rows and none of rank 3's (the same collectives, of
+    no bytes: the features' cotangent (rows, S, d) and the max, sum and
+    pick (rows, S), forward and recomputed)."""
+    cfg = get_config(name).reduced()
+    rows = 2 * gr.DRY_BATCH // 2
+    head = rows * gr.DRY_SEQ * (cfg.d_model + 6) * 4
     for kind in gr.DRY_KINDS:
         a, _ = _trace(name, kind, (2, 2), rank=0)
         b, _ = _trace(name, kind, (2, 2), rank=3)
-        for k in ("collective_counts", "collective_by_type"):
-            assert a[k] == b[k], (kind, k)
+        assert a["collective_counts"] == b["collective_counts"], kind
+        want = dict(b["collective_by_type"])
+        if kind == "train":
+            want["all-reduce"] += head
+        assert a["collective_by_type"] == want, kind
         assert a["memory"]["argument_size_in_bytes"] \
             == b["memory"]["argument_size_in_bytes"]
         if kind == "train":
@@ -228,10 +256,11 @@ def test_ranks_0_and_3_report_equal_counts(name):
 
 def test_a_batch_the_axes_do_not_divide_stays_whole():
     """Decode at B 1 (as long_500k): every rank holds the whole batch of
-    every cache, as one device does, its kv heads the rank's half on
-    model 2 (qwen2's 2 kv heads split, as its 4 query heads do); at B 4
-    on (2 x 2) the caches and tokens are the rank's half of the batch
-    too. The params are the rank's blocks either way."""
+    every cache, as one device does, and its half of the slots on model
+    2 (``cache_specs_tree``'s seq_axis_model: the sequence, not the kv
+    heads, splits at batch 1); at B 4 on (2 x 2) the caches and tokens
+    are the rank's half of the batch too, and its kv heads half of
+    qwen2's 2. The params are the rank's blocks either way."""
     cfg = get_config("qwen2-0.5b").reduced()
     _, _, nbytes = _held(cfg, (2, 2))
     p_bytes = sum(nbytes)

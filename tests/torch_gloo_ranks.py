@@ -31,14 +31,18 @@ dist  over a (data=2, model=2) mesh, on the inputs the test wrote to
       one FF step of the reduced qwen2-0.5b with the model axis folded
       into the batch; ``prefill`` and ``serve_step`` of the reduced
       deepseek on the rank's shard of the prompts; ``make_dist``'s fields
-      for every config; then over (data 2, model 2) and (data 1, model
-      4) meshes (``TP_LAYOUTS``) the tensor-parallel cases
-      (``TP_CASES``): an FF step, a backprop step (``TP_BP``), the
+      for every config; then over (data 2, model 2), (data 1, model 4)
+      and (data 4, model 1) meshes (``TP_LAYOUTS``) the tensor-parallel
+      cases (``TP_CASES``): an FF step, a backprop step (``TP_BP``), the
       backprop loss's grads of the leaves the rank holds, and
-      prefill then greedy decode on the rank's block of the prompts,
-      from the reference's own params (``tp_params``: written by
-      ``jax_dist_ref``); and every config's params through
-      ``shard_params`` and back through ``gather_params``.
+      prefill then greedy decode on the rank's block of the prompts
+      (the logits made whole from the ranks' vocab blocks, the tokens
+      picked over them, the caches the rank holds), from the
+      reference's own params (``tp_params``: written by
+      ``jax_dist_ref``); the batch-1 cases (``B1_CASES``) the same way
+      on caches whose slots, or SSM state's heads, split over "model";
+      and every config's params through ``shard_params`` and back
+      through ``gather_params``.
 dryrun
       the steps ``launch.dryrun`` traces per rank (``DRY_KINDS`` of
       ``DRY_CFGS``, reduced) on real tensors over (data, model) meshes of
@@ -240,17 +244,36 @@ DIST_STEPS = {"ff16": 16, "ff80": 80, "bp": 80, "ada16": 16}
 # model 2 (each rank's 3 queries read kv heads 0 0 1 or 1 2 2), and no
 # head on model 4; recurrentgemma-2b's 4 / 1 split its q heads alone,
 # beside its RG-LRU's gathered leaves; llama-3.2-vision-90b's cross
-# attention (gates set to 1); mamba2-780m's gathered SSM leaves.
-TP_CASES = (("qwen3-8b", "qwen3-8b", ()),
+# attention (gates set to 1); mamba2-780m's gathered SSM leaves, its
+# state split on hd in decode. The vocabularies split over "model"
+# (vocab-parallel embed, head and CE): tied (qwen2, recurrentgemma with
+# softcap 30, mamba2) and untied (qwen3, llama-vision); qwen3-8b's vocab
+# of 500 pads to 512, its pad rows in the last block on model 2 and 4.
+TP_CASES = (("qwen3-8b", "qwen3-8b", (("vocab", 500),)),
             ("qwen2-odd", "qwen2-0.5b",
              (("n_heads", 6), ("n_kv", 3), ("head_dim", 32))),
             ("recurrentgemma-2b", "recurrentgemma-2b", ()),
             ("llama-3.2-vision-90b", "llama-3.2-vision-90b", ()),
             ("mamba2-780m", "mamba2-780m", ()))
-TP_LAYOUTS = ((2, 2), (1, 4))
+# (data 4, model 1): nothing split over "model"; the train batch's rows
+# over 4 ranks, each rank's block of the stacked [pos; neg] rows made of
+# two others' input blocks (llama-vision's stub rows moved point to
+# point)
+TP_LAYOUTS = ((2, 2), (1, 4), (4, 1))
 TP_BATCH, TP_SEQ, TP_PROMPT, TP_GEN = 4, 16, 12, 4
 # the cases whose backprop step runs too: the three head cases
 TP_BP = ("qwen3-8b", "qwen2-odd", "recurrentgemma-2b")
+# the batch-1 decode cases, on each layout of TP_LAYOUTS: (name, base
+# config, fields, prompt, tokens generated). One prompt, which no data
+# axis splits: the caches' slots split over "model" (cache_specs_tree's
+# seq_axis_model), recurrentgemma's window of 32 and danube's of 64
+# wrapped by their prompts (each ring's slots split), recurrentgemma's
+# one kv head cut from every head computed, danube's 4 moved from the
+# heads its ranks computed to their slots (an all-to-all); mamba2's SSM
+# state split on its heads.
+B1_CASES = (("recurrentgemma-2b", "recurrentgemma-2b", (), 40, 4),
+            ("h2o-danube-3-4b", "h2o-danube-3-4b", (), 72, 4),
+            ("mamba2-780m", "mamba2-780m", (), 12, 4))
 
 
 def tp_params(outdir, name, timeout=600):
@@ -317,7 +340,7 @@ class ReplayKey:
         return self._draw("permutation", (n,))
 
     def randint(self, shape, low, high):
-        return self._draw("randint", shape)
+        return self._draw(f"randint[{low},{high})", shape)
 
     def normal(self, shape):
         return self._draw("normal", shape)
@@ -378,9 +401,12 @@ def run_dist(outdir):
         held = transformer.shard_params(params, cfg, dist)
         opt = optim.adam_init(held)
         fn = make(cfg, dist=dist, lr=1e-3, **kw)
-        batch = {"tokens": torch.as_tensor(tokens)}
+        # the rank's rows of the batch
+        batch = {"tokens": sharding.block_of(torch.as_tensor(tokens),
+                                             dist.mesh, dist.batch_axes)}
         if aux is not None:
-            batch["aux"] = torch.as_tensor(aux)
+            batch["aux"] = sharding.block_of(torch.as_tensor(aux), dist.mesh,
+                                             dist.batch_axes)
         held, opt, metrics = fn(held, opt, batch, 1)
         return {"params": transformer.gather_params(held, cfg, dist),
                 "metrics": {k: float(v) for k, v in metrics.items()},
@@ -414,39 +440,50 @@ def run_dist(outdir):
     logits, caches = transformer.prefill(
         params, moe, prompts[:, :DIST_PROMPT], dist=ep,
         max_len=DIST_PROMPT + DIST_GEN, impl="ref")
-    served = [logits]
+    served = [transformer.whole_logits(logits, moe, ep)]
     for i in range(DIST_GEN):
         logits, caches = transformer.serve_step(
             params, moe, caches, prompts[:, DIST_PROMPT + i],
             DIST_PROMPT + i, dist=ep)
-        served.append(logits)
+        served.append(transformer.whole_logits(logits, moe, ep))
     out["serve"] = served
 
     # (e) the tensor-parallel cases, on each layout: the steps, and
     # prefill and greedy decode on the rank's block of the prompts
-    def serve(cfg, dist, npp, prompts, aux):
+    def block(t, dist):
+        """The rank's rows of ``t``, or ``t`` where the batch axes do
+        not divide them (batch 1)."""
+        if t is None:
+            return None
+        t = torch.as_tensor(t)
+        if t.shape[0] % sharding.axes_size(dist.mesh, dist.batch_axes):
+            return t
+        return sharding.block_of(t, dist.mesh, dist.batch_axes)
+
+    def serve(cfg, dist, npp, prompts, aux, gen=TP_GEN):
         params = transformer.shard_params(params_from_numpy(npp, "cpu"),
                                           cfg, dist)
-        rows = sharding.block_of(torch.as_tensor(prompts), dist.mesh,
-                                 dist.batch_axes)
-        if aux is not None:
-            aux = sharding.block_of(torch.as_tensor(aux), dist.mesh,
-                                    dist.batch_axes)
+        rows = block(prompts, dist)
+        P = rows.shape[1]
         logits, caches = transformer.prefill(
-            params, cfg, rows, aux=aux, dist=dist,
-            max_len=TP_PROMPT + TP_GEN, impl="ref")
+            params, cfg, rows, aux=block(aux, dist), dist=dist,
+            max_len=P + gen, impl="ref")
         heads = set()
         sharding.map_with_path(
             lambda path, t: heads.add(t.shape[3]) if path[-1] in ("k", "v")
             else None, caches)
-        res = {"logits": [logits], "tokens": [], "kv_heads": sorted(heads)}
-        for i in range(TP_GEN):
-            tok = logits[:, -1].argmax(-1).to(torch.int32) \
-                if logits.dim() == 3 else logits.argmax(-1).to(torch.int32)
+        res = {"logits": [transformer.whole_logits(logits, cfg, dist)],
+               "tokens": [], "kv_heads": sorted(heads),
+               "vocab_block": logits.shape[-1]}
+        for i in range(gen):
+            tok = transformer.greedy(
+                logits[:, -1] if logits.dim() == 3 else logits, cfg, dist)
             res["tokens"].append(tok)
             logits, caches = transformer.serve_step(
-                params, cfg, caches, tok, TP_PROMPT + i, dist=dist)
-            res["logits"].append(logits)
+                params, cfg, caches, tok, P + i, dist=dist)
+            res["logits"].append(transformer.whole_logits(logits, cfg,
+                                                          dist))
+        res["caches"] = caches
         return res
 
     def bp_grads(cfg, dist, npp, tokens, aux):
@@ -463,8 +500,8 @@ def run_dist(outdir):
         tp = train.trainable(held)
         logits, _ = transformer.forward(tp, cfg, rows[:, :-1], aux=aux,
                                         dist=dist, impl="ref")
-        ce = -torch.log_softmax(logits, -1).gather(
-            -1, rows[:, 1:].long()[..., None])[..., 0]
+        ce = train.vocab_ce(logits, rows[:, 1:], transformer.vocab_block(
+            cfg, dist, logits.shape[-1]))
         loss = ce.mean() * (rows.shape[0] / tokens.shape[0])
         return part.grads(train.grads_of(loss, tp), held)
 
@@ -486,6 +523,11 @@ def run_dist(outdir):
                 res["bp"] = step(cfg, d, train.make_bp_train_step, params,
                                  case["tokens"], aux)
             res["grads"] = bp_grads(cfg, d, params, case["tokens"], aux)
+        for name, base, fields, _, gen in B1_CASES:
+            cfg = tp_config(get_config, base, fields)
+            out[f"b1:{name}:{layout}"] = serve(
+                cfg, make_dist(cfg, tmesh), tp_params(outdir, f"b1-{name}"),
+                inputs["b1"][name]["prompts"], None, gen)
         # (f) every config's tree through shard_params and gather_params
         for name in list_configs():
             cfg = get_config(name).reduced()
@@ -502,9 +544,11 @@ def run_dist(outdir):
 # the dryrun cases: configs, step kinds, (data, model) layouts, and the
 # global batch: on (2, 2) a rank's prefill rows hold T = 160 tokens of the
 # reduced deepseek-moe-16b (> 64 * top_k: the sorted branch and its
-# all_to_all), on (4, 1) T = 80 (dense-local)
+# all_to_all), on (4, 1) T = 80 (dense-local); decode at batch 1 on a
+# DRY_SEQ-deep cache, its slots split over "model" (cache_specs_tree's
+# seq_axis_model)
 DRY_CFGS = ("qwen2-0.5b", "deepseek-moe-16b")
-DRY_KINDS = ("train", "prefill")
+DRY_KINDS = ("train", "prefill", "decode")
 DRY_LAYOUTS = ((4, 1), (2, 2))
 DRY_BATCH, DRY_SEQ = 4, 80
 
@@ -512,7 +556,8 @@ DRY_BATCH, DRY_SEQ = 4, 80
 def dry_shape(kind):
     """The ``InputShape`` of a dryrun case."""
     from repro_torch.configs import InputShape
-    return InputShape(f"gloo_{kind}", DRY_SEQ, DRY_BATCH, kind)
+    return InputShape(f"gloo_{kind}", DRY_SEQ,
+                      1 if kind == "decode" else DRY_BATCH, kind)
 
 
 def run_dryrun(outdir):
@@ -535,14 +580,24 @@ def run_dryrun(outdir):
                     0, cfg.vocab, (DRY_BATCH, DRY_SEQ + (kind == "train")),
                     generator=torch.Generator().manual_seed(1),
                     dtype=torch.int32)
+                # the rank's rows alone (a copy: a view would keep the
+                # whole batch's storage among the arguments)
+                rows = sharding.block_of(tokens, mesh, d.batch_axes).clone()
                 if kind == "train":
                     args = (params, optim.adam_init(params),
-                            {"tokens": tokens}, 1)
+                            {"tokens": rows}, 1)
+                elif kind == "prefill":
+                    args = (params, {"tokens": rows})
                 else:
-                    # the rank's rows alone (a copy: a view would keep
-                    # the whole batch's storage among the arguments)
-                    args = (params, {"tokens": sharding.block_of(
-                        tokens, mesh, d.batch_axes).clone()})
+                    # its blocks of batch-1 caches (copies, as above)
+                    caches = sharding.map_with_path(
+                        lambda _, t: sharding.local_shard(
+                            t, sharding.cache_leaf_spec(t.shape, mesh, True),
+                            mesh).clone(),
+                        transformer.init_caches(cfg, 1, DRY_SEQ,
+                                                device="cpu"))
+                    args = (params, caches, tokens[:1, 0].clone(),
+                            DRY_SEQ - 1)
                 _, an = op_analysis.trace(dryrun.step_fn(cfg, kind, d),
                                           *args)
                 out[layout, name, kind] = an
