@@ -245,8 +245,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
     bit-identical to the sequential fit; the grad step's wall time with
     and without the table, in turns.
 33. The dry run (``launch.dryrun``, ``launch.op_analysis``): qwen2-0.5b's
-    prefill at (4, 2048) and its FF train step at (4, 256) traced on fake
-    tensors, then run on the card's plain route: the peak memory net of
+    prefill at (4, 2048) and its FF train step at (4, 256), and both
+    under ``--opts causal_skip,pv_bf16`` (the FF step at (4, 2048), so
+    that the chunked attention runs 2 k chunks and skips a pair), traced
+    on fake tensors, then run on the card's plain route: the peak memory
+    net of
     what was allocated before the call against the predicted temp bytes,
     within ``DRYRUN_MEM_FACTOR`` either way; the per-rank trace too:
     phase 31's deepseek cut's FF step as the rank of a (data 1, model 1)
@@ -286,7 +289,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
     per-rank dry run's (prefill, decode and the step) and its temp
     memory on the plain route within ``DRYRUN_MEM_FACTOR`` (prefill and
     the step; decode's printed); the phase's wall time.
-35. Isolation: no ``jax`` and no ``repro`` module was loaded.
+36. The chunked attention route (``models.attention.chunked_attention``
+    on the plain impl, the reference's O(S·chunk) online softmax) on the
+    card: without grad at qwen2-0.5b's prefill shape (4, 2048, 14 / 2,
+    64) in f32 and bf16 and h2o-danube-3-4b's (4, 4608, 32 / 8, 120,
+    window 4096) in bf16, each with the options off, ``causal_skip`` and
+    ``pv_bf16``, against ``flash_attention_plain`` and the kernel (f32
+    within ``FA_TOL``; bf16, and ``pv_bf16``, a bf16 product, within the
+    bf16 limit; off and ``causal_skip`` also elementwise within one bf16
+    rounding of plain), ``causal_skip`` against no skip within
+    ``SKIP_TOL``, each timed beside the kernel and SDPA; under autograd
+    at (8, 4096, 14 / 2, 64) one forward and backward through the dense
+    ``flash_attention_plain`` (the training route before the chunked
+    one), the chunked route and it with ``causal_skip``, bf16 and f32:
+    time and ``max_memory_allocated``, the f32 q, k and v grads against
+    the dense route's within ``GRAD_TOL``; ``ff_dense_bwd`` in bf16 at
+    (128, 2000, 2000) against its plain version within the reference's
+    bf16 tolerance, timed beside its bound and the library's bf16
+    products.
+35. Isolation: no ``jax`` and no ``repro`` module was loaded (checked
+    after phase 36).
 
 Phases 1-31 run the kernels at their default tiles: ``main`` points
 ``REPRO_TORCH_TUNE_TABLE`` at an empty table of the run's own, whatever
@@ -606,6 +628,11 @@ TUNE_SHAPES = [(M, K, 2000) for M in (128, 640) for K in (784, 2000)]
 # model 1) mesh, against the same step on the card's plain route under
 # the real (1, 1) mesh of an NCCL group, within DRYRUN_MEM_FACTOR.
 DRYRUN_MEM_FACTOR = 1.5
+# phase 33's runs under the chunked attention's options: qwen2-0.5b's
+# prefill at (LM_BATCH, LM_PROMPT) and its FF step at (LM_TRAIN_BATCH,
+# DRYRUN_OPT_SEQ)
+DRYRUN_OPTS = ("causal_skip", "pv_bf16")
+DRYRUN_OPT_SEQ = 2048
 DRYRUN_JOBS = 7
 DRYRUN_TIMEOUT = 900
 # Phase 31 also drives the LM entry points and steps under a Dist:
@@ -620,6 +647,22 @@ DRYRUN_TIMEOUT = 900
 # serve_steps bit-identical to NO_DIST.
 POD_DIST_UNITS, POD_DIST_DECODE = 3, 8
 LEAF_SHARE, LEAF_TOL = 1e-4, 1e-3
+# Phase 36, the chunked attention route: its no-grad shapes (qwen2-0.5b's
+# prefill in f32 and bf16, h2o-danube-3-4b's in bf16; danube's 4608 keys
+# are not a multiple of 1024, so it runs one k chunk, as the reference's
+# rule gives), the train-length shape of its autograd run, and the
+# limit of causal_skip against no skip (scaled: the same merges in the
+# same order on the rows either way, so only the scores' products may
+# round otherwise). A pv_bf16 run is held to the bf16 limit whatever
+# its inputs' dtype: its P.V is a bf16 product.
+CHUNK_SHAPES = [(QWEN_ATTN, torch.float32), (QWEN_ATTN, torch.bfloat16),
+                (DANUBE_ATTN, torch.bfloat16)]
+CHUNK_GRAD_SHAPE = (8, 4096, 4096, 14, 2, 64, True, None)
+SKIP_TOL = 1e-6
+CHUNK_GRAD_REPS = 5
+# ff_dense_bwd in bf16 at the training shape: the reference's bf16 ff_dense
+# tolerance (TOL[torch.bfloat16]'s y limit) on dx, dw and db, scaled
+BWD_BF16_SHAPE = TRAIN_SHAPES[1]
 # Phase 34: tensor-parallel ranks on the one card. TP_MESH (data 1, model
 # 2) over two processes in a gloo group (NCCL refuses two ranks on one
 # device), on CUDA tensors, each holding the blocks of the reference's
@@ -3708,30 +3751,28 @@ def pod1_tally(out, ok, last, all_s):
           "blocks")
 
 
-def phase_dryrun(job, tmp, smi):
-    """33. The dry run against the card: for qwen2-0.5b's prefill at
-    (LM_BATCH, LM_PROMPT) and its FF train step at (LM_TRAIN_BATCH,
-    LM_SEQ), ``dryrun.analyze_combo``'s predicted temp bytes (peak -
-    arguments) against the same call run on the card's plain route
-    (``dryrun_memory_check``); the per-rank trace the same way
-    (``dist_dryrun_memory``); then ``dryrun --all`` (``job``, from
-    ``start_dryrun_all``, started in phase 32) waited for, every combo
-    traced, its wall time printed; then ``dryrun --all --mesh pod1``,
-    each combo per rank, on the host's CPU alone. Returns the phase's
-    wall time."""
+def qwen_dryrun_checks(smi):
+    """33, the whole step: qwen2-0.5b's prefill at (LM_BATCH, LM_PROMPT)
+    and its FF train step at (LM_TRAIN_BATCH, LM_SEQ), then both under
+    DRYRUN_OPTS (the FF step at DRYRUN_OPT_SEQ), each traced by
+    ``dryrun.analyze_combo`` and run on the card's plain route with the
+    same options (``dryrun_memory_check``)."""
     from repro_torch import optim
     from repro_torch.configs import InputShape, get_config
     from repro_torch.core import train as train_lib
     from repro_torch.launch import dryrun
     from repro_torch.models import transformer
 
-    t_phase = time.perf_counter()
     arch = "qwen2-0.5b"
     cfg = get_config(arch)
-    for kind, (B, S) in (("prefill", (LM_BATCH, LM_PROMPT)),
-                         ("train", (LM_TRAIN_BATCH, LM_SEQ))):
+    for kind, (B, S), opts in (
+            ("prefill", (LM_BATCH, LM_PROMPT), ()),
+            ("train", (LM_TRAIN_BATCH, LM_SEQ), ()),
+            ("prefill", (LM_BATCH, LM_PROMPT), DRYRUN_OPTS),
+            ("train", (LM_TRAIN_BATCH, DRYRUN_OPT_SEQ), DRYRUN_OPTS)):
         res = dryrun.analyze_combo(arch, InputShape(f"chip_smoke_{kind}",
-                                                    S, B, kind))
+                                                    S, B, kind), opts=opts)
+        attn_opts = dryrun.attn_opts(opts)
         params = transformer.init(
             torch.Generator(device="cuda").manual_seed(0), cfg)
         tokens = torch.randint(
@@ -3741,15 +3782,20 @@ def phase_dryrun(job, tmp, smi):
         if kind == "prefill":
             def fn():
                 return transformer.prefill(params, cfg, tokens,
-                                           last_only=True, impl="ref")
+                                           last_only=True, impl="ref",
+                                           attn_opts=attn_opts)
         else:
-            step_fn = train_lib.make_ff_train_step(cfg, impl="ref")
+            step_fn = train_lib.make_ff_train_step(cfg, impl="ref",
+                                                   attn_opts=attn_opts)
             opt = optim.adam_init(params)
 
             def fn():
                 return step_fn(params, opt, {"tokens": tokens}, 1)
-        dryrun_memory_check(f"{arch} {kind} (B {B}, S {S})", res, fn, smi)
-        print(f"[33 dryrun] {arch} {kind} traced in {res['trace_s']} s: "
+        with_opts = f" --opts {','.join(opts)}" if opts else ""
+        dryrun_memory_check(f"{arch} {kind} (B {B}, S {S}){with_opts}", res,
+                            fn, smi)
+        print(f"[33 dryrun] {arch} {kind}{with_opts} traced in "
+              f"{res['trace_s']} s: "
               f"{res['op_flops_total']:.4e} flops (model "
               f"{res['model_flops']:.4e}), {res['op_bytes_total']:.4e} "
               f"bytes, bottleneck {res['bottleneck']} (compute "
@@ -3758,6 +3804,22 @@ def phase_dryrun(job, tmp, smi):
               f"peaks)")
         del params, tokens, fn
         torch.cuda.empty_cache()
+
+
+def phase_dryrun(job, tmp, smi):
+    """33. The dry run against the card: for qwen2-0.5b's prefill at
+    (LM_BATCH, LM_PROMPT) and its FF train step at (LM_TRAIN_BATCH,
+    LM_SEQ), and both under DRYRUN_OPTS, ``dryrun.analyze_combo``'s
+    predicted temp bytes (peak - arguments) against the same call run
+    on the card's plain route (``qwen_dryrun_checks``); the per-rank
+    trace the same way
+    (``dist_dryrun_memory``); then ``dryrun --all`` (``job``, from
+    ``start_dryrun_all``, started in phase 32) waited for, every combo
+    traced, its wall time printed; then ``dryrun --all --mesh pod1``,
+    each combo per rank, on the host's CPU alone. Returns the phase's
+    wall time."""
+    t_phase = time.perf_counter()
+    qwen_dryrun_checks(smi)
     dist_dryrun_memory(smi)
 
     ok, last, all_s = wait_dryrun_all(job[0])
@@ -3770,6 +3832,7 @@ def phase_dryrun(job, tmp, smi):
     ok, last, all_s = wait_dryrun_all(job[-1])
     pod1_tally(job[-1][3], ok, last, all_s)
     return time.perf_counter() - t_phase
+
 
 def tp_train_cfg():
     """Phase 34's FF step config: TP_CFG at TP_TRAIN_UNITS units, f32."""
@@ -4168,6 +4231,194 @@ def phase_tensor_parallel(gen, flush, tmp, smi):
     print(f"[34 tp] the ranks ran in {ranks_s:.1f} s; phase 34 took "
           f"{wall:.1f} s")
     return rows, calls, wall
+
+
+def chunked_no_grad(gen, flush, shape, dtype):
+    """36, without grad: the chunked route at ``shape`` in ``dtype``, the
+    options off, ``causal_skip`` and ``pv_bf16``, against
+    ``flash_attention_plain`` and the kernel, each timed beside them and
+    SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    B, Sq, Sk, H, KV, hd, causal, window = shape
+    call = dict(causal=causal, window=window)
+    q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
+    plain = fa.flash_attention_plain(q, k, v, **call)
+    kern = fa.flash_attention(q, k, v, **call)
+    kernel_ms = time_ms(lambda: fa.flash_attention(q, k, v, **call), flush)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = None
+    if window is not None:
+        qpos = torch.arange(Sq, device="cuda")[:, None]
+        kpos = torch.arange(Sk, device="cuda")[None, :]
+        mask = (qpos - kpos < window) & ((qpos >= kpos) if causal else True)
+    sdpa_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True), flush)
+    del qt, kt, vt, mask
+    outs = {}
+    tag = f"{shape} {str(dtype)[6:]}"
+    for name, kw in (("off", {}), ("causal_skip", {"causal_skip": True}),
+                     ("pv_bf16", {"pv_bf16": True})):
+        def run():
+            with torch.no_grad():
+                return attention.chunked_attention(q, k, v, impl="ref",
+                                                   **call, **kw)
+        o = run()
+        torch.cuda.synchronize()
+        check(o.dtype == dtype and o.shape == q.shape
+              and bool(torch.isfinite(o.float()).all()),
+              f"chunked attention {name} output type/shape/finite at {tag}")
+        bf16 = dtype == torch.bfloat16 or name == "pv_bf16"
+        tol = FA_TOL[torch.bfloat16 if bf16 else torch.float32]
+        e_plain, e_kern = scaled_err(o, plain), scaled_err(o, kern)
+        msg = ""
+        if dtype == torch.bfloat16 and name != "pv_bf16":
+            diff = (o.float() - plain.float()).abs()
+            lim = (FA_BF16_REL * plain.float().abs()
+                   + FA_BF16_ABS * plain.float().abs().max())
+            r = float((diff / lim).max())
+            msg = f", elementwise {r:.3f} of one bf16 rounding (<= 1)"
+            check(r <= 1.0, f"chunked attention {name} differs from plain "
+                  f"by more than one bf16 rounding at {tag}")
+        ms = time_ms(run, flush)
+        print(f"[36 chunked] {tag} {name}: err vs plain {e_plain:.3e}, vs "
+              f"kernel {e_kern:.3e} (<= {tol}){msg}; {ms:.4f} ms "
+              f"(kernel {kernel_ms:.4f}, SDPA {sdpa_ms:.4f})")
+        check(e_plain <= tol and e_kern <= tol, f"chunked attention {name} "
+              f"disagrees with plain or the kernel at {tag}")
+        outs[name] = o
+    e_skip = scaled_err(outs["causal_skip"], outs["off"])
+    print(f"[36 chunked] {tag}: causal_skip vs off {e_skip:.3e} (<= "
+          f"{SKIP_TOL})")
+    check(e_skip <= SKIP_TOL, f"causal_skip moves the chunked route at {tag}")
+
+
+def chunked_grad(gen, smi):
+    """36, under autograd: one forward and backward at CHUNK_GRAD_SHAPE
+    through the dense ``flash_attention_plain``, the chunked route and it
+    with ``causal_skip``, bf16 then f32: the median time of
+    CHUNK_GRAD_REPS calls and ``max_memory_allocated`` net of what was
+    allocated before; the f32 grads against the dense route's within
+    GRAD_TOL (the bf16 ones printed)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    B, Sq, Sk, H, KV, hd, causal, window = CHUNK_GRAD_SHAPE
+    routes = {
+        "dense": lambda q, k, v: fa.flash_attention_plain(q, k, v,
+                                                          causal=causal),
+        "chunked": lambda q, k, v: attention.chunked_attention(
+            q, k, v, causal=causal, impl="ref"),
+        "chunked causal_skip": lambda q, k, v: attention.chunked_attention(
+            q, k, v, causal=causal, impl="ref", causal_skip=True)}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = fa_inputs(gen, B, Sq, Sk, H, KV, hd, dtype)
+        ct = torch.randn(q.shape, generator=gen).to(dtype).cuda()
+        grads = {}
+        for name, fn in routes.items():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+            def step():
+                return torch.autograd.grad(fn(*leaves), leaves, ct)
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads[name] = step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            ms = []
+            for _ in range(CHUNK_GRAD_REPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            errs = [scaled_err(g, w) for g, w in zip(grads[name],
+                                                      grads["dense"])]
+            print(f"[36 grad] {CHUNK_GRAD_SHAPE} {str(dtype)[6:]} {name}: "
+                  f"forward + backward {statistics.median(ms):.3f} ms, peak "
+                  f"{peak / 2 ** 30:.3f} GiB over the inputs, on {smi}; "
+                  f"dq, dk, dv vs dense " + ", ".join(f"{e:.3e}"
+                                                       for e in errs)
+                  + (f" (<= {GRAD_TOL})" if dtype == torch.float32 else ""))
+            if dtype == torch.float32:
+                check(max(errs) <= GRAD_TOL, f"chunked route {name} grads "
+                      f"disagree with the dense route's in f32")
+            del leaves
+        del q, k, v, ct, grads
+        torch.cuda.empty_cache()
+
+
+def bwd_bf16_row(gen, flush):
+    """36: ``ff_dense_bwd`` in bf16 at BWD_BF16_SHAPE against its plain
+    version, timed beside its bound and the library's bf16 products;
+    its kernels-line row."""
+    from repro_torch.kernels import ff_dense_vjp as vjp
+
+    M, K, N = BWD_BF16_SHAPE
+    x, w, y, dy_out, dg = bwd_inputs(gen, M, K, N)
+    args = [t.bfloat16() for t in (x, w, y, dy_out)] + [dg]
+    got = vjp.ff_dense_bwd(*args)
+    want = vjp.ff_dense_bwd_plain(*args)
+    torch.cuda.synchronize()
+    check([t.dtype for t in got] == [torch.bfloat16, torch.bfloat16,
+                                     torch.float32]
+          and all(bool(torch.isfinite(t.float()).all()) for t in got),
+          "ff_dense_bwd bf16 output dtypes / finite")
+    errs = [scaled_err(a, b) for a, b in zip(got, want)]
+    tol = TOL[torch.bfloat16][0]
+    check(max(errs) <= tol, f"ff_dense_bwd bf16 disagrees with its plain "
+          f"version at {(M, K, N)}")
+    xb, wb, yb, dyb = args[:4]
+    dy = torch.where(yb > 0, dyb.float() + 2.0 * yb.float() * dg[:, None],
+                     torch.zeros((), device="cuda")).bfloat16()
+
+    def library():
+        return torch.mm(dy, wb.T), torch.mm(xb.T, dy), dy.sum(0)
+    kernel_ms = time_ms(lambda: vjp.ff_dense_bwd(*args), flush)
+    plain_ms = time_ms(lambda: vjp.ff_dense_bwd_plain(*args), flush)
+    library_ms = time_ms(library, flush)
+    # x, w, y, dy_out read in bf16 and dg in f32; dx, dw written in bf16
+    # and db in f32; the products at the f32 rate, as the kernel widens
+    nbytes = (2 * (M * K + K * N + 2 * M * N) + 4 * M
+              + 2 * (M * K + K * N) + 4 * N)
+    bound_ms, bound_by = roofline(4 * M * K * N, nbytes)
+    print(f"[36 bwd] ff_dense_bwd {(M, K, N)} bf16: dx {errs[0]:.3e}, dw "
+          f"{errs[1]:.3e}, db {errs[2]:.3e} (<= {tol}); kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": "ff_dense_bwd", "route": "cuda", "source": BWD_SOURCE,
+            "replaces": BWD_REPLACES, "shape": [M, K, N],
+            "dtype": "bfloat16", "launches": None,
+            "max_abs_err": float(max((a.float() - b.float()).abs().max()
+                                     for a, b in zip(got, want))),
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library": "torch.mm(dy, w.T) + torch.mm(x.T, dy) + dy.sum(0) "
+                       "on a precomputed bf16 dy, bf16 operands"}
+
+
+def phase_chunked(gen, smi):
+    """36. The chunked attention route on the card, without grad and
+    under autograd, and ``ff_dense_bwd`` in bf16. Returns (the bf16
+    backward's kernels-line row, the phase's wall time)."""
+    t_phase = time.perf_counter()
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for shape, dtype in CHUNK_SHAPES:
+        chunked_no_grad(gen, flush, shape, dtype)
+        torch.cuda.empty_cache()
+    chunked_grad(gen, smi)
+    row = bwd_bf16_row(gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return row, time.perf_counter() - t_phase
 
 
 def main():
@@ -4986,6 +5237,13 @@ def run(t_start, tmp):
                                if r["name"] == "flash_attention")
     rows += tp_rows
     print(f"[wall] phase 34 took {tp_s:.1f} s of "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 36. the chunked attention route, and ff_dense_bwd in bf16 ----------
+    row, chunk_s = phase_chunked(gen, smi)
+    row["launches"] = bwd_rows[1]["launches"]
+    rows.append(row)
+    print(f"[wall] phase 36 took {chunk_s:.1f} s of "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 35. isolation --------------------------------------------------------

@@ -24,7 +24,10 @@ table; no negatives).
 
 Routing: a forward that is differentiated runs with ``impl="ref"``, the
 plain attention and SSD, which autograd differentiates (the CUDA kernels
-have no backward and refuse inputs that need one, ``kernels/guard.py``).
+have no backward and refuse inputs that need one, ``kernels/guard.py``):
+attention there is the reference's chunked route
+(``models.attention.chunked_attention``), whose options ``attn_opts``
+carries.
 A forward that needs no gradient (AdaptiveNEG's, ``eval_ce``) runs under
 ``torch.no_grad()`` with the step maker's ``impl`` (default "auto": the
 CUDA kernels on the card), the knob that lets a whole fit run the plain
@@ -61,6 +64,7 @@ from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.core import ff
 from repro_torch.core.rng import TorchKey
 from repro_torch.models import blocks, common, transformer
+from repro_torch.models.attention import AttnOpts
 from repro_torch.models.mlp import NO_DIST
 
 AUX_WEIGHT = 0.01      # router load-balance weight (local per block)
@@ -277,14 +281,16 @@ class RankPart:
 # ---------------------------------------------------------------------------
 
 def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
-                       key_fn=TorchKey, impl="auto"):
+                       key_fn=TorchKey, impl="auto", attn_opts=AttnOpts()):
     """Returns step_fn(params, opt_state, batch, step) ->
     (params, opt_state, metrics), params and state updated in place.
 
     batch: {"tokens": (B, S+1) integer tensor, optional "aux": (B, T, d)
     stub frontend embeddings}. opt_state: ``optim.adam_init(params)``.
     ``impl`` routes the no-grad forward of AdaptiveNEG
-    (``cfg.ff.neg_mode == "adaptive"``).
+    (``cfg.ff.neg_mode == "adaptive"``). ``attn_opts``
+    (``attention.AttnOpts``) reaches every forward's chunked attention,
+    that one's too.
 
     Under an enabled ``dist`` (``mlp.Dist``) ``batch`` is the rank's
     block of the batch's rows over ``dist.batch_axes`` (as ``prefill``
@@ -331,7 +337,7 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
                 with torch.no_grad():
                     logits0, _ = transformer.forward(
                         params, cfg, own[:, :-1], aux=aux_in, dist=dist,
-                        impl=impl)
+                        impl=impl, attn_opts=attn_opts)
                     logits0 = part.gather(transformer.whole_logits(
                         logits0, cfg, dist))
                 neg_tok = ff.adaptive_corrupt_tokens(key, pos_tok, logits0)
@@ -389,7 +395,7 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
         g_sums = [torch.zeros((), device=dev), torch.zeros((), device=dev)]
 
         def train_units(groups, x, ctx):
-            ctx = {**ctx, "dist": dist}
+            ctx = {**ctx, "dist": dist, "attn_opts": attn_opts}
             for gi, pattern, repeat in groups:
                 group_loss = torch.zeros((), device=dev)
                 group_aux = torch.zeros((), device=dev)
@@ -500,9 +506,10 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
 # Backprop baseline (the paper's comparison target)
 # ---------------------------------------------------------------------------
 
-def make_bp_train_step(cfg, *, dist=NO_DIST, lr=1e-3):
+def make_bp_train_step(cfg, *, dist=NO_DIST, lr=1e-3, attn_opts=AttnOpts()):
     """Standard end-to-end cross-entropy training step, through the plain
-    route (every forward here is differentiated). batch as
+    route (every forward here is differentiated; ``attn_opts`` its
+    chunked attention's options). batch as
     ``make_ff_train_step`` takes it, its "aux" passed to the forward;
     ``dist`` as there: each rank runs its block of the batch's rows (the
     batch it is given), the CE of its vocab block of the logits
@@ -515,7 +522,8 @@ def make_bp_train_step(cfg, *, dist=NO_DIST, lr=1e-3):
         tp = trainable(params)
         with torch.enable_grad():
             logits, aux_l = transformer.forward(tp, cfg, inp, aux=aux,
-                                                dist=dist, impl="ref")
+                                                dist=dist, impl="ref",
+                                                attn_opts=attn_opts)
             ce = vocab_ce(logits, labels, transformer.vocab_block(
                 cfg, dist, logits.shape[-1]))
             loss = torch.mean(ce) / part.n \

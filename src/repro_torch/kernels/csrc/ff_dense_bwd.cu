@@ -1,5 +1,5 @@
 // Fused backward of the Forward-Forward dense layer for Hopper (sm_90a),
-// f32 FMA.
+// f32 FMA, on f32 or bf16 operands.
 //
 // With y = relu(x @ w + b) and g = sum_n y^2, the cotangents (dy_out, dg)
 // of (y, g) combine into one post-activation gradient
@@ -10,8 +10,20 @@
 //
 //   dx = dy @ w^T  (M, K)     dw = x^T @ dy  (K, N)     db = sum_m dy  (N,)
 //
-// x (M, K), w (K, N), y and dy_out (M, N), dg (M,): contiguous, row-major,
-// all f32.
+// x (M, K), w (K, N), y and dy_out (M, N): contiguous, row-major, all f32
+// or all bf16; dg (M,) f32 (the forward's g is f32 in both). dx comes out
+// in the operands' dtype, dw too, db in f32: the reference's out shapes.
+//
+// bf16: every operand is widened to f32 as it is loaded, and everything
+// after that is the f32 path's: the same FMA products, grad_x split and
+// slice sum in slice order. dx and dw are rounded to bf16 once, as they
+// are stored. The reference rounds dw to bf16 after every 128-row block
+// of M (its dw block accumulates in w's dtype across the grid's M steps),
+// so the two agree exactly for M <= 128, the training shapes, and this
+// kernel rounds less above that. The bf16 tiles are loaded with plain
+// loads (four bf16 as one 8-byte load where aligned) and widened into the
+// same f32 shared-memory tiles the f32 path fills with cp.async; only the
+// f32 path overlaps its loads with the products.
 //
 // Replaces repro/kernels/ff_dense_vjp.py::ff_dense_bwd (the Pallas
 // `_bwd_kernel`). Like it, this kernel never writes dy to device memory:
@@ -51,16 +63,19 @@
 // exactly one writer and every sum runs in a fixed order: no atomics, so
 // the result is deterministic run to run. Ragged M, K and N edges are
 // zero-filled in the loads and skipped in the stores; zero rows and
-// columns add nothing to any product (a zero y gives dy = 0). Rows of 16
-// bytes are copied as float4s when N and K are multiples of 4 and every
-// such pointer is 16-byte aligned, else one float at a time.
+// columns add nothing to any product (a zero y gives dy = 0). Four
+// elements a copy (a float4, or four bf16 in 8 bytes) when N and K are
+// multiples of 4 and every such pointer is 16-byte aligned, else one
+// element at a time.
 //
 // Bound: at the training shapes (M in {64, 128}, K in {784, 2000},
 // N = 2000) the two products do 4*M*K*N flops on ~36 MB at most, so the
 // kernel is bound by the card's f32 FMA rate (67 TFLOP/s on an H100 SXM,
 // 0.031 ms at (128, 2000, 2000)), not by memory. It multiplies in full
-// f32 with FMA: no TF32 or 3xTF32 tensor cores yet.
+// f32 with FMA: no TF32 or 3xTF32 tensor cores yet. bf16 halves the
+// bytes and keeps the same f32 operations, so it has the same bound.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -86,11 +101,36 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
                  "l"(src), "r"(in ? 4 : 0));
 }
 
-// A ROWS x COLS tile at (row0, col0) of src (ld floats a row) into shared
-// memory with SLD floats a row; what lies at or past (row_end, col_end) is
-// zero-filled. With VEC = 4, col0 and col_end are multiples of 4.
-template <int ROWS, int COLS, int SLD, int VEC>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// VEC elements of T at src, widened to f32, into dst; zeros when !in.
+template <int VEC>
+__device__ __forceinline__ void widen(float* dst, const bf16* src, bool in) {
+  if constexpr (VEC == 4) {
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (in) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(src);
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+      f = make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+    *reinterpret_cast<float4*>(dst) = f;
+  } else {
+    *dst = in ? __bfloat162float(*src) : 0.f;
+  }
+}
+
+// A ROWS x COLS tile at (row0, col0) of src (ld elements a row) into
+// shared memory as f32 with SLD floats a row; what lies at or past
+// (row_end, col_end) is zero-filled. With VEC = 4, col0 and col_end are
+// multiples of 4. f32 goes through cp.async; bf16 is loaded and widened.
+template <int ROWS, int COLS, int SLD, int VEC, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           size_t ld, int row0, int row_end,
                                           int col0, int col_end, int tid) {
   constexpr int CPR = COLS / VEC;   // copies a row
@@ -98,8 +138,33 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   for (int e = tid; e < ROWS * CPR; e += THREADS) {
     const int r = e / CPR, c = (e % CPR) * VEC;
     const bool in = row0 + r < row_end && col0 + c < col_end;
-    const float* g = in ? src + (size_t)(row0 + r) * ld + col0 + c : src;
-    cp_async<VEC>(dst + r * SLD + c, g, in);
+    const T* g = in ? src + (size_t)(row0 + r) * ld + col0 + c : src;
+    if constexpr (std::is_same<T, float>::value)
+      cp_async<VEC>(dst + r * SLD + c, g, in);
+    else
+      widen<VEC>(dst + r * SLD + c, g, in);
+  }
+}
+
+// VEC f32 values to dst in T (bf16: rounded to nearest).
+template <int VEC>
+__device__ __forceinline__ void store(float* dst, const float (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *dst = v[0];
+}
+template <int VEC>
+__device__ __forceinline__ void store(bf16* dst, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+    raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst) = raw;
+  } else {
+    *dst = __float2bfloat16(v[0]);
   }
 }
 
@@ -126,10 +191,10 @@ constexpr int STAGE = (2 * BM + BN) * LD;   // y, dy (over dy_out), w
 constexpr size_t SMEM = (size_t)(NS * STAGE + BM) * sizeof(float);  // + dg
 }  // namespace gx
 
-template <int VEC>
+template <int VEC, typename T>
 __global__ void __launch_bounds__(THREADS, 3)
-grad_x(const float* __restrict__ w, const float* __restrict__ y,
-       const float* __restrict__ dy_out, const float* __restrict__ dg,
+grad_x(const T* __restrict__ w, const T* __restrict__ y,
+       const T* __restrict__ dy_out, const float* __restrict__ dg,
        float* __restrict__ part, int M, int K, int N, int L) {
   using namespace gx;
   extern __shared__ __align__(16) float smem[];
@@ -213,10 +278,11 @@ grad_x(const float* __restrict__ w, const float* __restrict__ y,
   }
 }
 
-// 2. dx = sum_s part[s], in slice order; VEC elements a thread.
-template <int VEC>
+// 2. dx = sum_s part[s], in slice order, stored in T; VEC elements a
+//    thread.
+template <int VEC, typename T>
 __global__ void sum_slices(const float* __restrict__ part,
-                           float* __restrict__ dx, int S, size_t MK) {
+                           T* __restrict__ dx, int S, size_t MK) {
   using V = typename std::conditional<VEC == 4, float4, float>::type;
   const V* p = reinterpret_cast<const V*>(part);
   const size_t n = MK / VEC;
@@ -225,7 +291,7 @@ __global__ void sum_slices(const float* __restrict__ part,
     V acc = p[i];
 #pragma unroll 4
     for (int s = 1; s < S; ++s) acc = add(acc, p[s * n + i]);
-    reinterpret_cast<V*>(dx)[i] = acc;
+    store<VEC>(dx + i * VEC, reinterpret_cast<const float(&)[VEC]>(acc));
   }
 }
 
@@ -240,11 +306,11 @@ constexpr int STAGE = BK * (BM + 2 * BN) + BK;   // x, y, dy (over dy_out), dg
 constexpr size_t SMEM = (size_t)NS * STAGE * sizeof(float);
 }  // namespace gw
 
-template <int VEC>
+template <int VEC, typename T>
 __global__ void __launch_bounds__(THREADS, 4)
-grad_w(const float* __restrict__ x, const float* __restrict__ y,
-       const float* __restrict__ dy_out, const float* __restrict__ dg,
-       float* __restrict__ dw, float* __restrict__ db, int M, int K, int N) {
+grad_w(const T* __restrict__ x, const T* __restrict__ y,
+       const T* __restrict__ dy_out, const float* __restrict__ dg,
+       T* __restrict__ dw, float* __restrict__ db, int M, int K, int N) {
   using namespace gw;
   extern __shared__ __align__(16) float smem[];
 
@@ -263,7 +329,8 @@ grad_w(const float* __restrict__ x, const float* __restrict__ y,
     load_tile<BK, BN, BN, VEC>(st + BK * BM, y, N, mb, M, n0, N, tid);
     load_tile<BK, BN, BN, VEC>(st + BK * (BM + BN), dy_out, N, mb, M, n0, N,
                                tid);
-    load_tile<BK, 1, 1, 1>(st + BK * (BM + 2 * BN), dg, 1, mb, M, 0, 1, tid);
+    load_tile<BK, 1, 1, 1, float>(st + BK * (BM + 2 * BN), dg, 1, mb, M, 0,
+                                  1, tid);
   };
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
@@ -315,16 +382,15 @@ grad_w(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int n = n0 + hf * 32 + 4 * tx;
-      float* dst = dw + (size_t)k * N + n;
+      T* dst = dw + (size_t)k * N + n;
       if (VEC == 4) {
         if (n < N)
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(acc[i][4 * hf], acc[i][4 * hf + 1],
-                          acc[i][4 * hf + 2], acc[i][4 * hf + 3]);
+          store<4>(dst, {acc[i][4 * hf], acc[i][4 * hf + 1],
+                         acc[i][4 * hf + 2], acc[i][4 * hf + 3]});
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (n + j < N) dst[j] = acc[i][4 * hf + j];
+          if (n + j < N) store<1>(dst + j, {acc[i][4 * hf + j]});
       }
     }
   }
@@ -338,31 +404,33 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int VEC>
-cudaError_t launch(const float* x, const float* w, const float* y,
-                   const float* dyo, const float* dg, float* dx, float* dw,
-                   float* db, float* part, int M, int K, int N, int S, int L,
-                   int parts, cudaStream_t s) {
+template <int VEC, typename T>
+cudaError_t launch(const T* x, const T* w, const T* y, const T* dyo,
+                   const float* dg, T* dx, T* dw, float* db, float* part,
+                   int M, int K, int N, int S, int L, int parts,
+                   cudaStream_t s) {
   cudaError_t err;
   if (parts & 1) {
-    if ((err = allow_smem(grad_x<VEC>, gx::SMEM)) != cudaSuccess) return err;
+    if ((err = allow_smem(grad_x<VEC, T>, gx::SMEM)) != cudaSuccess)
+      return err;
     const dim3 grid((K + gx::BN - 1) / gx::BN, (M + gx::BM - 1) / gx::BM, S);
-    grad_x<VEC><<<grid, THREADS, gx::SMEM, s>>>(w, y, dyo, dg, part, M, K, N,
-                                                L);
+    grad_x<VEC, T><<<grid, THREADS, gx::SMEM, s>>>(w, y, dyo, dg, part, M, K,
+                                                   N, L);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (parts & 2) {
     // K % 4 == 0 with VEC = 4, so M * K is a multiple of 4 too
     const size_t MK = (size_t)M * K, n = (MK / VEC + 255) / 256;
     const int blocks = static_cast<int>(n < 132 * 8 ? n : 132 * 8);
-    sum_slices<VEC><<<blocks, 256, 0, s>>>(part, dx, S, MK);
+    sum_slices<VEC, T><<<blocks, 256, 0, s>>>(part, dx, S, MK);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (parts & 4) {
-    if ((err = allow_smem(grad_w<VEC>, gw::SMEM)) != cudaSuccess) return err;
+    if ((err = allow_smem(grad_w<VEC, T>, gw::SMEM)) != cudaSuccess)
+      return err;
     const dim3 grid((N + gw::BN - 1) / gw::BN, (K + gw::BM - 1) / gw::BM);
-    grad_w<VEC><<<grid, THREADS, gw::SMEM, s>>>(x, y, dyo, dg, dw, db, M, K,
-                                                N);
+    grad_w<VEC, T><<<grid, THREADS, gw::SMEM, s>>>(x, y, dyo, dg, dw, db, M,
+                                                   K, N);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -378,29 +446,37 @@ extern "C" {
 
 // Three launches on `stream`, those whose bit is set in `parts`: 1
 // grad_x (into part, S slices of L columns of N), 2 sum_slices (part ->
-// dx), 4 grad_w (dw and db); the wrapper passes 7. part holds S * M * K
-// floats. Returns cudaGetLastError() after them (0 = success). Does not
-// synchronise.
+// dx), 4 grad_w (dw and db); the wrapper passes 7. dtype: 0 = float32,
+// 1 = bfloat16, for x, w, y, dy_out, dx and dw; dg and db are f32. part
+// holds S * M * K floats. Returns cudaGetLastError() after them (0 =
+// success). Does not synchronise.
 int ff_dense_bwd_launch(const void* x, const void* w, const void* y,
                         const void* dy_out, const void* dg, void* dx,
                         void* dw, void* db, void* part, int M, int K, int N,
-                        int S, int L, int parts, void* stream) {
+                        int S, int L, int parts, int dtype, void* stream) {
   // the slices must be non-empty, stage-aligned and cover N exactly
   if (M <= 0 || K <= 0 || N <= 0 || S <= 0 || S > 65535 || L <= 0 ||
-      L % gx::BK || (long long)(S - 1) * L >= N || (long long)S * L < N)
+      L % gx::BK || (long long)(S - 1) * L >= N || (long long)S * L < N ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the operands read, and dw, dx and part written, as float4s
+  // the operands read, and dw, dx and part written, 4 elements at a time
   const void* ptrs[] = {x, w, y, dy_out, dw, dx, part};
   bool vec4 = N % 4 == 0 && K % 4 == 0;
   for (const void* p : ptrs) vec4 = vec4 && aligned16(p);
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto o = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      vec4 ? launch<4>(f(x), f(w), f(y), f(dy_out), f(dg), o(dx), o(dw),
-                       o(db), o(part), M, K, N, S, L, parts, s)
-           : launch<1>(f(x), f(w), f(y), f(dy_out), f(dg), o(dx), o(dw),
-                       o(db), o(part), M, K, N, S, L, parts, s);
+  const float* g = static_cast<const float*>(dg);
+  float* b = static_cast<float*>(db);
+  float* sc = static_cast<float*>(part);
+  auto run = [&](auto tag) {
+    using T = decltype(tag);
+    auto c = [](const void* p) { return static_cast<const T*>(p); };
+    auto o = [](void* p) { return static_cast<T*>(p); };
+    return vec4 ? launch<4, T>(c(x), c(w), c(y), c(dy_out), g, o(dx), o(dw),
+                               b, sc, M, K, N, S, L, parts, s)
+                : launch<1, T>(c(x), c(w), c(y), c(dy_out), g, o(dx), o(dw),
+                               b, sc, M, K, N, S, L, parts, s);
+  };
+  const cudaError_t err = dtype == 0 ? run(float{}) : run(bf16{});
   return static_cast<int>(err);
 }
 

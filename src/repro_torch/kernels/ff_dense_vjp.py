@@ -15,7 +15,10 @@ with db), f32 FMA from a 2-stage ``cp.async`` ring, dy rebuilt in shared
 memory from the raw y and dy_out tiles and never written to device
 memory. ``_grad_x_split`` picks S. ``LAUNCHES`` counts calls. CPU
 tensors take ``ff_dense_bwd_plain``, because the kernel cannot run
-there.
+there. x, w, y and dy_out are all f32 or all bf16, dg f32 (the forward's
+g is f32 in both); either way the backward computes in f32 and returns
+dx in x's dtype, dw in w's and db in f32, as the reference's
+``_bwd_kernel`` does.
 
 ``ff_dense_vjp(x, w, b)`` and ``ff_dense_norm_vjp(x, w, b)`` are the
 reference's two custom_vjps: the forward is the ``ff_dense`` kernel
@@ -52,13 +55,15 @@ GRAD_X_MIN_SLICE = 128
 # The launch bits of ff_dense_bwd_launch: grad_x, sum_slices, grad_w.
 GRAD_X, SUM_SLICES, GRAD_W = 1, 2, 4
 
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
 
 def ff_dense_bwd_plain(x, w, y, dy_out, dg):
     """The plain PyTorch version, in the reference's op order: rebuild
-    dy with a select (never a mask product: dg may be NaN on a dead
-    row), then the three products."""
+    dy in f32 with a select (never a mask product: dg may be NaN on a
+    dead row), then the three products in f32; dx in x's dtype, dw in
+    w's, db in f32."""
     dy = dy_out.float() + 2.0 * y.float() * dg[:, None]
     dy = torch.where(y > 0, dy, torch.zeros((), dtype=dy.dtype,
                                             device=dy.device))
@@ -87,7 +92,7 @@ def _library():
     if _lib is None:
         lib = ff_dense_kernel._library()
         lib.ff_dense_bwd_launch.argtypes = ([ctypes.c_void_p] * 9
-                                            + [ctypes.c_int] * 6
+                                            + [ctypes.c_int] * 7
                                             + [ctypes.c_void_p])
         lib.ff_dense_bwd_launch.restype = ctypes.c_int
         _lib = lib
@@ -106,11 +111,13 @@ def _check(x, w, y, dy_out, dg):
             f"ff_dense_bwd shape mismatch: x {tuple(x.shape)}, w "
             f"{tuple(w.shape)}, y {tuple(y.shape)}, dy_out "
             f"{tuple(dy_out.shape)}, dg {tuple(dg.shape)}")
-    dtypes = {t.dtype for t in (x, w, y, dy_out, dg)}
-    if dtypes != {torch.float32}:
-        raise TypeError(f"ff_dense_bwd takes float32 operands only (the "
-                        f"training path is f32); got "
-                        f"{sorted(str(d) for d in dtypes)}")
+    dtypes = {t.dtype for t in (x, w, y, dy_out)}
+    if (len(dtypes) != 1 or x.dtype not in _DTYPE_CODES
+            or dg.dtype != torch.float32):
+        raise TypeError(f"ff_dense_bwd takes x, w, y and dy_out all float32 "
+                        f"or all bfloat16, and dg float32; got x {x.dtype}, "
+                        f"w {w.dtype}, y {y.dtype}, dy_out {dy_out.dtype}, "
+                        f"dg {dg.dtype}")
     devices = {t.device for t in (x, w, y, dy_out, dg)}
     if len(devices) != 1:
         raise ValueError(f"ff_dense_bwd operands on different devices: "
@@ -133,14 +140,14 @@ def _launch(x, w, y, dy_out, dg, parts=GRAD_X | SUM_SLICES | GRAD_W):
     lib = _library()
     dev = x.device
     with torch.cuda.device(dev):
-        dx = torch.empty((M, K), dtype=torch.float32, device=dev)
-        dw = torch.empty((K, N), dtype=torch.float32, device=dev)
+        dx = torch.empty((M, K), dtype=x.dtype, device=dev)
+        dw = torch.empty((K, N), dtype=w.dtype, device=dev)
         db = torch.empty((N,), dtype=torch.float32, device=dev)
         part = torch.empty((S, M, K), dtype=torch.float32, device=dev)
         err = lib.ff_dense_bwd_launch(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), dy_out.data_ptr(),
             dg.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            part.data_ptr(), M, K, N, S, L, parts,
+            part.data_ptr(), M, K, N, S, L, parts, _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ff_dense_bwd kernel launch failed: "
@@ -150,7 +157,8 @@ def _launch(x, w, y, dy_out, dg, parts=GRAD_X | SUM_SLICES | GRAD_W):
 
 def ff_dense_bwd(x, w, y, dy_out, dg):
     """(x (M, K), w (K, N), y (M, N), dL/dy (M, N), dL/dg (M,)) ->
-    (dx (M, K), dw (K, N), db (N,)), all f32.
+    (dx (M, K) in x's dtype, dw (K, N) in w's, db (N,) f32); x, w, y and
+    dL/dy all f32 or all bf16, dL/dg f32.
 
     CUDA tensors launch the kernel (three CUDA launches, or raise); CPU
     tensors take ``ff_dense_bwd_plain``.
@@ -194,7 +202,10 @@ class FFDenseNorm(torch.autograd.Function):
     u = 1 / (s + eps), the normalizer's chain rule folds the cotangents
     (dyn, dg) into ``dy_out' = dyn * u`` and
     ``dg' = dg - (dyn . y) * u^2 / (2s)``, and ``ff_dense_bwd`` runs on
-    them with the raw ``y = yn * (s + eps)``. On an all-dead row (g = 0)
+    them with the raw ``y = yn * (s + eps)``. Those two come out f32 (g
+    is f32); with bf16 operands they are rounded to bf16 for the kernel,
+    which takes its four operands in one dtype (the reference's kernel
+    widens f32 ones as they are). On an all-dead row (g = 0)
     dg' is 0/0 = NaN; the kernel's select on y > 0 drops it, so such a
     row gets an exact zero gradient (perf_opt uses no g: its dg is the
     materialized zero)."""
@@ -217,7 +228,9 @@ class FFDenseNorm(torch.autograd.Function):
         rowdot = torch.sum(dyn * yn, dim=-1) * scale        # = dyn . y
         dg_eff = dg - rowdot * u * u / (2.0 * s)
         dy_out_eff = dyn * u[:, None]
-        dx, dw, db = ff_dense_bwd(x, w, y, dy_out_eff, dg_eff.contiguous())
+        dx, dw, db = ff_dense_bwd(x, w, y.to(x.dtype),
+                                  dy_out_eff.to(x.dtype),
+                                  dg_eff.contiguous())
         return dx, dw, db.to(ctx.b_dtype), None
 
 

@@ -31,13 +31,15 @@ what the reference's rules give rank 0 for every argument,
 ``rank_argument_bytes`` what the rank holds (equal; ``argument_bytes``
 gives both without a trace), and ``rules_param_bytes`` /
 ``rank_param_bytes`` the params' and Adam state's part of each
-(equal). ``--opts batch_fold_model`` folds "model"
-into the batch axes (dense configs only: every split leaf is then
-gathered where it is read); the reference's ``causal_skip`` and
-``pv_bf16`` are not ported and raise. Nothing here sets process-wide
-state beyond the fake group, destroyed after each trace (the
-reference's first lines write ``XLA_FLAGS``); it runs on the CPU with
-no GPU.
+(equal). ``--opts`` takes the reference's §Perf options:
+``batch_fold_model`` folds "model" into the batch axes (a mesh and a
+dense config only: every split leaf is then gathered where it is read);
+``causal_skip`` and ``pv_bf16`` act on the chunked attention the plain
+route runs (``models.attention.AttnOpts``, passed to the step as an
+argument, where the reference sets module globals), with or without a
+mesh. Nothing here sets process-wide state beyond the fake group,
+destroyed after each trace (the reference's first lines write
+``XLA_FLAGS``); it runs on the CPU with no GPU.
 
 The terms use the H100 SXM's datasheet figures, as
 ``chip_smoke.py::bound`` does: bf16 989e12 FLOP/s, HBM 3.35e12 B/s, and
@@ -45,10 +47,10 @@ NVLink 450e9 B/s each way for the collective term.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
-      --shape train_4k [--mesh pod1 [--rank R] [--opts batch_fold_model]]
-      [--out DIR]
+      --shape train_4k [--opts causal_skip,pv_bf16] [--mesh pod1
+      [--rank R] [--opts batch_fold_model,causal_skip,pv_bf16]] [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--jobs 8]
-      [--mesh pod1]
+      [--mesh pod1] [--opts causal_skip,pv_bf16]
 """
 from __future__ import annotations
 
@@ -71,6 +73,7 @@ from repro_torch.core import train as train_lib
 from repro_torch.launch import op_analysis, specs as specs_lib
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer
+from repro_torch.models.attention import AttnOpts
 from repro_torch.models.mlp import NO_DIST, Dist
 
 # H100 SXM (NVIDIA's datasheet, dense, per card)
@@ -100,16 +103,10 @@ def mesh_sizes(mesh):
 
 def check_opts(cfg, opts, sizes):
     """Raise ``ValueError`` for an option the port does not take with
-    this config and mesh: ``causal_skip`` and ``pv_bf16`` are not ported,
-    ``batch_fold_model`` needs a mesh and a dense config."""
+    this config and mesh: an unknown one, or ``batch_fold_model`` without
+    a mesh or on a MoE config (``causal_skip`` and ``pv_bf16`` go with
+    any)."""
     for opt in opts:
-        if opt in ("causal_skip", "pv_bf16"):
-            raise ValueError(
-                f"{opt} is not ported: the reference's causal_skip and "
-                "pv_bf16 act on its chunked pure-JAX attention, which the "
-                "port has no counterpart for (its attention calls "
-                "ops.flash_attention, or one masked block with offsets), so "
-                "the option has nothing to act on")
         if opt not in OPTS:
             raise ValueError(f"unknown option {opt!r}; the reference's are "
                              f"{OPTS}")
@@ -168,19 +165,29 @@ def _local_bytes(pairs, mesh):
                * t.element_size() for t, s in pairs)
 
 
-def step_fn(cfg, kind, dist=NO_DIST, lr=1e-3):
+def attn_opts(opts):
+    """The chunked attention's options among ``opts``."""
+    return AttnOpts(causal_skip="causal_skip" in opts,
+                    pv_bf16="pv_bf16" in opts)
+
+
+def step_fn(cfg, kind, dist=NO_DIST, lr=1e-3, opts=()):
     """The step the dry run traces for ``kind`` under ``dist``, on the
-    plain route, as a function of the arguments ``_args`` gives (the
-    train step's ``(params, opt, batch, step)``, prefill's ``(params,
-    batch)``, decode's ``(params, caches, tokens, pos)``)."""
+    plain route with ``opts``' attention options (``attn_opts``), as a
+    function of the arguments ``_args`` gives (the train step's
+    ``(params, opt, batch, step)``, prefill's ``(params, batch)``,
+    decode's ``(params, caches, tokens, pos)``: decode attention takes
+    no option, as the reference's ``decode_attention`` has none)."""
     if kind == "train":
         return train_lib.make_ff_train_step(cfg, dist=dist, lr=lr,
-                                            impl="ref")
+                                            impl="ref",
+                                            attn_opts=attn_opts(opts))
     if kind == "prefill":
         def prefill(params, batch):
             return transformer.prefill(params, cfg, batch["tokens"],
                                        aux=batch.get("aux"), dist=dist,
-                                       last_only=True, impl="ref")
+                                       last_only=True, impl="ref",
+                                       attn_opts=attn_opts(opts))
         return prefill
 
     def decode(params, caches, tokens, pos):
@@ -289,14 +296,15 @@ def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
     args, pairs = _args(cfg, shape, kind, mode, sizes_mesh)
     meta = {"arch": cfg.name, "shape": shape.name, "kind": kind,
             "mesh": sizes, "chips": math.prod(sizes.values()),
-            "params": transformer.param_count(args[0])}
+            "params": transformer.param_count(args[0]), "opts": list(opts)}
     if not sizes:
         with mode:
-            out, an = op_analysis.trace(step_fn(cfg, kind, NO_DIST, lr), *args)
+            out, an = op_analysis.trace(
+                step_fn(cfg, kind, NO_DIST, lr, opts), *args)
         return out, an, meta
     ref_bytes = _local_bytes(pairs, sizes_mesh)
     n_state = len(tree_leaves(args[:2] if kind == "train" else args[0]))
-    meta.update(rank=rank, opts=list(opts))
+    meta.update(rank=rank)
     with fake_group(sizes, rank) as dmesh:
         d = make_dist(cfg, dmesh,
                       batch_fold_model="batch_fold_model" in opts)
@@ -304,7 +312,8 @@ def trace_combo(cfg, shape, *, mesh=None, rank=0, opts=(), step_kind=None,
         held = _tensor_bytes(args[:2] if kind == "train" else args[0])
         rank_bytes = _tensor_bytes(args)
         with mode:
-            out, an = op_analysis.trace(step_fn(cfg, kind, d, lr), *args)
+            out, an = op_analysis.trace(step_fn(cfg, kind, d, lr, opts),
+                                        *args)
     mem = an["memory"]
     mem["per_device_argument_bytes"] = ref_bytes
     mem["rank_argument_bytes"] = rank_bytes
@@ -473,8 +482,9 @@ def main(argv=None):
     ap.add_argument("--rank", type=int, default=0,
                     help="the rank whose step a --mesh run traces")
     ap.add_argument("--opts", default="",
-                    help="comma-separated §Perf options of the reference's "
-                         "(batch_fold_model; causal_skip and pv_bf16 raise)")
+                    help="comma-separated §Perf options of the reference's: "
+                         "batch_fold_model (with --mesh), causal_skip, "
+                         "pv_bf16")
     ap.add_argument("--out", default=None,
                     help="write one JSON file per combination here")
     ap.add_argument("--jobs", type=int, default=1,

@@ -1,23 +1,48 @@
 """Attention (own copy of ``repro.models.attention``): the full-sequence
-path for prefill, and the one-token path against a cache for decode.
+path for train and prefill, and the one-token path against a cache for
+decode.
 
-The reference runs its full-sequence path as a pure-JAX chunked online
-softmax and validates its Pallas kernel against it; the port routes the
-same function through the kernel op itself (``ops.flash_attention``:
-the hand-written CUDA kernel on the card, the plain version on the
-CPU), except with position offsets, which neither kernel takes: those
-run the plain online softmax here, whose merge the ring attention body
-(``models.ring_attention``) shares. Decode attention is one query row
-against the cache and stays plain torch, as the reference's pure-jnp
-``decode_attention`` is.
+The full-sequence path takes one of two routes (``chunked_attention``).
+Where ``impl`` resolves to the hand-written CUDA kernel and both position
+offsets are 0, the call goes to ``ops.flash_attention``: the kernel, on
+the card, without autograd. Every other call runs the reference's own
+route, its pure-JAX chunked online softmax: q chunks of 512, k chunks of
+1024, peak score memory O(S·chunk), with its §Perf options
+``causal_skip`` and ``pv_bf16`` (``AttnOpts``). That is the CPU, every
+differentiated forward (the trainers pass ``impl="ref"``), the dry run's
+fake trace, and nonzero offsets, which no kernel takes. The ring
+attention body (``models.ring_attention``) shares the online-softmax
+merge. Decode attention is one query row against the cache and stays
+plain torch, as the reference's pure-jnp ``decode_attention`` is.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, registry
 
 NEG_INF = -1e30
+# the reference's chunk sizes (``chunked_attention``'s defaults)
+Q_CHUNK, K_CHUNK = 512, 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnOpts:
+    """The reference's §Perf options of its chunked attention, which its
+    dry run sets from ``--opts`` (module globals there; an argument the
+    entry points carry in ``ctx`` here). They act on the chunked route
+    only, never on the kernel, as the reference's act on its pure-JAX
+    route and never on its Pallas kernel.
+
+    ``causal_skip``: run only the visible (q chunk, k chunk) pairs (the
+    causal triangle and the window band), for causal self-attention at
+    offset 0 (the blocks pass it nowhere else). ``pv_bf16``: P and V
+    rounded to bf16 for the P·V product, summed in f32 to an f32
+    result."""
+    causal_skip: bool = False
+    pv_bf16: bool = False
 
 
 def _mask(q_pos, k_pos, causal, window):
@@ -38,22 +63,67 @@ def scaled_queries(q, KV):
 
 def block_scores(qf, k, q_pos, k_pos, causal, window):
     """Masked f32 scores (B, KV, G, Sq, Sk) of scaled queries against one
-    block of keys, masked by global positions."""
+    block of keys, masked by global positions (in place: one buffer)."""
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
-    msk = _mask(q_pos, k_pos, causal, window)
-    return torch.where(msk, s, torch.full((), NEG_INF, device=s.device))
+    return s.masked_fill_(~_mask(q_pos, k_pos, causal, window), NEG_INF)
 
 
-def merge_block(m, l, acc, s, v):
+class _PVBf16(torch.autograd.Function):
+    """P (B, KV, G, Sq, Sk) times V (B, Sk, KV, hd), both bf16, summed in
+    f32 to an f32 result: the reference's ``einsum(..., preferred_element_
+    type=float32)`` on bf16 operands. The products of two bf16 values are
+    exact in f32, so the f32 product of the widened operands is that
+    function. Autograd keeps the bf16 operands, not f32 copies; the
+    cotangents come back rounded to bf16, as JAX's transpose of that
+    einsum rounds them to its operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, p, v):
+        ctx.save_for_backward(p, v)
+        return torch.einsum("bkgqs,bskd->bkgqd", p.float(), v.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        dp = dv = None
+        if ctx.needs_input_grad[0]:
+            dp = torch.einsum("bkgqd,bskd->bkgqs", g, v.float()).to(p.dtype)
+        if ctx.needs_input_grad[1]:
+            dv = torch.einsum("bkgqs,bkgqd->bskd", p.float(), g).to(v.dtype)
+        return dp, dv
+
+
+def _pv(p, v, pv_bf16):
+    """P @ V, f32 out: on f32 operands, or with ``pv_bf16`` on bf16 ones
+    (the reference's ``_pv``). Where no gradient is wanted, P's f32
+    values are spent once ``merge_block`` has summed them, so P is
+    rounded to bf16 values in place, and the product reads it with no
+    f32 copy."""
+    if not pv_bf16:
+        return torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    if p.requires_grad or v.requires_grad:
+        return _PVBf16.apply(p.to(torch.bfloat16), v.to(torch.bfloat16))
+    return torch.einsum("bkgqs,bskd->bkgqd", p.copy_(p.to(torch.bfloat16)),
+                        v.to(torch.bfloat16).float())
+
+
+def merge_block(m, l, acc, s, v, *, pv_bf16=False):
     """Online-softmax merge of one block of scores ``s`` (B, KV, G, Sq,
     Sk) and its values ``v`` (B, Sk, KV, hd) into the running max ``m``,
-    sum ``l`` and accumulator ``acc``, all f32."""
-    m_new = torch.maximum(m, s.amax(dim=-1))
-    p = torch.exp(s - m_new[..., None])
+    sum ``l`` and accumulator ``acc``, all f32 (``pv_bf16``: the P·V
+    product as ``_pv``'s). ``s`` is overwritten with the block's P, so a
+    block holds one score buffer. The running max is differentiated, as
+    JAX differentiates the reference's: ``torch.max`` over the keys
+    keeps its argmax for the backward, not the scores (``amax`` would
+    keep them), so autograd keeps each block's P and nothing else of
+    the size of its scores. (The two split a gradient among tied maxima
+    differently; a tie needs two equal f32 scores, or a row masked
+    whole, whose terms the correction zeroes.)"""
+    m_new = torch.maximum(m, torch.max(s, dim=-1).values)
+    p = s.sub_(m_new[..., None]).exp_()
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(dim=-1)
-    pv = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
-    return m_new, l_new, acc * corr[..., None] + pv
+    return m_new, l_new, acc * corr[..., None] + _pv(p, v, pv_bf16)
 
 
 def softmax_state(qf):
@@ -71,26 +141,97 @@ def finish(l, acc, dtype):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * G, hd)
 
 
+def chunk_size(chunk, S):
+    """The reference's chunk-size rule: ``min(chunk, S)``, and the whole
+    length where that does not divide S."""
+    c = min(chunk, S)
+    return S if S % c else c
+
+
+def visible_q_chunks(j, nq, qc, kc, causal, window):
+    """[lo, hi): the q chunks that the reference's ``_triangle_attention``
+    pairs with k chunk ``j`` (q chunks of ``qc`` rows, k chunks of
+    ``kc``): the pair is skipped where the k chunk lies wholly above the
+    causal diagonal (``k_lo > q_hi``) or wholly below the window's band
+    (``k_hi <= q_lo - window``). Both rules are monotone in the q chunk,
+    so the visible ones are contiguous (possibly none: lo == hi)."""
+    k_lo, k_hi = j * kc, j * kc + kc - 1
+    seen = [i for i in range(nq)
+            if not (causal and k_lo > i * qc + qc - 1)
+            and not (window is not None and k_hi <= i * qc - window)]
+    if not seen:
+        return 0, 0
+    assert seen == list(range(seen[0], seen[-1] + 1)), seen
+    return seen[0], seen[-1] + 1
+
+
+def _chunked(q, k, v, *, causal, window, q_offset, k_offset, q_chunk,
+             k_chunk, causal_skip, pv_bf16):
+    """The reference's chunked route, one k chunk at a time over every q
+    chunk that reads it (all of them, or with ``causal_skip`` at offsets
+    0 the visible ones). Each q row sees the merges of the reference's
+    double scan, k chunks in ascending order, so the values are its. One
+    score buffer is alive at a time, (B, KV, G, Sq, k_chunk) f32: O(S·
+    chunk), as the reference's, whose (B, KV, G, q_chunk, k_chunk)
+    buffer is Sq / q_chunk times smaller, since its scan runs the q
+    chunks one at a time where this loop runs them in one op (nk Python
+    steps a layer, not nq·nk). Under autograd every visible chunk's P
+    is kept, as the reference's scan keeps its residuals. The state of
+    the q rows a chunk skips is carried over by concatenation, not
+    written in place, so autograd may keep it."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qc, kc = chunk_size(q_chunk, Sq), chunk_size(k_chunk, Sk)
+    nq, nk = Sq // qc, Sk // kc
+    skip = causal_skip and q_offset == 0 and k_offset == 0
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    k_pos = k_offset + torch.arange(Sk, device=dev)
+    qf = scaled_queries(q, KV)
+    m, l, acc = softmax_state(qf)
+    for j in range(nk):
+        lo, hi = 0, Sq
+        if skip:
+            lo, hi = (r * qc for r in visible_q_chunks(j, nq, qc, kc, causal,
+                                                       window))
+            if lo == hi:
+                continue
+        ks = slice(j * kc, (j + 1) * kc)
+        part = merge_block(m[..., lo:hi], l[..., lo:hi], acc[..., lo:hi, :],
+                           block_scores(qf[:, lo:hi], k[:, ks], q_pos[lo:hi],
+                                        k_pos[ks], causal, window),
+                           v[:, ks], pv_bf16=pv_bf16)
+        if (lo, hi) == (0, Sq):
+            m, l, acc = part
+        else:
+            m = torch.cat([m[..., :lo], part[0], m[..., hi:]], dim=-1)
+            l = torch.cat([l[..., :lo], part[1], l[..., hi:]], dim=-1)
+            acc = torch.cat([acc[..., :lo, :], part[2], acc[..., hi:, :]],
+                            dim=-2)
+    return finish(l, acc, q.dtype)
+
+
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
-                      k_offset=0, impl="auto"):
+                      k_offset=0, q_chunk=Q_CHUNK, k_chunk=K_CHUNK,
+                      causal_skip=False, pv_bf16=False, impl="auto"):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). Returns (B, Sq, H, hd).
 
     Query i sits at position ``q_offset + i`` and key j at ``k_offset +
-    j``. With both offsets 0 the call goes to ``ops.flash_attention``;
-    neither the Pallas kernel nor the port's takes offsets, so nonzero
-    offsets run the plain masked online softmax over global positions on
-    any device, as the reference's pure-JAX path does."""
-    if q_offset == 0 and k_offset == 0:
+    j``. Where ``impl`` resolves (``registry.flash_attention``, for q's
+    device) to an impl other than the plain ``"ref"`` (the CUDA kernel)
+    and both offsets are 0, the call goes to ``ops.flash_attention``; the
+    options do not reach it, as the reference's options never reach its
+    Pallas kernel. Every other call runs the reference's chunked online
+    softmax (``_chunked``) with ``q_chunk``, ``k_chunk``, ``causal_skip``
+    (offsets 0 only, as in the reference) and ``pv_bf16``."""
+    kimpl = registry.flash_attention.lookup(impl, q.device.type)
+    if kimpl.name != "ref" and q_offset == 0 and k_offset == 0:
         return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    impl=impl)
-    dev = q.device
-    q_pos = q_offset + torch.arange(q.shape[1], device=dev)
-    k_pos = k_offset + torch.arange(k.shape[1], device=dev)
-    qf = scaled_queries(q, k.shape[2])
-    m, l, acc = softmax_state(qf)
-    s = block_scores(qf, k, q_pos, k_pos, causal, window)
-    _, l, acc = merge_block(m, l, acc, s, v)
-    return finish(l, acc, q.dtype)
+    return _chunked(q, k, v, causal=causal, window=window,
+                    q_offset=q_offset, k_offset=k_offset, q_chunk=q_chunk,
+                    k_chunk=k_chunk, causal_skip=causal_skip,
+                    pv_bf16=pv_bf16)
 
 
 def decode_attention(q, k_cache, v_cache, k_pos, cur_pos, *, window=None):

@@ -24,8 +24,11 @@ which attention params that hold the rank's query heads, and a dense
 MLP's that hold its ff slice, sum their parts (``_heads``,
 ``transformer.for_use``)),
 ``q_offset`` (``block_apply``: the first position of self-attention's
-rope and mask) and, for prefill, ``max_len`` (the decode caches'
-length).
+rope and mask), ``attn_opts`` (``attention.AttnOpts``, the reference's
+§Perf options of its chunked attention: ``causal_skip`` reaches causal
+self-attention only, never the encoder or cross attention, as in the
+reference; ``pv_bf16`` every call) and, for prefill, ``max_len`` (the
+decode caches' length).
 """
 from __future__ import annotations
 
@@ -153,7 +156,7 @@ def _out(p, y, heads, eq):
 
 
 def _attn_seq(p, cfg, x, *, causal, window, impl, q_offset=0,
-              dist=mlp.NO_DIST):
+              dist=mlp.NO_DIST, opts=attention.AttnOpts()):
     """Self-attention over the whole sequence, its positions from
     ``q_offset``: the output and the roped k and v (every kv head the
     rank computes: its own, or all where KV does not split). As in the
@@ -165,10 +168,10 @@ def _attn_seq(p, cfg, x, *, causal, window, impl, q_offset=0,
     q = common.apply_rope(q, pos[None], cfg.rope_theta)
     k = common.apply_rope(k, pos[None], cfg.rope_theta)
     ka, va = (k, v) if heads is None else (heads.select(k), heads.select(v))
-    out = attention.chunked_attention(q.contiguous(), ka.contiguous(),
-                                      va.contiguous(), causal=causal,
-                                      window=window, q_offset=q_offset,
-                                      impl=impl)
+    out = attention.chunked_attention(
+        q.contiguous(), ka.contiguous(), va.contiguous(), causal=causal,
+        window=window, q_offset=q_offset, impl=impl,
+        causal_skip=opts.causal_skip and causal, pv_bf16=opts.pv_bf16)
     return _out(p, out, heads, "bshk,hkd->bsd"), k, v
 
 
@@ -180,31 +183,34 @@ def _gated(p, y):
 
 
 def attn_apply(p, cfg, x, *, kv_src=None, causal=True, window=None,
-               impl="auto", q_offset=0, dist=mlp.NO_DIST):
+               impl="auto", q_offset=0, dist=mlp.NO_DIST,
+               opts=attention.AttnOpts()):
     """Self-attention over ``x`` (positions from ``q_offset``); with
     ``kv_src`` (B, T, d), cross attention from ``x`` to it: no rope, no
     causal mask, gated. ``dist``: the rank's heads where ``p`` holds
     them (``_heads``)."""
     if kv_src is None:
         return _attn_seq(p, cfg, x, causal=causal, window=window,
-                         impl=impl, q_offset=q_offset, dist=dist)[0]
+                         impl=impl, q_offset=q_offset, dist=dist,
+                         opts=opts)[0]
     heads = _heads(p, cfg, dist)
     q, k, v = _qkv(p, cfg, x, kv_src, heads)
     if heads is not None:
         k, v = heads.select(k), heads.select(v)
     out = attention.chunked_attention(q.contiguous(), k.contiguous(),
                                       v.contiguous(), causal=False,
-                                      window=window, impl=impl)
+                                      window=window, impl=impl,
+                                      pv_bf16=opts.pv_bf16)
     return _gated(p, _out(p, out, heads, "bshk,hkd->bsd"))
 
 
 def _attn_prefill(p, cfg, x, *, window, max_len, causal=True, impl="auto",
-                  dist=mlp.NO_DIST):
+                  dist=mlp.NO_DIST, opts=attention.AttnOpts()):
     """Like attn_apply but also returns the KV cache after S tokens (the
     kv heads the rank computes)."""
     B, S, _ = x.shape
     y, k, v = _attn_seq(p, cfg, x, causal=causal, window=window, impl=impl,
-                        dist=dist)
+                        dist=dist, opts=opts)
     _, _, KV, hd = k.shape
     if window is not None and window < max_len:
         Wc = min(window, max_len)
@@ -432,31 +438,33 @@ def _mlp_residual(p, cfg, x, dist=mlp.NO_DIST):
     return x + y, aux
 
 
-def _cross_residual(p, cfg, x, norm, aux, impl, dist):
+def _cross_residual(p, cfg, x, norm, aux, impl, dist, opts):
     h = common.rms_norm(x, norm, cfg.norm_eps)
-    return x + attn_apply(p, cfg, h, kv_src=aux, impl=impl, dist=dist)
+    return x + attn_apply(p, cfg, h, kv_src=aux, impl=impl, dist=dist,
+                          opts=opts)
 
 
 def block_apply(p, cfg, kind, x, ctx):
-    """x: (B, S, d). ctx: dict(causal, aux, impl, dist, q_offset).
-    Returns (x_out, aux_loss)."""
+    """x: (B, S, d). ctx: dict(causal, aux, impl, dist, q_offset,
+    attn_opts). Returns (x_out, aux_loss)."""
     impl = ctx.get("impl", "auto")
     q_off = ctx.get("q_offset", 0)
     dist = ctx.get("dist", mlp.NO_DIST)
+    opts = ctx.get("attn_opts", attention.AttnOpts())
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=ctx.get("causal", True),
                            window=_window_for(cfg, kind), impl=impl,
-                           q_offset=q_off, dist=dist)
+                           q_offset=q_off, dist=dist, opts=opts)
     elif kind == "cross_attn":
         x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl,
-                            dist)
+                            dist, opts)
     elif kind == "xdec":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=True, impl=impl,
-                           q_offset=q_off, dist=dist)
+                           q_offset=q_off, dist=dist, opts=opts)
         x = _cross_residual(p["xattn"], cfg, x, p["norm_x"], ctx["aux"],
-                            impl, dist)
+                            impl, dist, opts)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + ssm.forward(p["ssm"], cfg, h, impl=impl)
@@ -514,22 +522,25 @@ def block_prefill(p, cfg, kind, x, ctx):
     max_len = ctx.get("max_len", x.shape[1])
     impl = ctx.get("impl", "auto")
     dist = ctx.get("dist", mlp.NO_DIST)
+    opts = ctx.get("attn_opts", attention.AttnOpts())
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, cache = _attn_prefill(p["attn"], cfg, h,
                                  window=_window_for(cfg, kind),
-                                 max_len=max_len, impl=impl, dist=dist)
+                                 max_len=max_len, impl=impl, dist=dist,
+                                 opts=opts)
         x = x + y
     elif kind == "cross_attn":
         x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl,
-                            dist)
+                            dist, opts)
         cache = precompute_cross_kv(p["attn"], cfg, ctx["aux"])
     elif kind == "xdec":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         y, self_c = _attn_prefill(p["attn"], cfg, h, window=None,
-                                  max_len=max_len, impl=impl, dist=dist)
+                                  max_len=max_len, impl=impl, dist=dist,
+                                  opts=opts)
         x = _cross_residual(p["xattn"], cfg, x + y, p["norm_x"],
-                            ctx["aux"], impl, dist)
+                            ctx["aux"], impl, dist, opts)
         cache = {"self": self_c,
                  "cross": precompute_cross_kv(p["xattn"], cfg, ctx["aux"])}
     elif kind == "mamba2":

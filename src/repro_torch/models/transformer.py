@@ -53,6 +53,7 @@ from repro_torch import sharding
 from repro_torch.convert import tree_leaves, tree_map, tree_stack
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, common
+from repro_torch.models.attention import AttnOpts
 from repro_torch.models.mlp import NO_DIST, model_split, moe_specs
 
 
@@ -442,12 +443,16 @@ def _apply_groups(params, cfg, groups, x, ctx):
     return x, aux_loss
 
 
-def encode(params, cfg, aux_embed, *, dist=NO_DIST, impl="auto"):
+def encode(params, cfg, aux_embed, *, dist=NO_DIST, impl="auto",
+           attn_opts=AttnOpts()):
     """Run the encoder groups bidirectionally over the stub frame
-    embeddings (B, T, d). Returns (the normed encoder output, aux_loss)."""
+    embeddings (B, T, d). Returns (the normed encoder output, aux_loss).
+    ``attn_opts``: the chunked attention's options (``causal_skip`` has
+    no causal attention to act on here)."""
     x, aux_loss = _apply_groups(params, cfg, groups_of(cfg, encoder=True),
                                 aux_embed, {"causal": False, "impl": impl,
-                                            "dist": dist})
+                                            "dist": dist,
+                                            "attn_opts": attn_opts})
     return common.rms_norm(x, params["enc_norm"], cfg.norm_eps), aux_loss
 
 
@@ -457,7 +462,7 @@ def aux_tokens(cfg):
     return cfg.enc_seq if cfg.enc_dec else cfg.vision_tokens
 
 
-def _cross_source(params, cfg, aux, impl, dist):
+def _cross_source(params, cfg, aux, impl, dist, attn_opts=AttnOpts()):
     """What cross attention reads, and the encoder's aux loss: the
     encoder's output over ``aux`` (encoder-decoder), else ``aux`` itself
     (the vision embeddings, or None for a decoder-only config)."""
@@ -465,21 +470,27 @@ def _cross_source(params, cfg, aux, impl, dist):
         raise ValueError(f"{cfg.name} reads stub frontend embeddings: pass "
                          f"aux=(batch, {aux_tokens(cfg)}, d_model)")
     if cfg.enc_dec:
-        return encode(params, cfg, aux, dist=dist, impl=impl)
+        return encode(params, cfg, aux, dist=dist, impl=impl,
+                      attn_opts=attn_opts)
     return aux, 0.0
 
 
-def forward(params, cfg, tokens, *, aux=None, dist=NO_DIST, impl="auto"):
+def forward(params, cfg, tokens, *, aux=None, dist=NO_DIST, impl="auto",
+            attn_opts=AttnOpts()):
     """tokens: (B, S) integer; aux: (B, T, d) stub embeddings (audio
     frames or vision patches). Returns (logits (B, S, V) f32,
     aux_loss). With ``dist`` enabled, tokens and aux are this rank's
     batch shard, the MoE runs expert-parallel (``mlp.Dist``) and the
-    logits are the rank's vocab block (``vocab_parallel``)."""
-    cross_src, enc_loss = _cross_source(params, cfg, aux, impl, dist)
+    logits are the rank's vocab block (``vocab_parallel``).
+    ``attn_opts`` (``attention.AttnOpts``): the reference's §Perf
+    options of its chunked attention, for every call that runs it."""
+    cross_src, enc_loss = _cross_source(params, cfg, aux, impl, dist,
+                                        attn_opts)
     x = embed_tokens(params, cfg, tokens, dist)
     x, aux_loss = _apply_groups(params, cfg, groups_of(cfg), x,
                                 {"causal": True, "aux": cross_src,
-                                 "impl": impl, "dist": dist})
+                                 "impl": impl, "dist": dist,
+                                 "attn_opts": attn_opts})
     return unembed(params, cfg, x, dist), enc_loss + aux_loss
 
 
@@ -518,7 +529,8 @@ def cache_specs(cfg, batch, max_len, dtype=None):
 # ---------------------------------------------------------------------------
 
 def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
-            last_only=False, impl="auto", seq_axis_model=None):
+            last_only=False, impl="auto", seq_axis_model=None,
+            attn_opts=AttnOpts()):
     """Full forward that also returns filled decode caches.
 
     Returns (logits, caches): logits over all S positions, or only the
@@ -526,7 +538,8 @@ def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
     stub frontend embeddings, encoded first for an encoder-decoder.
     ``max_len`` sizes the KV caches (defaults to S; pass S + generation
     budget for serving). ``impl`` reaches the attention and SSD kernel
-    ops. ``dist``: as ``forward``'s (tokens, aux and the caches are this
+    ops, ``attn_opts`` the chunked attention (``forward``'s).
+    ``dist``: as ``forward``'s (tokens, aux and the caches are this
     rank's batch shard; the logits its vocab block); each cache the
     rank's block of ``sharding.cache_specs_tree(seq_axis_model=)``
     (``blocks.cache_block``): ``seq_axis_model`` says whether the
@@ -538,10 +551,11 @@ def prefill(params, cfg, tokens, *, aux=None, dist=NO_DIST, max_len=None,
     max_len = max_len or S
     if seq_axis_model is None:
         seq_axis_model = B == 1
-    cross_src, _ = _cross_source(params, cfg, aux, impl, dist)
+    cross_src, _ = _cross_source(params, cfg, aux, impl, dist, attn_opts)
     x = embed_tokens(params, cfg, tokens, dist)
     ctx = {"causal": True, "aux": cross_src, "max_len": max_len,
-           "impl": impl, "dist": dist, "seq_axis_model": seq_axis_model}
+           "impl": impl, "dist": dist, "seq_axis_model": seq_axis_model,
+           "attn_opts": attn_opts}
     caches = []
     for gi, pattern, repeat, is_enc in group_infos(cfg):
         if is_enc:

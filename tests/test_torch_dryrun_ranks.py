@@ -13,7 +13,7 @@ over "data" and reduce-scatters those it holds split (the gather's
 transpose), and on (2 x 2) sums its heads' and ff's activations;
 ``batch_fold_model`` sums no activation and reduces each grad over
 "model" too, and raises on a MoE config;
-``causal_skip`` and ``pv_bf16`` raise; two ranks' counts agree; a batch
+``causal_skip`` and ``pv_bf16`` trace; two ranks' counts agree; a batch
 the batch axes do not divide stays whole on every rank; and no default
 process group outlives a trace. The reference's GSPMD numbers are no
 anchor here: its partitioner inserts collectives of its own.
@@ -221,8 +221,16 @@ def test_batch_fold_model_adds_the_all_reduce_over_model():
 
 @pytest.mark.parametrize("opt", ["causal_skip", "pv_bf16"])
 def test_unported_attention_options_raise(opt):
-    with pytest.raises(ValueError, match=opt):
-        _trace("qwen2-0.5b", "prefill", (2, 2), opts=(opt,))
+    """The chunked attention's options trace per rank (they reach the
+    plain route's attention, ``tests/test_torch_chunked_attention.py``
+    holds what they do) and are recorded; at this sequence (one chunk)
+    they leave the dots and the collectives as they are. An unknown
+    option still raises."""
+    plain, _ = _trace("qwen2-0.5b", "prefill", (2, 2))
+    an, meta = _trace("qwen2-0.5b", "prefill", (2, 2), opts=(opt,))
+    assert meta["opts"] == [opt]
+    assert an["flops"] == plain["flops"]
+    assert an["collective_by_type"] == plain["collective_by_type"]
     with pytest.raises(ValueError, match="unknown option"):
         _trace("qwen2-0.5b", "prefill", (2, 2), opts=("fast",))
 

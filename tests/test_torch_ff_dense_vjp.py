@@ -2,10 +2,10 @@
 against the reference's Pallas ``ff_dense_bwd`` (interpret mode, as
 ``tests/test_ff_dense_vjp.py`` runs it), the ``FFDense``/``FFDenseNorm``
 gradients against ``jax.grad`` through the reference's
-``ff_dense_vjp``/``ff_dense_norm_vjp`` under that test's two losses, the
-dead-row case, the wrapper's checks, and the ``ops`` dispatch. The CUDA
-kernel itself is held against its plain version on the card by
-``chip_smoke.py``."""
+``ff_dense_vjp``/``ff_dense_norm_vjp`` under that test's two losses (f32,
+and bf16 at the reference's bf16 tolerance), the dead-row case, the
+wrapper's checks, and the ``ops`` dispatch. The CUDA kernel itself is
+held against its plain version on the card by ``chip_smoke.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -143,6 +143,85 @@ def test_ffdensenorm_grads_match_reference_custom_vjp(M, K, N):
     _assert_grads(got, (jg["w"], jg["b"], jgx))
 
 
+# bf16: the reference's ff_dense tolerance in bf16 (tests/test_kernels.py),
+# max|got - ref| / max|ref|, 5x that for a gradient that only g drives
+BF16_TOL = 3e-2
+BF16_SHAPES = [(64, 784, 512), (100, 333, 257)]
+
+
+def _bf16(a):
+    return jnp.asarray(a, jnp.bfloat16)
+
+
+def _torch_bf16_grads(loss, lp, x, *args):
+    leaves = {k: torch.tensor(v).bfloat16().requires_grad_(True)
+              for k, v in lp.items()}
+    tx = torch.tensor(x).bfloat16().requires_grad_(True)
+    got = torch.autograd.grad(loss(leaves, tx, *args),
+                              [leaves["w"], leaves["b"], tx])
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    return [t.float().numpy() for t in got]
+
+
+def _assert_bf16_grads(got, want, tol):
+    for a, b, name in zip(got, want, ("dw", "db", "dx")):
+        assert b.dtype == jnp.bfloat16, name
+        assert _scaled_err(a, np.asarray(b, np.float32)) <= tol, name
+
+
+@pytest.mark.parametrize("M,K,N", BF16_SHAPES)
+def test_bwd_plain_bf16_matches_reference_pallas_bwd(M, K, N):
+    """bf16 operands, f32 dg: both compute in f32; dx and dw in bf16,
+    db in f32."""
+    rng, x, w, b = _operands(M, K, N, seed=M + K + N)
+    y = np.maximum(x @ w + b, 0).astype(np.float32)
+    dy_out = rng.standard_normal((M, N)).astype(np.float32)
+    dg = rng.standard_normal(M).astype(np.float32)
+    want = pallas_ff_dense_bwd(_bf16(x), _bf16(w), _bf16(y), _bf16(dy_out),
+                               jnp.asarray(dg))
+    got = ff_dense_vjp.ff_dense_bwd(
+        *(torch.tensor(a).bfloat16() for a in (x, w, y, dy_out)),
+        torch.tensor(dg))
+    for t, j, name in zip(got, want, ("dx", "dw", "db")):
+        assert str(t.dtype)[6:] == str(j.dtype), name
+        assert _scaled_err(t.float().numpy(), np.asarray(j, np.float32)) \
+            <= BF16_TOL, name
+
+
+@pytest.mark.parametrize("M,K,N", BF16_SHAPES)
+@pytest.mark.parametrize("peer_w", [0.0, 0.3])
+def test_ffdense_bf16_grads_match_reference_custom_vjp(M, K, N, peer_w):
+    """The bf16 layer's grads against ``jax.grad`` through the
+    reference's bf16 custom_vjp; with peer_w 0 the loss reads g alone."""
+    _, x, w, b = _operands(M, K, N, seed=M * N + K)
+    lp = {"w": w, "b": b}
+    jg, jgx = jax.grad(
+        lambda p, xb: _stacked_loss(jff)(lambda *a: j_vjp(*a, True), p, xb,
+                                         2.0, peer_w), argnums=(0, 1))(
+        jax.tree_util.tree_map(_bf16, lp), _bf16(x))
+    got = _torch_bf16_grads(
+        lambda p, xb: _stacked_loss(tff)(ff_dense_vjp.ff_dense_vjp, p, xb,
+                                         2.0, peer_w), lp, x)
+    _assert_bf16_grads(got, (jg["w"], jg["b"], jgx),
+                       BF16_TOL * (5 if peer_w == 0.0 else 1))
+
+
+@pytest.mark.parametrize("M,K,N", BF16_SHAPES)
+def test_ffdensenorm_bf16_grads_match_reference_custom_vjp(M, K, N):
+    rng, x, w, b = _operands(M, K, N, seed=M + N)
+    v = rng.standard_normal(N).astype(np.float32)
+    lp = {"w": w, "b": b}
+    jg, jgx = jax.grad(
+        lambda p, xb: _normed_loss(jnp.tanh)(
+            lambda *a: j_norm_vjp(*a, True), p, xb, _bf16(v)),
+        argnums=(0, 1))(jax.tree_util.tree_map(_bf16, lp), _bf16(x))
+    got = _torch_bf16_grads(
+        lambda p, xb: _normed_loss(torch.tanh)(
+            ff_dense_vjp.ff_dense_norm_vjp, p, xb,
+            torch.tensor(v).bfloat16()), lp, x)
+    _assert_bf16_grads(got, (jg["w"], jg["b"], jgx), BF16_TOL)
+
+
 @pytest.mark.parametrize("norm", [False, True])
 def test_dead_rows_give_finite_zero_grads(norm):
     """tests/test_ff_dense_vjp.py::test_norm_epilogue_dead_rows_no_nan
@@ -184,8 +263,9 @@ def test_bwd_wrapper_on_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("bf16", TypeError, "float32 operands only"),
-    ("f64", TypeError, "float32 operands only"),
+    ("bf16", TypeError, "and dg float32"),
+    ("f64", TypeError, "all float32 or all bfloat16"),
+    ("mixed", TypeError, "all float32 or all bfloat16"),
     ("k_mismatch", ValueError, "shape mismatch"),
     ("dg_shape", ValueError, "shape mismatch"),
     ("rank", ValueError, "expects x"),
@@ -199,6 +279,7 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(case, exc,
         "bf16": (x.bfloat16(), w.bfloat16(), y.bfloat16(), dyo.bfloat16(),
                  dg.bfloat16()),
         "f64": (x.double(), w, y, dyo, dg),
+        "mixed": (x.bfloat16(), w, y, dyo, dg),
         "k_mismatch": (x, torch.ones(7, 6), y, dyo, dg),
         "dg_shape": (x, w, y, dyo, torch.ones(5)),
         "rank": (x[0], w, y, dyo, dg),
