@@ -63,6 +63,7 @@ process alone when ``num_nodes == 1``:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional
@@ -169,6 +170,13 @@ def _validate_strategies(cfg):
     return good
 
 
+def _recording(tracer):
+    """``tracer`` installed as the program's active tracer, where it
+    records."""
+    return obs_trace.use(tracer) if tracer.enabled else \
+        contextlib.nullcontext()
+
+
 def fit(cfg, task=None, *, backend="sequential", schedule=None,
         num_nodes=1, probe_every=0, verbose=False, profile=False,
         devices=None, overlap=True, resilience=None, resume_from=None,
@@ -218,7 +226,9 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
     which serves the config's traffic concurrently); the serving side
     comes back on ``FitResult.serve``.
     trace: ``True`` or an ``obs.trace.Tracer``: one span around the
-    backend's run, in ``FitResult.trace``.
+    backend's run, in ``FitResult.trace``; the sequential, federated and
+    simulate backends and the LM paths also record their tasks and the
+    program's spans inside them into it (``obs_trace.use``).
     device: ``None`` = ``cuda`` (raises without a GPU); ``"cpu"`` runs
     the plain PyTorch path.
     key: the run's random key (``core.rng``); default
@@ -273,13 +283,14 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
                 "resume_from/serve yet (ROADMAP: unify with lm_decode "
                 "serving)")
         tracer = obs_trace.as_tracer(trace)
-        fres = _fit_lm_chapters(
-            cfg, task, backend=backend, schedule=schedule,
-            num_nodes=num_nodes, chapters=chapters,
-            steps_per_chapter=steps_per_chapter, batch=batch, seq=seq,
-            lr=lr, head_lr=head_lr, devices=devices, overlap=overlap,
-            profile=profile, device=device, key=key, impl=impl,
-            tracer=tracer)
+        with _recording(tracer):
+            fres = _fit_lm_chapters(
+                cfg, task, backend=backend, schedule=schedule,
+                num_nodes=num_nodes, chapters=chapters,
+                steps_per_chapter=steps_per_chapter, batch=batch, seq=seq,
+                lr=lr, head_lr=head_lr, devices=devices, overlap=overlap,
+                profile=profile, device=device, key=key, impl=impl,
+                tracer=tracer)
         fres.trace = fres.trace or (tracer if tracer.enabled else None)
         return fres
     if impl != "auto":
@@ -318,17 +329,18 @@ def fit(cfg, task=None, *, backend="sequential", schedule=None,
     sim = None
     if backend == "federated":
         schedule = "federated"
-        with tracer.span("fit:federated", num_nodes=num_nodes):
+        with tracer.span("fit:federated", num_nodes=num_nodes), \
+                _recording(tracer):
             res = pff.run_federated_schedule(cfg, task, num_nodes, **kw)
     elif backend == "sequential":
         schedule, num_nodes = "sequential", 1
-        with tracer.span("fit:sequential"):
+        with tracer.span("fit:sequential"), _recording(tracer):
             res = pff.run_chapter_schedule(cfg, task, **kw)
     else:       # simulate: train once, replay the task times
         schedule = schedule or ("sequential" if num_nodes == 1
                                 else "all_layers")
         with tracer.span("fit:simulate", schedule=schedule,
-                         num_nodes=num_nodes):
+                         num_nodes=num_nodes), _recording(tracer):
             res = pff.run_chapter_schedule(cfg, task, **kw)
             sim = pff.simulate_schedule(res.records, schedule, num_nodes,
                                         comm_time=comm_time)

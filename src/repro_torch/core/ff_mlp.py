@@ -33,6 +33,7 @@ from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.core import ff, strategies
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ff_dense as kernels_ff_dense, ops
+from repro_torch.obs import trace as obs_trace
 
 
 def _norm(x, eps=kernels_ff_dense.NORM_EPS):
@@ -47,7 +48,8 @@ def fwd_norm(lp, x, impl="auto"):
     of the chapter trainer, one ``ff_dense`` call with the divide in the
     kernel's epilogue. Forward only: callers run it under
     ``torch.no_grad()``."""
-    yn, _ = ops.ff_dense(x, lp["w"], lp["b"], impl=impl, norm=True)
+    with obs_trace.active().span("mlp.fwd_norm", device=x.device):
+        yn, _ = ops.ff_dense(x, lp["w"], lp["b"], impl=impl, norm=True)
     return yn
 
 
@@ -149,12 +151,13 @@ def _ff_layer_loss(lp, xb, theta, peer_w, impl="auto"):
     """FF objective over a stacked [pos; neg] batch xb: (2B, K), ONE
     ``ff_dense`` call. Goodness is the MEAN of squared activities with
     theta ~ 2 (one theta across layer widths)."""
-    y, g = ops.ff_dense(xb, lp["w"], lp["b"], impl=impl)
-    g = g / y.shape[-1]                       # sum-of-squares -> mean
-    half = xb.shape[0] // 2
-    loss = ff.ff_loss(g[:half], g[half:], theta)
-    if peer_w:
-        loss = loss + peer_w * ff.peer_norm_loss(y[:half])
+    with obs_trace.active().span("mlp.fwd", device=xb.device):
+        y, g = ops.ff_dense(xb, lp["w"], lp["b"], impl=impl)
+        g = g / y.shape[-1]                       # sum-of-squares -> mean
+        half = xb.shape[0] // 2
+        loss = ff.ff_loss(g[:half], g[half:], theta)
+        if peer_w:
+            loss = loss + peer_w * ff.peer_norm_loss(y[:half])
     return loss
 
 
@@ -167,14 +170,21 @@ def train_layer_chapter(lp, opt, x_pos, x_neg, lrs, key, *, batch, epochs,
     n = x_pos.shape[0]
     n_batches = _num_batches(n, batch)
     step = 0
-    for ei in range(epochs):
-        perm = _epoch_perm(key, ei, n, batch).to(x_pos.device)
-        for bi in range(n_batches):
-            idx = perm[bi * batch:(bi + 1) * batch]
-            xb = torch.cat([x_pos[idx], x_neg[idx]], dim=0)
-            g = _grad(_ff_layer_loss, lp, xb, theta, peer_w, impl)
-            step += 1
-            lp, opt = optim.adam_update(lp, g, opt, lr=lrs[ei], step=step)
+    dev = x_pos.device
+    tr = obs_trace.active()
+    with tr.span("mlp.layer", device=dev):
+        for ei in range(epochs):
+            with tr.span("mlp.perm"):
+                perm = _epoch_perm(key, ei, n, batch).to(dev)
+            for bi in range(n_batches):
+                idx = perm[bi * batch:(bi + 1) * batch]
+                xb = torch.cat([x_pos[idx], x_neg[idx]], dim=0)
+                with tr.span("mlp.grad", device=dev):
+                    g = _grad(_ff_layer_loss, lp, xb, theta, peer_w, impl)
+                step += 1
+                with tr.span("mlp.adam", device=dev):
+                    lp, opt = optim.adam_update(lp, g, opt, lr=lrs[ei],
+                                                step=step)
     return lp, opt
 
 

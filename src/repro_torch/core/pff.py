@@ -40,6 +40,7 @@ from repro_torch.convert import tree_map
 from repro_torch.core import ff, ff_mlp, pff_dag, strategies
 from repro_torch.core.rng import TorchKey
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +105,7 @@ def run_chapter_schedule(cfg, task: data_lib.ImageTask, *, probe_every=0,
     y_all = torch.as_tensor(task.y_train, device=dev)
     impl = ff_mlp.kernel_impl(cfg)
     has_neg = good.uses_negatives and neg.regenerates
+    tr = obs_trace.active()
 
     # Chapter-invariant overlays and the layer-0 normalization, hoisted
     # out of the chapter loop (the negative one changes only on
@@ -142,50 +144,56 @@ def run_chapter_schedule(cfg, task: data_lib.ImageTask, *, probe_every=0,
             extras = (y_all if idx is None else y_all[idx],)
 
         for k in range(n_layers):
-            t0 = time.perf_counter()
-            state = good.train_chapter(
-                good.get_state(params, opt, k), acts, extras, lrs,
-                kc.fold_in(k), cfg=cfg, epochs=C)
-            good.set_state(params, opt, k, state)
-            if k + 1 < n_layers:
-                # propagate the data through the freshly trained layer
-                with torch.no_grad():
-                    acts = tuple(ff_mlp.fwd_norm(state[0], a, impl=impl)
-                                 for a in acts)
-            _sync(dev)
-            records.append(TaskRecord(
-                "train", k, chapter, time.perf_counter() - t0))
+            with tr.span("task:train", kind="train", layer=k,
+                         chapter=chapter, node=0):
+                t0 = time.perf_counter()
+                state = good.train_chapter(
+                    good.get_state(params, opt, k), acts, extras, lrs,
+                    kc.fold_in(k), cfg=cfg, epochs=C)
+                good.set_state(params, opt, k, state)
+                if k + 1 < n_layers:
+                    # propagate the data through the freshly trained layer
+                    with torch.no_grad():
+                        acts = tuple(ff_mlp.fwd_norm(state[0], a, impl=impl)
+                                     for a in acts)
+                _sync(dev)
+                records.append(TaskRecord(
+                    "train", k, chapter, time.perf_counter() - t0))
 
         # softmax head (trained alongside, layer-local: paper §3)
         if cls.trains_head:
-            t0 = time.perf_counter()
-            xn_all = x_neutral if idx is None else x_neutral[idx]
-            with torch.no_grad():
-                feats = ff_mlp.softmax_feats(params["layers"], xn_all,
-                                             impl=impl)
-            params["head"], opt["head"] = ff_mlp.train_head_chapter(
-                params["head"], opt["head"], feats,
-                y_all if idx is None else y_all[idx],
-                lrs_head, kc.fold_in(77), batch=cfg.batch_size, epochs=C)
-            _sync(dev)
-            records.append(TaskRecord(
-                "head", n_layers, chapter, time.perf_counter() - t0))
+            with tr.span("task:head", kind="head", layer=n_layers,
+                         chapter=chapter, node=0):
+                t0 = time.perf_counter()
+                xn_all = x_neutral if idx is None else x_neutral[idx]
+                with torch.no_grad():
+                    feats = ff_mlp.softmax_feats(params["layers"], xn_all,
+                                                 impl=impl)
+                params["head"], opt["head"] = ff_mlp.train_head_chapter(
+                    params["head"], opt["head"], feats,
+                    y_all if idx is None else y_all[idx],
+                    lrs_head, kc.fold_in(77), batch=cfg.batch_size, epochs=C)
+                _sync(dev)
+                records.append(TaskRecord(
+                    "head", n_layers, chapter, time.perf_counter() - t0))
 
         # negative regeneration (UpdateXNEG)
         if has_neg:
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                # only needs_scores strategies see the live model
-                scores = None
-                if neg.needs_scores:
-                    scores = _class_scores_chunked(params, x_all, cfg)
-                xn0 = ff_mlp._norm(neg.fn(
-                    kneg.fold_in(chapter), cfg,
-                    params if neg.needs_scores else None,
-                    x_all, y_all, scores))
-            _sync(dev)
-            records.append(TaskRecord(
-                "neg_gen", -1, chapter, time.perf_counter() - t0))
+            with tr.span("task:neg_gen", kind="neg_gen", layer=-1,
+                         chapter=chapter, node=0):
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    # only needs_scores strategies see the live model
+                    scores = None
+                    if neg.needs_scores:
+                        scores = _class_scores_chunked(params, x_all, cfg)
+                    xn0 = ff_mlp._norm(neg.fn(
+                        kneg.fold_in(chapter), cfg,
+                        params if neg.needs_scores else None,
+                        x_all, y_all, scores))
+                _sync(dev)
+                records.append(TaskRecord(
+                    "neg_gen", -1, chapter, time.perf_counter() - t0))
 
         if probe_every and (chapter + 1) % probe_every == 0:
             with torch.no_grad():
@@ -211,10 +219,12 @@ def _class_scores_chunked(params, x, cfg, chunk=2000):
     the chunked loop ``accuracy`` uses (10 x ``chunk`` rows per
     ``ff_dense`` call)."""
     impl = ff_mlp.kernel_impl(cfg)
-    return ff_mlp.chunked_scores(
-        lambda xc: ff_mlp.goodness_class_scores(params, xc,
-                                                cfg.num_classes, impl=impl),
-        x, chunk=chunk, device=x.device)
+    with obs_trace.active().span("mlp.neg.score", device=x.device):
+        return ff_mlp.chunked_scores(
+            lambda xc: ff_mlp.goodness_class_scores(params, xc,
+                                                    cfg.num_classes,
+                                                    impl=impl),
+            x, chunk=chunk, device=x.device)
 
 
 # ---------------------------------------------------------------------------

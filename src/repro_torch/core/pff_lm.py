@@ -20,6 +20,11 @@ exactly the sequential trainer's calls without assembling full trees:
 and ``make_block_step`` / ``make_head_step`` wrap them with the
 reference's signatures over full params / Adam trees, whose blocks are
 views of the stacked leaves. Params and Adam state are updated in place.
+
+Each task step records its spans into ``obs.trace.active()``: ``lm.block``
+over ``lm.negatives``, ``lm.prefix``, ``lm.block.fwd``, ``lm.block.bwd``
+and ``lm.adam``; ``lm.head`` over ``lm.head.prefix``, ``lm.head.ce`` and
+``lm.head.adam`` (CUDA-event device time on the card).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.core.pff import TaskRecord
 from repro_torch.core.rng import TorchKey
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, transformer
+from repro_torch.obs import trace as obs_trace
 
 
 def check_chapter_config(cfg):
@@ -99,28 +105,36 @@ def make_block_task(cfg, *, lr=1e-3, seed=0, theta=None, key_fn=TorchKey,
         tokens = batch["tokens"][:, :-1]
         B = tokens.shape[0]
         dev = tokens.device
-        key = key_fn(seed).fold_in(step_no)
-        neg = ff.corrupt_tokens(key, tokens, cfg.vocab)
-        x = frozen_forward(cfg, embed, prefix,
-                           torch.cat([tokens, neg], dim=0), impl)
-        is_pos = torch.cat([torch.ones((B,), device=dev),
-                            torch.zeros((B,), device=dev)])
-        up, um, uv = state
-        tp = train_lib.trainable(up)
-        with torch.enable_grad():
-            h = x
-            total = torch.zeros((), device=dev)
-            for kind, bp in zip(pattern, tp):
-                h_sg = h.detach()
-                y, moe_aux = blocks.block_apply(bp, cfg, kind, h_sg,
-                                                train_lib.REF)
-                g = ff.mean_goodness(y - h_sg)
-                total = total + ff.ff_loss_masked(g, is_pos, theta) \
-                    + 0.01 * moe_aux
-                h = y
-            grads = train_lib.grads_of(total, tp)
-        train_lib.adam_leaves(up, grads, um, uv, lr=lr, step=step_no)
-        return total.detach()
+        tr = obs_trace.active()
+        with tr.span("lm.block", device=dev, block=block_idx):
+            with tr.span("lm.negatives", device=dev):
+                key = key_fn(seed).fold_in(step_no)
+                neg = ff.corrupt_tokens(key, tokens, cfg.vocab)
+                both = torch.cat([tokens, neg], dim=0)
+            with tr.span("lm.prefix", device=dev):
+                x = frozen_forward(cfg, embed, prefix, both, impl)
+            del both        # not held through the trained block's peak
+            is_pos = torch.cat([torch.ones((B,), device=dev),
+                                torch.zeros((B,), device=dev)])
+            up, um, uv = state
+            tp = train_lib.trainable(up)
+            with torch.enable_grad():
+                with tr.span("lm.block.fwd", device=dev):
+                    h = x
+                    total = torch.zeros((), device=dev)
+                    for kind, bp in zip(pattern, tp):
+                        h_sg = h.detach()
+                        y, moe_aux = blocks.block_apply(bp, cfg, kind, h_sg,
+                                                        train_lib.REF)
+                        g = ff.mean_goodness(y - h_sg)
+                        total = total + ff.ff_loss_masked(g, is_pos, theta) \
+                            + 0.01 * moe_aux
+                        h = y
+                with tr.span("lm.block.bwd", device=dev):
+                    grads = train_lib.grads_of(total, tp)
+            with tr.span("lm.adam", device=dev):
+                train_lib.adam_leaves(up, grads, um, uv, lr=lr, step=step_no)
+            return total.detach()
 
     return task_step
 
@@ -164,17 +178,22 @@ def make_head_task(cfg, *, head_lr=1e-3, impl="auto"):
     def task_step(embed, units, head, batch, step_no):
         tokens = batch["tokens"]
         inp, labels = tokens[:, :-1], tokens[:, 1:]
-        x = frozen_forward(cfg, embed, units, inp, impl)
-        hp, hm, hv = head
-        tp = train_lib.trainable({k: hp[k] for k in names})
-        with torch.enable_grad():
-            loss = train_lib.head_ce(x, tp, cfg, labels)
-            grads = train_lib.grads_of(loss, tp)
-        train_lib.adam_leaves({k: hp[k] for k in names}, grads,
-                              {k: hm[k] for k in names},
-                              {k: hv[k] for k in names},
-                              lr=head_lr, step=step_no)
-        return loss.detach()
+        dev = tokens.device
+        tr = obs_trace.active()
+        with tr.span("lm.head", device=dev):
+            with tr.span("lm.head.prefix", device=dev):
+                x = frozen_forward(cfg, embed, units, inp, impl)
+            hp, hm, hv = head
+            tp = train_lib.trainable({k: hp[k] for k in names})
+            with torch.enable_grad(), tr.span("lm.head.ce", device=dev):
+                loss = train_lib.head_ce(x, tp, cfg, labels)
+                grads = train_lib.grads_of(loss, tp)
+            with tr.span("lm.head.adam", device=dev):
+                train_lib.adam_leaves({k: hp[k] for k in names}, grads,
+                                      {k: hm[k] for k in names},
+                                      {k: hv[k] for k in names},
+                                      lr=head_lr, step=step_no)
+            return loss.detach()
 
     return task_step
 
@@ -259,24 +278,29 @@ def train_chapters(cfg, data_iter_fn, *, chapters, steps_per_chapter,
     losses = []
     n = 0
     n_head = 0
+    tr = obs_trace.active()
     for c in range(chapters):
         for k in range(repeat):
-            t0 = time.perf_counter()
-            last = None
-            for batch in data_iter_fn(c, k):
-                n += 1
-                params, opt, last = step(params, opt, batch, k, n)
-            _sync(dev)
-            records.append(TaskRecord("train", k, c,
-                                      time.perf_counter() - t0))
+            with tr.span("task:train", kind="train", layer=k, chapter=c,
+                         node=0):
+                t0 = time.perf_counter()
+                last = None
+                for batch in data_iter_fn(c, k):
+                    n += 1
+                    params, opt, last = step(params, opt, batch, k, n)
+                _sync(dev)
+                records.append(TaskRecord("train", k, c,
+                                          time.perf_counter() - t0))
             losses.append(float(last))
-        t0 = time.perf_counter()
-        for batch in data_iter_fn(c, repeat):
-            n_head += 1
-            params, opt, _ = head_step(params, opt, batch, n_head)
-        _sync(dev)
-        records.append(TaskRecord("head", repeat, c,
-                                  time.perf_counter() - t0))
+        with tr.span("task:head", kind="head", layer=repeat, chapter=c,
+                     node=0):
+            t0 = time.perf_counter()
+            for batch in data_iter_fn(c, repeat):
+                n_head += 1
+                params, opt, _ = head_step(params, opt, batch, n_head)
+            _sync(dev)
+            records.append(TaskRecord("head", repeat, c,
+                                      time.perf_counter() - t0))
     return params, records, losses
 
 

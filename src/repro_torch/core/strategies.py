@@ -15,6 +15,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.core import ff
+from repro_torch.obs import trace as obs_trace
 
 
 class Registry:
@@ -150,8 +151,9 @@ def _adaptive_negatives(key, cfg, params, x, y, scores):
     scores; RandomNEG before a model exists (chapter 0)."""
     if scores is None:
         return _random_negatives(key, cfg, params, x, y, scores)
-    labels = ff.adaptive_wrong_labels(scores, y, key=key)
-    return ff.overlay_label(x, labels, cfg.num_classes)
+    with obs_trace.active().span("mlp.neg.draw", device=x.device):
+        labels = ff.adaptive_wrong_labels(scores, y, key=key)
+        return ff.overlay_label(x, labels, cfg.num_classes)
 
 
 register_negatives("random", _random_negatives)

@@ -14,14 +14,22 @@ fake trace, and nonzero offsets, which no kernel takes. The ring
 attention body (``models.ring_attention``) shares the online-softmax
 merge. Decode attention is one query row against the cache and stays
 plain torch, as the reference's pure-jnp ``decode_attention`` is.
+
+The chunked route records an ``attn.chunked.fwd`` span into
+``obs.trace.active()`` and, where that tracer records, the counters
+``attn.chunked.pairs`` / ``attn.chunked.visible_pairs`` and, under
+autograd, an ``attn.chunked.bwd`` span between two autograd hooks.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import ops, registry
+from repro_torch.obs import trace as obs_trace
 
 NEG_INF = -1e30
 # the reference's chunk sizes (``chunked_attention``'s defaults)
@@ -185,30 +193,86 @@ def _chunked(q, k, v, *, causal, window, q_offset, k_offset, q_chunk,
     nq, nk = Sq // qc, Sk // kc
     skip = causal_skip and q_offset == 0 and k_offset == 0
     dev = q.device
-    q_pos = q_offset + torch.arange(Sq, device=dev)
-    k_pos = k_offset + torch.arange(Sk, device=dev)
-    qf = scaled_queries(q, KV)
-    m, l, acc = softmax_state(qf)
+    tr = obs_trace.active()
+    with tr.span("attn.chunked.fwd", device=dev):
+        q_pos = q_offset + torch.arange(Sq, device=dev)
+        k_pos = k_offset + torch.arange(Sk, device=dev)
+        qf = scaled_queries(q, KV)
+        m, l, acc = softmax_state(qf)
+        for j in range(nk):
+            lo, hi = 0, Sq
+            if skip:
+                lo, hi = (r * qc for r in visible_q_chunks(j, nq, qc, kc,
+                                                           causal, window))
+                if lo == hi:
+                    continue
+            ks = slice(j * kc, (j + 1) * kc)
+            part = merge_block(m[..., lo:hi], l[..., lo:hi],
+                               acc[..., lo:hi, :],
+                               block_scores(qf[:, lo:hi], k[:, ks],
+                                            q_pos[lo:hi], k_pos[ks], causal,
+                                            window),
+                               v[:, ks], pv_bf16=pv_bf16)
+            if (lo, hi) == (0, Sq):
+                m, l, acc = part
+            else:
+                m = torch.cat([m[..., :lo], part[0], m[..., hi:]], dim=-1)
+                l = torch.cat([l[..., :lo], part[1], l[..., hi:]], dim=-1)
+                acc = torch.cat([acc[..., :lo, :], part[2],
+                                 acc[..., hi:, :]], dim=-2)
+        out = finish(l, acc, q.dtype)
+    if tr.enabled:
+        pairs, seen = chunk_pairs(Sq, Sk, qc, kc, q_offset, k_offset, causal,
+                                  window, skip)
+        tr.counter("attn.chunked.pairs", B * H * pairs)
+        tr.counter("attn.chunked.visible_pairs", B * H * seen)
+        if torch.is_grad_enabled() and out.requires_grad:
+            _trace_backward(tr, out, (q, k, v))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def chunk_pairs(Sq, Sk, qc, kc, q_offset, k_offset, causal, window, skip):
+    """(pairs, visible) of one (batch row, head) of ``_chunked``: the
+    (q, k) pairs its score buffers hold over the k chunks it visits
+    (with ``skip``, the visible q chunks of each), and those that the
+    causal mask and the window let through."""
+    nq, nk = Sq // qc, Sk // kc
+    pairs = 0
     for j in range(nk):
-        lo, hi = 0, Sq
-        if skip:
-            lo, hi = (r * qc for r in visible_q_chunks(j, nq, qc, kc, causal,
-                                                       window))
-            if lo == hi:
-                continue
-        ks = slice(j * kc, (j + 1) * kc)
-        part = merge_block(m[..., lo:hi], l[..., lo:hi], acc[..., lo:hi, :],
-                           block_scores(qf[:, lo:hi], k[:, ks], q_pos[lo:hi],
-                                        k_pos[ks], causal, window),
-                           v[:, ks], pv_bf16=pv_bf16)
-        if (lo, hi) == (0, Sq):
-            m, l, acc = part
-        else:
-            m = torch.cat([m[..., :lo], part[0], m[..., hi:]], dim=-1)
-            l = torch.cat([l[..., :lo], part[1], l[..., hi:]], dim=-1)
-            acc = torch.cat([acc[..., :lo, :], part[2], acc[..., hi:, :]],
-                            dim=-2)
-    return finish(l, acc, q.dtype)
+        lo, hi = (visible_q_chunks(j, nq, qc, kc, causal, window) if skip
+                  else (0, nq))
+        pairs += (hi - lo) * qc * kc
+    seen = 0
+    k_end = k_offset + Sk            # one past the last key position
+    for p in range(q_offset, q_offset + Sq):
+        hi = min(p + 1, k_end) if causal else k_end
+        lo = k_offset if window is None else max(k_offset, p - window + 1)
+        seen += max(hi - lo, 0)
+    return pairs, seen
+
+
+def _trace_backward(tr, out, inputs):
+    """Opens an ``attn.chunked.bwd`` span when ``out``'s gradient
+    arrives and closes it when those of ``inputs`` (the ones that need
+    one) are computed; its parent is the span the forward's thread has
+    open meanwhile (the caller's backward)."""
+    needs = [t for t in inputs if t.requires_grad]
+    if not needs:
+        return
+    fwd_thread = threading.get_ident()
+    box = []
+
+    def begin(grad):
+        box.append(tr.start("attn.chunked.bwd", device=grad.device,
+                            parent=tr.current(fwd_thread), push=False))
+
+    def end(grads):
+        if box:
+            tr.stop(box.pop())
+
+    out.register_hook(begin)
+    torch.autograd.graph.register_multi_grad_hook(needs, end)
 
 
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,

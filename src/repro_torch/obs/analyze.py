@@ -249,6 +249,36 @@ def _critical_path(dur: Dict[Tuple[str, int, int], float], *,
     return path, dist[end]
 
 
+def self_s(trace, *, device: bool = False) -> Dict[int, Optional[float]]:
+    """Each span's self time by span id: its duration (host clock, or
+    with ``device`` its ``device_s``) less the part its children cover
+    (on the host the union of their intervals clipped to it; on the
+    device, where only durations are known, their summed ``device_s``).
+    None for a span without a device time."""
+    spans = _as_dict(trace).get("spans", [])
+    kids: Dict[int, List[dict]] = {}
+    for s in spans:
+        if s.get("parent") is not None:
+            kids.setdefault(s["parent"], []).append(s)
+    out: Dict[int, Optional[float]] = {}
+    for s in spans:
+        ch = kids.get(s.get("id"), [])
+        if device:
+            d = s.get("device_s")
+            out[s["id"]] = None if d is None else d - sum(
+                c.get("device_s") or 0.0 for c in ch)
+            continue
+        a, b = float(s["t0"]), float(s["t1"])
+        covered, end = 0.0, a
+        for c0, c1 in sorted((max(float(c["t0"]), a), min(float(c["t1"]), b))
+                             for c in ch):
+            if c1 > end:
+                covered += c1 - max(c0, end)
+                end = c1
+        out[s["id"]] = (b - a) - covered
+    return out
+
+
 def check_invariants(analysis: TraceAnalysis, measured_makespan: float,
                      *, serial_makespan: Optional[float] = None,
                      slack: float = 1.02) -> List[str]:

@@ -14,7 +14,11 @@ Builtins:
 
 * ``chrome`` — Chrome Trace Event JSON (the ``trace.json`` format
   Perfetto / ``chrome://tracing`` load directly): one phase-``X``
-  complete event per span (``ts``/``dur`` in microseconds), one
+  complete event per span (``ts``/``dur`` in microseconds; ``ts`` on
+  the wall clock through the tracer's clock anchor, less ``base_ns`` /
+  1e3, so with a ``torch.profiler`` trace's ``baseTimeNanoseconds`` as
+  ``base_ns`` the two timelines share one base; ``args`` adds the
+  span's ``id``, ``parent`` and ``device_s``), one
   phase-``i`` instant event per tracer event, ``pid`` = the span's
   ``node`` attr (the paper's "node" — one pid lane per device) and
   ``tid`` = recording thread, with phase-``M`` metadata records naming
@@ -32,6 +36,7 @@ import json
 from typing import Any, Dict
 
 from repro_torch.core.strategies import Registry
+from repro_torch.obs import trace as obs_trace
 
 EXPORTERS = Registry("trace exporter")
 
@@ -51,9 +56,10 @@ def _as_dict(trace) -> Dict[str, Any]:
     return trace.to_dict()
 
 
-def export(trace, path: str, format: str = "chrome") -> str:
-    """Write ``trace`` (a Tracer or a trace dict) to ``path``."""
-    EXPORTERS.get(format)(_as_dict(trace), path)
+def export(trace, path: str, format: str = "chrome", **options) -> str:
+    """Write ``trace`` (a Tracer or a trace dict) to ``path``;
+    ``options`` go to the exporter (``chrome``: ``base_ns``)."""
+    EXPORTERS.get(format)(_as_dict(trace), path, **options)
     return path
 
 
@@ -66,8 +72,14 @@ def _span_pid(span: Dict[str, Any]) -> int:
     return int(node) if isinstance(node, (int, float)) and node >= 0 else 0
 
 
-def export_chrome(trace: Dict[str, Any], path: str) -> None:
+def export_chrome(trace: Dict[str, Any], path: str, *,
+                  base_ns: int = 0) -> None:
     events = []
+
+    def ts(t):
+        w = obs_trace.wall_us(trace, t, base_ns)
+        return round(t * 1e6 if w is None else w, 3)
+
     tids: Dict[str, int] = {}
     pids = set()
 
@@ -82,9 +94,11 @@ def export_chrome(trace: Dict[str, Any], path: str) -> None:
         events.append({
             "name": s["name"], "ph": "X", "pid": pid,
             "tid": tid_of(s.get("thread", "main")),
-            "ts": round(s["t0"] * 1e6, 3),
+            "ts": ts(s["t0"]),
             "dur": round((s["t1"] - s["t0"]) * 1e6, 3),
-            "args": s.get("attrs", {}),
+            "args": {**s.get("attrs", {}), "id": s.get("id"),
+                     "parent": s.get("parent"),
+                     "device_s": s.get("device_s")},
         })
     for e in trace.get("events", ()):
         pid = _span_pid(e)
@@ -92,7 +106,7 @@ def export_chrome(trace: Dict[str, Any], path: str) -> None:
         events.append({
             "name": e["name"], "ph": "i", "s": "t", "pid": pid,
             "tid": tid_of(e.get("thread", "main")),
-            "ts": round(e["t"] * 1e6, 3),
+            "ts": ts(e["t"]),
             "args": e.get("attrs", {}),
         })
     for pid in sorted(pids):
@@ -105,6 +119,7 @@ def export_chrome(trace: Dict[str, Any], path: str) -> None:
     doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",
+        "baseTimeNanoseconds": base_ns,
         "otherData": {"meta": trace.get("meta", {}),
                       "counters": trace.get("counters", {})},
     }
