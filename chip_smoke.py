@@ -111,13 +111,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
     served windows' accuracy by version printed); kernel calls counted
     per thread.
 20. Repair: the attention and SSD kernels refuse inputs that need a
-    gradient and launch under no_grad; ``impl="ref"`` gives the grads of
-    wq/wk/wv and A_log/dt_bias/in_proj.
+    gradient and launch under no_grad; under autograd a bf16 block's
+    attention with ``impl="auto"`` runs the kernels' forward and backward
+    (one backward call, finite nonzero grads of wq/wk/wv) and its SSD's
+    kernel refuses; ``impl="ref"`` gives the grads of wq/wk/wv and
+    A_log/dt_bias/in_proj.
 21. LM chapter training of qwen2-0.5b at full width and depth (bf16, 2
     chapters x 2 steps, batch 4, seq 256 of the BPE text source):
     sequential, the executor's all_layers and single_layer on 4 streams
-    (bit-identical, equal eval CE), the plain route; 1224 attention
-    kernel calls per kernel-routed fit, 0 plain; eval CE below the
+    (bit-identical, equal eval CE), the plain route; 1320 attention
+    kernel calls per kernel-routed fit (1224 no-grad, 96 in the trained
+    blocks' forwards under autograd), 0 plain; eval CE below the
     untrained model's and within 5e-2 of the plain-routed fit's; the
     sequential fit's params scored through the kernels and the plain
     route within 1e-3, below a control (the last block's mixer
@@ -185,7 +189,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     stub embeddings from ``launch.serve.frontend_embeddings``, lr 1e-4:
     two joint FF steps with random negatives, one AdaptiveNEG step (36 /
     2 / 8 / 3 attention kernel calls in its no-grad forward) and one
-    backprop step (none), each step's wall time and peak memory; losses
+    backprop step, every step also launching the forward (and the
+    backward) kernel once per causal self-attention the kernel route
+    takes (``kernel_train_calls``: 12 / 1 / 0 / 3), each step's wall time
+    and peak memory; losses
     finite; every leaf moved (the embedding, each block kind's, the encoder's, the
     cross attention's; ``enc_norm`` only by backprop, as in the
     reference); the trained params' eval CE through the kernels and the
@@ -221,7 +228,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     both branches. The LM entry points and steps under
     ``launch.dryrun.make_dist`` on a (data 1, model 1) mesh,
     deepseek-moe-16b at 3 blocks, bf16, batch 4, seq 256: one AdaptiveNEG
-    FF step (3 attention kernel calls) and one backprop step, each
+    FF step (3 attention kernel calls in its no-grad forward, 3 in its
+    trained blocks' forwards) and one backprop step (3, twice that under
+    the Dist, whose units are recomputed in the backward), each
     against the same step under ``NO_DIST`` from the same init, every
     leaf finite and within the leaf rule, the max difference, step times
     and peak memory printed; prefill and 8 greedy ``serve_step`` calls
@@ -257,10 +266,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     against the same step under the real (1, 1) mesh of an NCCL group
     (the arguments' bytes equal, the temp within the factor); ``python
     -m repro_torch.launch.dryrun --all`` over every applicable config x
-    input shape on this host's CPU (in ``DRYRUN_JOBS`` processes, beside
-    the rest of the phase), its wall time printed; then ``--all --mesh
-    pod1``, each combo's step as rank 0 runs it, its wall
-    time and tally printed (each rank's peak, whether it fits 80 GB, its
+    input shape on this host's CPU and, at the same time, ``--all --mesh
+    pod1``, each combo's step as rank 0 runs it (each in ``DRYRUN_JOBS``
+    processes, beside the rest of the phase); the first's wall time
+    printed, the second's wall time and tally (each rank's peak, whether it fits 80 GB, its
     arguments beside the reference rules' blocks, equal to them, its
     params and Adam state too, its collective bytes by type; every
     train combo's above 0).
@@ -307,8 +316,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (128, 2000, 2000) against its plain version within the reference's
     bf16 tolerance, timed beside its bound and the library's bf16
     products.
+37. The backward of attention through the kernels
+    (``models.attention.kernel_attention``: ``flash_fwd_tc`` writing its
+    residuals, then ``csrc/flash_attention_bwd.cu``) at
+    ``ATTN_BWD_SHAPES`` and ``ATTN_BWD_CHECKED``, bf16: the forward's lse
+    within ``FA_TOL`` (f32)
+    and its f32 output within ``GRAD_TOL`` of the plain forward's, its
+    bf16 output unchanged and that f32 output rounded; dq, dk, dv in f32
+    within ``GRAD_TOL`` of ``flash_attention_bwd_plain`` (from the plain
+    forward's residuals) and of the chunked route's autograd on the same
+    values in f32, two calls bit-identical, the bf16 grads the f32 ones
+    rounded; at ``ATTN_BWD_SHAPES`` the backward's time beside its bound,
+    the plain backward's and SDPA's backward (a yardstick only), the
+    forward's with residuals; forward + backward through the kernel
+    route and the chunked route, time and ``max_memory_allocated`` over
+    the inputs. One qwen2-0.5b block's FF grad step at
+    ``ATTN_BWD_BLOCK`` through each route, bf16, each against the same
+    step in f32 on the plain route: on each attention leaf the kernel
+    route's norm-wise distance within ``ATTN_BWD_BLOCK_FACTOR`` times the
+    chunked route's. The backward kernel's calls on the main path are counted
+    where phases 21, 29, 30 and 31 count the forward's, zeroed just
+    before each fit or step and held to ``kernel_train_calls``.
 35. Isolation: no ``jax`` and no ``repro`` module was loaded (checked
-    after phase 36).
+    after phase 37).
 
 Phases 1-31 run the kernels at their default tiles: ``main`` points
 ``REPRO_TORCH_TUNE_TABLE`` at an empty table of the run's own, whatever
@@ -620,10 +650,11 @@ TUNE_SHAPES = [(M, K, 2000) for M in (128, 640) for K in (784, 2000)]
 # then run on the card's plain route: the measured peak net of what was
 # allocated before the call, over the predicted temp bytes, within
 # DRYRUN_MEM_FACTOR either way (PERF.md §6; the factor was fixed there
-# before any reading). dryrun --all runs beside them, in DRYRUN_JOBS
-# processes on the host's CPU (one core left to this process), then
-# dryrun --all --mesh pod1, each combo's step as rank 0 runs it over a
-# fake process group. The per-rank trace is held to the card too:
+# before any reading). dryrun --all and dryrun --all --mesh pod1 (each
+# combo's step as rank 0 runs it over a fake process group) run beside
+# them and beside each other, in DRYRUN_JOBS processes each on the host's
+# CPU: each run's wall is mostly its slowest combo (mamba2 x
+# prefill_32k, ~170 s), so the two together take little more than one. The per-rank trace is held to the card too:
 # phase 31's deepseek cut's FF step traced under make_dist on a (data 1,
 # model 1) mesh, against the same step on the card's plain route under
 # the real (1, 1) mesh of an NCCL group, within DRYRUN_MEM_FACTOR.
@@ -633,7 +664,7 @@ DRYRUN_MEM_FACTOR = 1.5
 # DRYRUN_OPT_SEQ)
 DRYRUN_OPTS = ("causal_skip", "pv_bf16")
 DRYRUN_OPT_SEQ = 2048
-DRYRUN_JOBS = 7
+DRYRUN_JOBS = 4
 DRYRUN_TIMEOUT = 900
 # Phase 31 also drives the LM entry points and steps under a Dist:
 # deepseek-moe-16b at published width, POD_DIST_UNITS of its 28 blocks,
@@ -660,6 +691,23 @@ CHUNK_SHAPES = [(QWEN_ATTN, torch.float32), (QWEN_ATTN, torch.bfloat16),
 CHUNK_GRAD_SHAPE = (8, 4096, 4096, 14, 2, 64, True, None)
 SKIP_TOL = 1e-6
 CHUNK_GRAD_REPS = 5
+# Phase 37, the backward of attention through the kernels: qwen2-0.5b's
+# training calls at the benchmark's two lengths (8 rows of 4096 and 64 of
+# 512, positives and negatives) and qwen3's at (4, 2048, 32 / 8, 128),
+# checked and timed; a ragged windowed one, checked only
+# (ATTN_BWD_CHECKED); dq, dk, dv in f32 within GRAD_TOL of the plain
+# backward and of the chunked route's autograd. A qwen2-0.5b block's FF
+# grad step at ATTN_BWD_BLOCK rows through each route, bf16: its grads
+# round to bf16 on every leaf, so no route meets GRAD_TOL there; on each
+# attention leaf the kernel route's norm-wise distance from the same step
+# in f32 is held to ATTN_BWD_BLOCK_FACTOR times the chunked route's.
+FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+ATTN_BWD_SHAPES = [(8, 4096, 4096, 14, 2, 64, True, None),
+                   (64, 512, 512, 14, 2, 64, True, None),
+                   (4, 2048, 2048, 32, 8, 128, True, None)]
+ATTN_BWD_CHECKED = [(2, 1000, 1000, 7, 1, 128, True, 300)]
+ATTN_BWD_BLOCK = (8, 4096)
+ATTN_BWD_BLOCK_FACTOR = 1.25
 # ff_dense_bwd in bf16 at the training shape: the reference's bf16 ff_dense
 # tolerance (TOL[torch.bfloat16]'s y limit) on dx, dw and db, scaled
 BWD_BF16_SHAPE = TRAIN_SHAPES[1]
@@ -771,6 +819,12 @@ def sass_mma_counts(lib, sources):
 def scaled_err(a, ref):
     a, ref = a.float(), ref.float()
     return float((a - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def norm_err(a, ref):
+    """||a - ref|| / ||ref||, in f64."""
+    a, ref = a.double(), ref.double()
+    return float((a - ref).norm() / ref.norm().clamp_min(1e-300))
 
 
 def make_inputs(gen, M, K, N, dtype, *, dead_row=False):
@@ -1159,6 +1213,25 @@ def attention_calls(cfg):
     two per ``xdec`` block (its self and its cross attention)."""
     per = {"attn": 1, "local_attn": 1, "cross_attn": 1, "xdec": 2}
     return sum(r * sum(per.get(k, 0) for k in p) for p, r in cfg.groups)
+
+
+def kernel_train_calls(cfg):
+    """Attention calls a differentiated forward of ``cfg`` sends through
+    the kernel route (``models.attention.kernel_grad_route``), each one
+    forward and one backward kernel call: one per decoder ``attn``,
+    ``local_attn`` or ``xdec`` block (its causal self-attention) where
+    the config runs in bf16 at a head width the backward kernel takes.
+    The encoder's and the cross attention take the chunked route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import common as mcommon, transformer
+
+    if (mcommon.dtype_of(cfg) != torch.bfloat16
+            or cfg.resolved_head_dim not in fa.BWD_HEAD_DIMS):
+        return 0
+    per = {"attn": 1, "local_attn": 1, "xdec": 1}
+    return sum(r * sum(per.get(k, 0) for k in p)
+               for _, p, r, is_enc in transformer.group_infos(cfg)
+               if not is_enc)
 
 
 def cut_depth(cfg):
@@ -2217,11 +2290,16 @@ def phase_executor(api, data, base_cfg, kernel, vjp):
 
 def phase_repair(dev="cuda"):
     """20. The attention and SSD kernels refuse inputs that need a
-    gradient (their results have no grad_fn), launch under no_grad, and
-    the plain route (impl="ref") gives the block's grads."""
+    gradient (their results have no grad_fn) and launch under no_grad;
+    under autograd a block's attention goes through the kernels' forward
+    and backward (bf16: ``models.attention.kernel_attention``) and its
+    SSD through the kernel refuses; the plain route (impl="ref") gives
+    the block's grads."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import blocks
+    from repro_torch.models import common as mcommon
 
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 64, *hk, 64, generator=gen).to(
@@ -2255,21 +2333,36 @@ def phase_repair(dev="cuda"):
                               ("mamba2-780m", "ssm", ("A_log", "dt_bias",
                                                       "in_proj"))):
         cfg = get_config(name).reduced()
+        if sub == "attn":    # the backward kernel takes bf16
+            cfg = dataclasses.replace(cfg, dtype="bfloat16")
         kind = cfg.groups[0][0][0]
         p = blocks.block_init(torch.Generator(device=dev).manual_seed(0),
                               cfg, kind)
         for n in leaves:
             p[sub][n].requires_grad_()
-        x = torch.randn(2, 64, cfg.d_model, device=dev)
-        try:
-            blocks.block_apply(p, cfg, kind, x, {"impl": "auto"})
-        except RuntimeError as e:
-            check('impl="ref"' in str(e), f"{name}: {e}")
+        x = torch.randn(2, 64, cfg.d_model, device=dev).to(
+            mcommon.dtype_of(cfg))
+        if sub == "attn":
+            before = fa.BWD_LAUNCHES.total
+            y, _ = blocks.block_apply(p, cfg, kind, x, {"impl": "auto"})
+            gs = torch.autograd.grad(torch.sum(torch.square(y - x).float()),
+                                     [p[sub][n] for n in leaves])
+            check(fa.BWD_LAUNCHES.total - before == 1
+                  and all(bool(torch.isfinite(g).all())
+                          and float(g.abs().max()) > 0 for g in gs),
+                  f"{name}: block_apply under autograd did not give grads "
+                  f"through the attention kernels' backward")
         else:
-            raise RuntimeError(f"chip_smoke: {name} block_apply through the "
-                               f"kernel under autograd did not refuse")
+            try:
+                blocks.block_apply(p, cfg, kind, x, {"impl": "auto"})
+            except RuntimeError as e:
+                check('impl="ref"' in str(e), f"{name}: {e}")
+            else:
+                raise RuntimeError(f"chip_smoke: {name} block_apply through "
+                                   f"the kernel under autograd did not "
+                                   f"refuse")
         y, _ = blocks.block_apply(p, cfg, kind, x, {"impl": "ref"})
-        gs = torch.autograd.grad(torch.sum(torch.square(y - x)),
+        gs = torch.autograd.grad(torch.sum(torch.square(y - x).float()),
                                  [p[sub][n] for n in leaves])
         for n, g in zip(leaves, gs):
             found[f"{name}.{n}"] = float(g.abs().max())
@@ -2277,7 +2370,8 @@ def phase_repair(dev="cuda"):
                   f"{name}: no gradient for {n} through impl='ref'")
     print(f"[20 repair] flash_attention and mamba2_ssd refuse inputs that "
           f"require grad (naming impl=\"ref\"), launch under no_grad; "
-          f"block_apply through the kernel under autograd refuses; "
+          f"under autograd block_apply's attention runs the kernels' "
+          f"backward and its SSD kernel refuses; "
           f"impl='ref' gives max|grad| "
           + ", ".join(f"{k} {v:.3e}" for k, v in found.items()))
 
@@ -2438,14 +2532,17 @@ def last_mixer_dropped(cfg, params):
 
 
 def lm_fit(api, cfg, source, counter, **kw):
-    """One counted LM fit: (FitResult, kernel calls, wall s)."""
-    from repro_torch.kernels import counts
+    """One counted LM fit: (FitResult, ``counter``'s kernel calls, the
+    attention backward kernel's calls, wall s), every count zeroed just
+    before the fit."""
+    from repro_torch.kernels import counts, flash_attention as fa
 
-    counts.reset(counter)
+    counts.reset(counter, fa)
     t0 = time.perf_counter()
     res = api.fit(cfg, source, **kw)
     torch.cuda.synchronize()
-    return res, counter.LAUNCHES.total, time.perf_counter() - t0
+    return (res, counter.LAUNCHES.total, fa.BWD_LAUNCHES.total,
+            time.perf_counter() - t0)
 
 
 def same_params_ce(train, cfg, params, ev, aux=None):
@@ -2473,8 +2570,10 @@ def phase_lm_train(api, data, name, *, chapters, schedules=(), units=None,
     (no-grad forwards) and through the plain route; on the executor's 4
     streams each of ``schedules``, bit-identical to the sequential fit.
     An MoE config's same-params gate pins the kernel route's routes to
-    the plain route's. Returns the main run's (the sequential fit's)
-    kernel calls and its ``FitResult``."""
+    the plain route's. Every fit launches the attention backward kernel
+    once per trained block's forward through the kernel route, the plain
+    fit never. Returns the main run's (the sequential fit's) kernel
+    calls, its attention backward calls and its ``FitResult``."""
     from repro_torch.configs import get_config
     from repro_torch.core import pff_lm, train
     from repro_torch.kernels import flash_attention as fa
@@ -2486,7 +2585,12 @@ def phase_lm_train(api, data, name, *, chapters, schedules=(), units=None,
     counter = fa if cfg.groups[0][0][0] == "attn" else ssd
     n_blocks = cfg.groups[0][1]
     C, s = chapters, LM_STEPS
+    # no-grad forwards (the prefixes, the head task's, the eval), and the
+    # trained block's forward through the kernel route
     calls = C * s * (sum(range(n_blocks)) + n_blocks) + n_blocks
+    bwd_calls = C * s * kernel_train_calls(cfg)
+    if counter is fa:
+        calls += bwd_calls
     phase = 21 if counter is fa else 22
     tag = f"[{phase} lm-train] {name}" + (f" ({units} blocks)" if units
                                           else "")
@@ -2495,19 +2599,25 @@ def phase_lm_train(api, data, name, *, chapters, schedules=(), units=None,
               device=dev)
     ev = torch.as_tensor(source.blocks("val", 16, seed=321), device=dev)
     init_ce = float(train.eval_ce(pff_lm.init_params(cfg, 0, dev), cfg, ev))
-    seq, seq_calls, seq_s = lm_fit(api, cfg, source, counter, **kw)
+    seq, seq_calls, seq_bwd, seq_s = lm_fit(api, cfg, source, counter,
+                                            **kw)
     check(seq_calls == calls, f"{name}: sequential fit made {seq_calls} "
           f"{counter.__name__.split('.')[-1]} kernel calls, expected {calls}")
+    check(seq_bwd == bwd_calls, f"{name}: sequential fit made {seq_bwd} "
+          f"attention backward kernel calls, expected {bwd_calls}")
     check(np.isfinite(seq.eval_ce) and seq.eval_ce < init_ce,
           f"{name}: eval CE {seq.eval_ce} not finite or not below the "
           f"untrained model's {init_ce}")
     out = {"sequential": {"wall_s": seq_s, "makespan_s": seq.makespan,
-                          "calls": seq_calls, "eval_ce": seq.eval_ce},
+                          "calls": seq_calls, "bwd_calls": seq_bwd,
+                          "eval_ce": seq.eval_ce},
            "init_eval_ce": init_ce, "blocks": n_blocks}
     print(f"{tag} bf16, {C} chapters x {s} steps, batch {LM_TRAIN_BATCH}, "
           f"seq {LM_SEQ}: sequential fit {seq_s:.4f} s (makespan "
           f"{seq.makespan:.4f} s), {seq_calls} kernel calls (expected "
-          f"{calls}); eval CE {seq.eval_ce:.6f} vs untrained {init_ce:.6f}")
+          f"{calls}), {seq_bwd} attention backward calls (expected "
+          f"{bwd_calls}); eval CE {seq.eval_ce:.6f} vs untrained "
+          f"{init_ce:.6f}")
     # the same params both ways, and the controls
     ce_kernel, ce_plain, ce_free = same_params_ce(train, cfg, seq.params, ev)
     ce_drop = float(train.eval_ce(last_mixer_dropped(cfg, seq.params), cfg,
@@ -2543,15 +2653,16 @@ def phase_lm_train(api, data, name, *, chapters, schedules=(), units=None,
         sim = api.simulate(seq, "all_layers", EXEC_NODES)
         sim_sl = api.simulate(seq, "single_layer", EXEC_NODES)
         for sched in schedules:
-            res, n, wall = lm_fit(api, cfg, source, counter,
-                                  backend="executor", schedule=sched,
-                                  num_nodes=EXEC_NODES, **kw)
+            res, n, n_bwd, wall = lm_fit(api, cfg, source, counter,
+                                         backend="executor", schedule=sched,
+                                         num_nodes=EXEC_NODES, **kw)
             check(pff_lm.lm_params_bit_equal(seq.params, res.params)
                   and res.eval_ce == seq.eval_ce,
                   f"{name} executor {sched}: params or eval CE differ from "
                   f"the sequential fit's")
-            check(n == calls, f"{name} executor {sched}: {n} kernel calls, "
-                  f"expected {calls}")
+            check(n == calls and n_bwd == bwd_calls, f"{name} executor "
+                  f"{sched}: {n} kernel calls and {n_bwd} attention backward "
+                  f"calls, expected {calls} and {bwd_calls}")
             out[sched] = {"wall_s": wall, "makespan_s": res.makespan,
                           "calls": n, "handoff": res.raw.handoff}
             print(f"{tag} executor {sched} on {EXEC_NODES} streams: "
@@ -2567,8 +2678,8 @@ def phase_lm_train(api, data, name, *, chapters, schedules=(), units=None,
               f"predicts all_layers {sim.makespan:.4f} s (speedup "
               f"{sim.speedup:.4f}), single_layer {sim_sl.makespan:.4f} s "
               f"(speedup {sim_sl.speedup:.4f}) on {EXEC_NODES} nodes")
-    plain, plain_calls, plain_s = lm_fit(api, cfg, source, counter,
-                                         impl="ref", **kw)
+    plain, plain_calls, plain_bwd, plain_s = lm_fit(api, cfg, source,
+                                                    counter, impl="ref", **kw)
     diff = abs(plain.eval_ce - seq.eval_ce)
     out["plain"] = {"wall_s": plain_s, "makespan_s": plain.makespan,
                     "calls": plain_calls, "eval_ce": plain.eval_ce}
@@ -2576,20 +2687,23 @@ def phase_lm_train(api, data, name, *, chapters, schedules=(), units=None,
           f"{plain.makespan:.4f} s), {plain_calls} kernel calls; eval CE "
           f"{plain.eval_ce:.6f}, |kernel - plain| {diff:.3e} "
           f"(<= {LM_CE_TOL})")
-    check(plain_calls == 0, f"{name}: the plain route launched a kernel")
+    check(plain_calls == 0 and plain_bwd == 0,
+          f"{name}: the plain route launched a kernel")
     check(np.isfinite(plain.eval_ce) and plain.eval_ce < init_ce,
           f"{name}: plain-route eval CE {plain.eval_ce}")
     check(diff <= LM_CE_TOL, f"{name}: eval CE kernel route vs plain route "
           f"{diff} > {LM_CE_TOL}")
     del plain
     print(json.dumps({"lm_train": name, **out}))
-    return seq_calls, seq
+    return seq_calls, seq_bwd, seq
 
 
 def joint_ff_steps(data, name, dev="cuda"):
     """21. Two joint-FF steps (sumsq, random negatives) and one adaptive
     step at the full config: losses finite, params moved, and the
-    adaptive step's no-grad forward through the attention kernel."""
+    adaptive step's no-grad forward through the attention kernel; each
+    step launches the attention backward kernel once per block trained
+    through the kernel route. Returns those backward calls, summed."""
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.core import pff_lm, train
@@ -2599,6 +2713,7 @@ def joint_ff_steps(data, name, dev="cuda"):
     n_blocks = cfg.groups[0][1]
     source = data.text_source(vocab=cfg.vocab, seq_len=LM_SEQ, seed=0)
     out = {}
+    bwd_total = 0
     blk = source.blocks("train", 2 * LM_TRAIN_BATCH, seed=7)
     for mode, steps in (("random", 2), ("adaptive", 1)):
         c = dataclasses.replace(cfg, ff=dataclasses.replace(
@@ -2609,13 +2724,14 @@ def joint_ff_steps(data, name, dev="cuda"):
         opt = optim.adam_init(params)
         step = train.make_ff_train_step(c, lr=1e-3)
         t0 = time.perf_counter()
-        metrics = []
+        metrics, bwd = [], []
         for i in range(steps):
             counts.reset(counter)
             batch = {"tokens": torch.as_tensor(
                 blk[i * LM_TRAIN_BATCH:(i + 1) * LM_TRAIN_BATCH], device=dev)}
             params, opt, m = step(params, opt, batch, i + 1)
             metrics.append({k: float(v) for k, v in m.items()})
+            bwd.append(counter.BWD_LAUNCHES.total)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = counter.LAUNCHES.total
@@ -2625,19 +2741,29 @@ def joint_ff_steps(data, name, dev="cuda"):
         check(all(np.isfinite(v) for m in metrics for v in m.values()),
               f"joint FF {mode}: non-finite loss {metrics}")
         check(moved, f"joint FF {mode}: params did not move")
-        want = n_blocks if mode == "adaptive" else 0
+        # the trained blocks' forwards through the kernel route, and the
+        # adaptive step's no-grad forward
+        want = kernel_train_calls(c) + (n_blocks if mode == "adaptive"
+                                        else 0)
         check(launched == want, f"joint FF {mode}: {launched} kernel calls "
               f"in the last step, expected {want}")
+        check(bwd == [kernel_train_calls(c)] * steps, f"joint FF {mode}: "
+              f"attention backward calls by step {bwd}, expected "
+              f"{kernel_train_calls(c)} each")
+        bwd_total += sum(bwd)
         out[mode] = {"steps": steps, "wall_s": wall, "metrics": metrics,
-                     "kernel_calls_last_step": launched}
+                     "kernel_calls_last_step": launched,
+                     "bwd_calls_by_step": bwd}
         del params, opt, embed0, w0, attn
         torch.cuda.empty_cache()
         print(f"[21 lm-train] joint FF ({mode} negatives, sumsq) {steps} "
               f"step(s) in {wall:.4f} s: losses finite, params moved; "
-              f"{launched} kernel calls in the last step (the no-grad "
-              f"forward: {want}); last metrics "
+              f"{launched} kernel calls in the last step (expected "
+              f"{want}), attention backward calls by step {bwd}; last "
+              f"metrics "
               f"{ {k: round(v, 4) for k, v in metrics[-1].items()} }")
     print(json.dumps({"lm_joint_ff": name, **out}))
+    return bwd_total
 
 
 def family_train_cfg(name):
@@ -2705,15 +2831,20 @@ def phase_lm_train_families(data, dev="cuda"):
     says, from seed 0 (the main path: counts zeroed just before each step
     and read just after): two joint FF steps with random negatives
     (sumsq), one AdaptiveNEG step (its no-grad forward through the
-    attention kernel: ``attention_calls(cfg)``) and one backprop step
-    (none), on stub embeddings from ``launch.serve.frontend_embeddings``
+    attention kernel: ``attention_calls(cfg)``) and one backprop step,
+    each also launching ``kernel_train_calls(cfg)`` forward kernel calls
+    (the kernel route under autograd), on stub embeddings from
+    ``launch.serve.frontend_embeddings``
     where the config reads them. Losses finite; every leaf of the stack,
     the embedding and the head moved by the FF steps, and by the
     backprop step; then the trained params' eval CE through the kernels
     and the plain route within ``LM_SAME_CE_TOL`` (an MoE config's routes
     pinned to the plain route's), beside controls that must land beyond
     it: the last block's mixer dropped and, where the config has one, the
-    cross path dropped (gates 0). Returns the attention kernel calls."""
+    cross path dropped (gates 0). Each step launches the attention
+    backward kernel ``kernel_train_calls(cfg)`` times (zeroed just before
+    the step, as the forward's). Returns the attention kernel calls and
+    the attention backward kernel calls."""
     from repro_torch import optim
     from repro_torch.core import train
     from repro_torch.kernels import counts, flash_attention as fa
@@ -2721,7 +2852,7 @@ def phase_lm_train_families(data, dev="cuda"):
     from repro_torch.launch.serve import frontend_embeddings
     from repro_torch.models import transformer
 
-    total = 0
+    total = bwd_total = 0
     for name, (_, calls) in FAMILY_TRAIN.items():
         cfg = family_train_cfg(name)
         check(attention_calls(cfg) == calls, f"{name}: the cut makes "
@@ -2762,24 +2893,34 @@ def phase_lm_train_families(data, dev="cuda"):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launched = fa.LAUNCHES.total
-            want = calls if mode == "adaptive" else 0
+            bwd = fa.BWD_LAUNCHES.total
+            # the trained blocks' forwards through the kernel route, and
+            # the adaptive step's no-grad forward
+            want = kernel_train_calls(c) + (calls if mode == "adaptive"
+                                            else 0)
             metrics = {k: float(v) for k, v in m.items()}
             steps.append({"mode": mode, "wall_s": wall,
                           "peak_bytes": torch.cuda.max_memory_allocated(),
-                          "kernel_calls": launched, "metrics": metrics})
+                          "kernel_calls": launched, "bwd_calls": bwd,
+                          "metrics": metrics})
             check(all(np.isfinite(v) for v in metrics.values()),
                   f"{name} {mode} step: non-finite loss {metrics}")
             check(launched == want and ssd.LAUNCHES.total == 0,
                   f"{name} {mode} step: {launched} attention kernel calls "
                   f"(and {ssd.LAUNCHES.total} SSD), expected {want} and 0")
+            check(bwd == kernel_train_calls(c), f"{name} {mode} step: "
+                  f"{bwd} attention backward kernel calls, expected "
+                  f"{kernel_train_calls(c)}")
             total += launched
+            bwd_total += bwd
             if mode in ("adaptive", "bp"):
                 fp.append(fingerprints(params))
             what = "bp" if mode == "bp" else f"{mode} negatives, sumsq"
             losses = ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
             print(f"{tag} step {i + 1} ({what}): {wall:.4f} s, peak "
                   f"{steps[-1]['peak_bytes'] / 1e9:.2f} GB, {launched} "
-                  f"attention kernel calls (expected {want}); {losses}")
+                  f"attention kernel calls (expected {want}), {bwd} "
+                  f"backward; {losses}")
         # every leaf but enc_norm moved by the FF steps (enc_norm joins
         # the head's Adam step with a zero grad), every leaf by backprop
         ff_still = [p for p, a, b in zip(paths, fp[0], fp[1])
@@ -2845,7 +2986,7 @@ def phase_lm_train_families(data, dev="cuda"):
                   f"CE {gap} <= {LM_SAME_CE_TOL}: the gate cannot see it")
         del params, opt, aux, aux_ev, blk, ev
         torch.cuda.empty_cache()
-    return total
+    return total, bwd_total
 
 
 def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
@@ -2858,15 +2999,18 @@ def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
     restoring bit-identical to that fit's params) and the joint FF step
     of seamless-m4t-large-v2 at full size (params bit-identical to a hand
     loop of ``make_ff_train_step`` on the same batches and stub frames;
-    its checkpoint restores; its trace holds the ``train:lm`` span).
-    Returns the paper-MLP run's (forward, backward) kernel calls."""
+    its checkpoint restores; its trace holds the ``train:lm`` span). The
+    qwen2 and seamless runs launch the attention backward kernel once per
+    block they train through the kernel route. Returns the paper-MLP
+    run's (forward, backward) kernel calls and the attention backward
+    kernel's calls."""
     import tempfile
 
     from repro_torch import checkpoint, optim
     from repro_torch.configs import get_config
     from repro_torch.configs.ff_mlp import FFMLPConfig
     from repro_torch.core import pff_lm, train
-    from repro_torch.kernels import counts
+    from repro_torch.kernels import counts, flash_attention as fa
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.serve import frontend_embeddings
     from repro_torch.models import transformer
@@ -2925,6 +3069,7 @@ def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
     del got, want
     # --arch qwen2-0.5b --chapters 2 on the executor ------------------------
     ck = os.path.join(tmp.name, "qwen.npz")
+    bwd0 = fa.BWD_LAUNCHES.total
     got, cli_s = cli(CLI_CHAPTERS + ["--ckpt", ck])
     torch.use_deterministic_algorithms(False)
     back, step = checkpoint.restore(ck, qwen_fit.params, strict=True)
@@ -2960,6 +3105,13 @@ def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
         params, opt, _ = step_fn(params, opt, {
             "tokens": torch.as_tensor(tok, device=dev), "aux": aux}, i + 1)
     torch.use_deterministic_algorithms(False)
+    # qwen2: 2 chapters x 2 steps, every block a task; seamless: 2 CLI
+    # steps and 2 of the hand loop
+    attn_bwd = fa.BWD_LAUNCHES.total - bwd0
+    want_bwd = (4 * kernel_train_calls(get_config("qwen2-0.5b"))
+                + 4 * kernel_train_calls(cfg))
+    check(attn_bwd == want_bwd, f"the qwen2 and seamless runs made "
+          f"{attn_bwd} attention backward kernel calls, expected {want_bwd}")
     check(bit_equal(got["params"], params)
           and bit_equal(got["opt_state"], opt), "--arch seamless-m4t-large-"
           "v2: params or Adam state differ from the hand loop's")
@@ -2982,12 +3134,14 @@ def phase_train_cli(api, data, qwen_fit, kernel, vjp, dev="cuda"):
           f"Adam state bit-identical to a hand loop of make_ff_train_step "
           f"on the same batches and stub frames; the checkpoint "
           f"({ck_bytes / 1e9:.2f} GB, step {step}) restores "
-          f"them; trace spans {spans}; {cli_s:.3f} s")
+          f"them; trace spans {spans}; {cli_s:.3f} s; {attn_bwd} attention "
+          f"backward kernel calls in the qwen2 and seamless runs (expected "
+          f"{want_bwd})")
     del params, back, aux
     tmp.cleanup()
     torch.cuda.empty_cache()
     print(json.dumps({"train_cli": out}))
-    return fwd, bwd
+    return fwd, bwd, attn_bwd
 
 
 def leaf_rule(a, b):
@@ -3027,7 +3181,10 @@ def pod_dist_steps(data, fa, dev="cuda"):
     ``make_dist`` on a (data 1, model 1) mesh against ``NO_DIST``: one
     AdaptiveNEG FF step and one backprop step from the same init (the
     Dist side holding ``transformer.shard_params``, gathered back), then
-    prefill and POD_DIST_DECODE greedy decode steps. Returns the figures."""
+    prefill and POD_DIST_DECODE greedy decode steps. Each step launches
+    the attention backward kernel once per block through the kernel route
+    (the backprop step's recomputed forwards under a Dist add none).
+    Returns the figures, with those backward calls summed."""
     from repro_torch import optim
     from repro_torch.convert import tree_leaves
     from repro_torch.core import pff_lm, train as train_lib
@@ -3043,9 +3200,17 @@ def pod_dist_steps(data, fa, dev="cuda"):
     tok = torch.as_tensor(next(iter(data.lm_batches(
         cfg.vocab, POD_BATCH, POD_SEQ + POD_DIST_DECODE, 1))), device=dev)
     out = {}
+    # the AdaptiveNEG step's no-grad forward, and the forwards through the
+    # kernel route: the backprop step's units are recomputed in the
+    # backward under a Dist (remat), so their forwards run twice there
+    train_calls = kernel_train_calls(cfg)
+    out["bwd_calls"] = 0
     for label, make, want_calls in (
-            ("ff", train_lib.make_ff_train_step, POD_DIST_UNITS),
-            ("bp", train_lib.make_bp_train_step, 0)):
+            ("ff", train_lib.make_ff_train_step,
+             {"no_dist": POD_DIST_UNITS + train_calls,
+              "dist": POD_DIST_UNITS + train_calls}),
+            ("bp", train_lib.make_bp_train_step,
+             {"no_dist": train_calls, "dist": 2 * train_calls})):
         trees = {}
         fig = {tag: {"step_s": [], "peak_gb": []}
                for tag in ("no_dist", "dist")}
@@ -3071,15 +3236,18 @@ def pod_dist_steps(data, fa, dev="cuda"):
                 fig[tag]["peak_gb"].append(
                     (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
                 calls = fa.LAUNCHES.total
+                bwd = fa.BWD_LAUNCHES.total
+                out["bwd_calls"] += bwd
                 del opt
                 if d.enabled:
                     params = transformer.gather_params(params, cfg, d)
                 check(all(bool(torch.isfinite(t.float()).all())
                           for t in tree_leaves(params)),
                       f"{label} step under {tag}: a non-finite leaf")
-                check(calls == want_calls, f"{label} step under {tag}: "
-                      f"{calls} attention kernel calls, expected "
-                      f"{want_calls}")
+                check(calls == want_calls[tag] and bwd == train_calls,
+                      f"{label} step under {tag}: {calls} attention kernel "
+                      f"calls and {bwd} backward, expected "
+                      f"{want_calls[tag]} and {train_calls}")
                 trees[tag] = params
                 fig[tag].update(attention_calls=calls, metrics={
                     k: float(v) for k, v in m.items()})
@@ -3097,7 +3265,7 @@ def pod_dist_steps(data, fa, dev="cuda"):
               f"{ms['dist']} vs {ms['no_dist']} s, peak over what was "
               f"allocated before the step {gb['dist']} vs {gb['no_dist']} "
               f"GB, {fig['dist']['attention_calls']} attention kernel "
-              f"calls; leaves max abs diff {worst:.3e} (<= {LEAF_TOL}), "
+              f"calls, {train_calls} backward each; leaves max abs diff {worst:.3e} (<= {LEAF_TOL}), "
               f"worst share beyond {WEIGHT_TOL} {share:.2e} (<= "
               f"{LEAF_SHARE}); bit-identical {same}; metrics "
               f"{fig['dist']['metrics']}")
@@ -3178,7 +3346,8 @@ def phase_pod(api, data, fa, dev="cuda"):
     hold the 4-rank layouts to; the joint FF step's times on the same
     config. Then ring attention, the expert-parallel MoE at model 1, the
     LM steps and serving under ``make_dist`` (``pod_dist_steps``) and the
-    CLI under torchrun. Returns the phase's wall time."""
+    CLI under torchrun. Returns the phase's wall time and the attention
+    backward kernel calls of ``pod_dist_steps``."""
     from repro_torch import optim
     from repro_torch.configs import get_config
     from repro_torch.convert import tree_leaves
@@ -3227,9 +3396,10 @@ def phase_pod(api, data, fa, dev="cuda"):
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             steps = [b - a for a, b in zip(marks, marks[1:])]
             losses = [l for _, l in res.history]
-            check(fa.LAUNCHES.total == 0, f"{name}: the pod fit launched "
-                  f"{fa.LAUNCHES.total} attention kernels (its forwards are "
-                  f"differentiated, so plain)")
+            check(fa.LAUNCHES.total == 0 and fa.BWD_LAUNCHES.total == 0,
+                  f"{name}: the pod fit launched {fa.LAUNCHES.total} "
+                  f"attention kernels and {fa.BWD_LAUNCHES.total} backward "
+                  f"(the pod path keeps attention plain)")
             check(len(losses) == POD_STEPS and all(
                 math.isfinite(l) for l in losses), f"{name}: pod losses "
                 f"{losses}")
@@ -3349,7 +3519,7 @@ def phase_pod(api, data, fa, dev="cuda"):
           f"{cli_s:.1f} s: {last}")
     out["cli_s"] = cli_s
     print(json.dumps({"pod": out}))
-    return time.perf_counter() - t_phase
+    return time.perf_counter() - t_phase, out["dist"]["bwd_calls"]
 
 
 def use_table(path):
@@ -3407,7 +3577,7 @@ def phase_tuner(api, data, kernel, vjp, gen, rows, plain_acc, tmp,
     phase 17's cell bit-identical to the sequential fit. The grad step's
     wall time with and without the table is read before the rest, which
     reads no host time and runs after ``background()`` (phase 33's
-    ``dryrun --all`` starts there). Annotates the ff_dense rows of the
+    ``dryrun --all`` runs start there). Annotates the ff_dense rows of the
     tuned shapes with the tuned tile's forward time. Returns the fits'
     (ff_dense, ff_dense_bwd) calls."""
     import warnings
@@ -3730,7 +3900,7 @@ def pod1_tally(out, ok, last, all_s):
     train = [r for r in recs if r["kind"] == "train"]
     fits = [f"{r['arch']} {r['shape']}" for r in recs if r["fits_hbm"]]
     print(f"[33 dryrun] python -m repro_torch.launch.dryrun --all --mesh "
-          f"pod1 --jobs {DRYRUN_JOBS + 1}: {last}, "
+          f"pod1 --jobs {DRYRUN_JOBS}: {last}, "
           f"{len(ok)} OK, in {all_s:.1f} s wall on this host's CPU; "
           f"{len(fits)} of {len(recs)} rank peaks fit 80 GB; "
           f"{sum(r['collective_bytes_per_dev'] > 0 for r in train)} of "
@@ -3813,11 +3983,11 @@ def phase_dryrun(job, tmp, smi):
     predicted temp bytes (peak - arguments) against the same call run
     on the card's plain route (``qwen_dryrun_checks``); the per-rank
     trace the same way
-    (``dist_dryrun_memory``); then ``dryrun --all`` (``job``, from
-    ``start_dryrun_all``, started in phase 32) waited for, every combo
-    traced, its wall time printed; then ``dryrun --all --mesh pod1``,
-    each combo per rank, on the host's CPU alone. Returns the phase's
-    wall time."""
+    (``dist_dryrun_memory``); then ``dryrun --all`` and ``dryrun --all
+    --mesh pod1`` (each combo's step as rank 0 runs it), both from
+    ``start_dryrun_all`` and started together in phase 32 (``job``),
+    waited for, every combo traced, their wall times printed. Returns
+    the phase's wall time."""
     t_phase = time.perf_counter()
     qwen_dryrun_checks(smi)
     dist_dryrun_memory(smi)
@@ -3827,8 +3997,6 @@ def phase_dryrun(job, tmp, smi):
     print(f"[33 dryrun] python -m repro_torch.launch.dryrun --all --jobs "
           f"{DRYRUN_JOBS}: {last}, {len(ok)} OK, in {all_s:.1f} s wall "
           f"on this host's CPU (slowest: {slowest})")
-    # nothing else runs now: every core to the per-rank run
-    job.append(start_dryrun_all(tmp, "pod1", DRYRUN_JOBS + 1))
     ok, last, all_s = wait_dryrun_all(job[-1])
     pod1_tally(job[-1][3], ok, last, all_s)
     return time.perf_counter() - t_phase
@@ -4419,6 +4587,232 @@ def phase_chunked(gen, smi):
     del flush
     torch.cuda.empty_cache()
     return row, time.perf_counter() - t_phase
+
+
+def attn_bwd_check(gen, flush, shape, smi, timed=True):
+    """37 at one shape: the kernel route's forward (residuals on) and
+    backward against the plain versions and the chunked route under
+    autograd; with ``timed``, times and peaks. Returns the kernels-line
+    row (None without ``timed``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    B, S, _, H, KV, hd, causal, window = shape
+    tag = f"{shape}"
+    q, k, v = fa_inputs(gen, B, S, S, H, KV, hd, torch.bfloat16)
+    dout = torch.randn(q.shape, generator=gen).bfloat16().cuda()
+    # the forward's residuals against the plain forward's
+    out, lse, o32 = fa.flash_attention(q, k, v, window=window,
+                                       residuals=True)
+    p_out, p_lse, p_o32 = fa.flash_attention_plain(q, k, v, window=window,
+                                                   residuals=True)
+    torch.cuda.synchronize()
+    check(torch.equal(out, fa.flash_attention(q, k, v, window=window)),
+          f"flash_attention with residuals changes its output at {tag}")
+    check(torch.equal(out, o32.bfloat16()), f"flash_attention's f32 output "
+          f"does not round to its bf16 output at {tag}")
+    e_lse, e_o = scaled_err(lse, p_lse), scaled_err(o32, p_o32)
+    print(f"[37 attn bwd] {tag}: forward residuals vs plain: lse "
+          f"{e_lse:.3e} (<= {FA_TOL[torch.float32]}), f32 output "
+          f"{e_o:.3e} (<= {GRAD_TOL})")
+    check(e_lse <= FA_TOL[torch.float32] and e_o <= GRAD_TOL,
+          f"flash_attention's residuals disagree with plain at {tag}")
+    del out, p_out
+    # the backward in f32 against the plain backward (from the plain
+    # forward's residuals) and the chunked route's autograd on the same
+    # values in f32; bf16 grads are the f32 ones rounded
+    got32 = fa.flash_attention_bwd(q, k, v, o32, lse, dout, window=window,
+                                   f32=True)
+    got = fa.flash_attention_bwd(q, k, v, o32, lse, dout, window=window)
+    again = fa.flash_attention_bwd(q, k, v, o32, lse, dout, window=window,
+                                   f32=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got32, again)),
+          f"flash_attention_bwd: two calls at {tag} differ")
+    check(all(g.dtype == torch.bfloat16 and torch.equal(g, g32.bfloat16())
+              for g, g32 in zip(got, got32)),
+          f"flash_attention_bwd's bf16 grads are not its f32 ones rounded "
+          f"at {tag}")
+    check(all(bool(torch.isfinite(g).all()) for g in got32),
+          f"flash_attention_bwd gives non-finite grads at {tag}")
+    del again
+    plain = fa.flash_attention_bwd_plain(
+        *(t.float() for t in (q, k, v)), p_o32, p_lse, dout.float(),
+        window=window)
+    e_plain = [scaled_err(g, w) for g, w in zip(got32, plain)]
+    del plain, p_o32, p_lse
+    torch.cuda.empty_cache()
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(attention.chunked_attention(
+        *leaves, window=window, impl="ref"), leaves, dout.float())
+    e_chunk = [scaled_err(g, w) for g, w in zip(got32, ref)]
+    del leaves, ref
+    torch.cuda.empty_cache()
+    print(f"[37 attn bwd] {tag}: dq, dk, dv (f32) vs plain "
+          + ", ".join(f"{e:.3e}" for e in e_plain) + "; vs the chunked "
+          "route's autograd " + ", ".join(f"{e:.3e}" for e in e_chunk)
+          + f" (<= {GRAD_TOL}); repeat bit-identical, bf16 = f32 rounded")
+    check(max(e_plain + e_chunk) <= GRAD_TOL, f"flash_attention_bwd "
+          f"disagrees with the plain backward or the chunked route at {tag}")
+    if not timed:
+        del q, k, v, dout, lse, o32, got, got32
+        torch.cuda.empty_cache()
+        return None
+    # times: the backward alone beside its bound, the plain backward and
+    # SDPA's backward (a yardstick only); forward + backward through the
+    # kernel route and the chunked route, with their peaks
+    pairs = B * H * fa_pairs(S, S, True, window)
+    # S, dP once each; dV, dK, dQ each with a split operand: two bf16
+    # products. Bytes: q, k, v, dout, dq, dk, dv bf16; o, lse f32
+    bf16_ops = 8 * 2 * pairs * hd
+    nbytes = (2 * hd * (3 * B * S * H + 4 * B * S * KV)
+              + 4 * (B * S * H * hd + B * H * S))
+    bound_ms, bound_by = roofline(0, nbytes, bf16_ops)
+    kernel_ms = time_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, o32, lse, dout, window=window), flush)
+    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, window=window,
+                                                residuals=True), flush)
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o32, lse, dout, window=window), flush, spin=STEP_SPIN_CYCLES)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    mask = None
+    if window is not None:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[:, None] >= pos[None, :]) & (
+            pos[:, None] - pos[None, :] < window)
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    dt = dout.transpose(1, 2).contiguous()
+    sdpa_ms = time_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dt, retain_graph=True), flush)
+    del qt, kt, vt, o_sdpa, dt, mask
+    steps = {}
+    for name, impl in (("kernel route", "auto"), ("chunked route", "ref")):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def step():
+            return torch.autograd.grad(attention.chunked_attention(
+                *leaves, window=window, impl=impl), leaves, dout)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        ms = time_ms(step, flush, spin=STEP_SPIN_CYCLES)
+        steps[name] = (ms, peak)
+        del leaves
+        torch.cuda.empty_cache()
+    print(f"[37 attn bwd] {tag} bf16 on {smi}: backward kernel "
+          f"{kernel_ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}; plain "
+          f"{plain_ms:.4f} ms; SDPA's backward {sdpa_ms:.4f} ms), forward "
+          f"with residuals {fwd_ms:.4f} ms; forward + backward: "
+          + "; ".join(f"{n} {ms:.4f} ms, peak {pk / 2 ** 30:.3f} GiB over "
+                      f"the inputs" for n, (ms, pk) in steps.items()))
+    del q, k, v, dout, lse, o32, got, got32
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": FA_BWD_SOURCE, "replaces": None,
+            "shape": [B, S, S, H, KV, hd], "causal": True, "window": window,
+            "dtype": "bfloat16", "launches": None,
+            "max_err": max(e_plain + e_chunk), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa_ms,
+            "library": "the backward of torch.nn.functional."
+                       "scaled_dot_product_attention (yardstick only)",
+            "fwd_residuals_ms": fwd_ms,
+            "route_ms": {n: ms for n, (ms, _) in steps.items()},
+            "route_peak_bytes": {n: pk for n, (_, pk) in steps.items()}}
+
+
+def attn_bwd_block_step(smi):
+    """37: one qwen2-0.5b block's FF grad step (its first block, B x S of
+    ATTN_BWD_BLOCK, positives then negatives) through the kernel route
+    and through the chunked route, bf16, each against the same step in
+    f32 on the plain route: the grads of every leaf, scaled; on each
+    attention leaf the kernel route's norm-wise distance within
+    ATTN_BWD_BLOCK_FACTOR times the chunked route's."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import tree_leaves, tree_map
+    from repro_torch.core import ff, pff_lm
+    from repro_torch.core import train as train_lib
+    from repro_torch.models import blocks
+    from repro_torch.models import common as mcommon
+
+    cfg = get_config("qwen2-0.5b")
+    pattern = cfg.groups[0][0]
+    B2, S = ATTN_BWD_BLOCK
+    params = pff_lm.init_params(cfg, 0, "cuda")
+    unit = pff_lm.block_units(params, 1)[0]
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(B2, S, cfg.d_model, generator=g).cuda()
+    is_pos = torch.cat([torch.ones(B2 // 2), torch.zeros(B2 // 2)]).cuda()
+
+    def grads(tree, xin, attn_impl):
+        tp = train_lib.trainable(tree)
+        ctx = {**train_lib.REF, "attn_impl": attn_impl}
+        with torch.enable_grad():
+            h, total = xin, 0.0
+            for kind, bp in zip(pattern, tp):
+                y, aux = blocks.block_apply(bp, cfg, kind, h, ctx)
+                total = total + ff.ff_loss_masked(
+                    ff.mean_goodness(y - h), is_pos, cfg.ff.theta) \
+                    + 0.01 * aux
+                h = y
+            return train_lib.grads_of(total, tp)
+
+    dtype = mcommon.dtype_of(cfg)
+    xb = x.to(dtype)
+    truth = grads(tree_map(lambda t: t.float(), unit), xb.float(), "ref")
+    errs = {}
+    for name, impl in (("kernel route", "auto"), ("chunked route", "ref")):
+        got = grads(unit, xb, impl)
+        errs[name] = got
+    paths = leaf_paths(unit)
+    check(len(paths) == len(tree_leaves(unit)), "leaf paths of the unit")
+    worst = {n: max(scaled_err(a, t) for a, t in zip(gs, truth))
+             for n, gs in errs.items()}
+    # per leaf, norm-wise: (kernel route, chunked route) vs f32, kernel vs
+    # chunked. The bf16 roundings make every leaf's grad err by ~1e-3 of
+    # its norm on either route; a fault of 1% in dq, dk or dv would not
+    e = {p: (norm_err(a, t), norm_err(b, t), norm_err(a, b))
+         for p, a, b, t in zip(paths, errs["kernel route"],
+                               errs["chunked route"], truth)}
+    attn = [p for p in paths if "/attn/" in f"/{p}/"]
+    check(len(attn) >= 4, f"attention leaves of the unit: {attn}")
+    worse = [p for p in attn if e[p][0] > ATTN_BWD_BLOCK_FACTOR * e[p][1]]
+    print(f"[37 block step] qwen2-0.5b block 0 at {ATTN_BWD_BLOCK} {dtype} "
+          f"on {smi}: worst of {len(paths)} leaves' grads vs the f32 plain "
+          f"step, scaled: kernel route {worst['kernel route']:.3e}, "
+          f"chunked route {worst['chunked route']:.3e}; attention leaves, "
+          f"norm-wise (kernel, chunked vs f32; kernel vs chunked; kernel "
+          f"<= {ATTN_BWD_BLOCK_FACTOR} x chunked): "
+          + ", ".join(f"{p} {e[p][0]:.3e} {e[p][1]:.3e} {e[p][2]:.3e}"
+                      for p in attn))
+    check(not worse, f"the kernel route's grads of {worse} are further "
+          f"from the f32 step than {ATTN_BWD_BLOCK_FACTOR} x the chunked "
+          f"route's")
+    del params, unit, errs, truth
+    torch.cuda.empty_cache()
+
+
+def phase_attn_bwd(gen, smi):
+    """37. The backward of attention on the card (the kernel route under
+    autograd) at ATTN_BWD_SHAPES, and one qwen2-0.5b block step through
+    each route. Returns (the kernels-line rows, the phase's wall time)."""
+    t_phase = time.perf_counter()
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = [attn_bwd_check(gen, flush, shape, smi)
+            for shape in ATTN_BWD_SHAPES]
+    for shape in ATTN_BWD_CHECKED:
+        attn_bwd_check(gen, flush, shape, smi, timed=False)
+    del flush
+    torch.cuda.empty_cache()
+    attn_bwd_block_step(smi)
+    return rows, time.perf_counter() - t_phase
 
 
 def main():
@@ -5138,18 +5532,22 @@ def run(t_start, tmp):
 
     # 21-22. LM chapter training at full width and depth -----------------
     lm_train_calls = {}
+    # the attention backward kernel's calls on the main path (phases 21,
+    # 29, 30 and 31), for its kernels-line rows
+    attn_bwd_calls = 0
     for name, (op, _) in LM_CALLS.items():
         # the bit-exact executor gates run deterministic; the joint steps
         # and mamba2 (no bit-exact gate) do not
         torch.use_deterministic_algorithms(name == "qwen2-0.5b")
-        lm_train_calls[op], fit = phase_lm_train(
+        lm_train_calls[op], bwd, fit = phase_lm_train(
             api, data, name, chapters=LM_CHAPTERS[name],
             schedules=(("all_layers", "single_layer")
                        if name == "qwen2-0.5b" else ()))
         torch.use_deterministic_algorithms(False)
+        attn_bwd_calls += bwd
         if name == "qwen2-0.5b":
             qwen_fit = fit          # phase 30's CLI run is held to it
-            joint_ff_steps(data, name)
+            attn_bwd_calls += joint_ff_steps(data, name)
         del fit
         torch.cuda.empty_cache()
     for row in lm_rows:
@@ -5173,18 +5571,23 @@ def run(t_start, tmp):
     # 29. LM training of the families at published widths, and
     # deepseek-moe-16b's chapter fit (phase 21's gates, 3 blocks) --------
     t_new = time.perf_counter()
-    family_calls = phase_lm_train_families(data)
+    family_calls, bwd = phase_lm_train_families(data)
+    attn_bwd_calls += bwd
     name, units = MOE_CHAPTER_CFG
     torch.use_deterministic_algorithms(True)
-    moe_calls, fit = phase_lm_train(api, data, name, chapters=2,
-                                    schedules=("all_layers",), units=units)
+    moe_calls, bwd, fit = phase_lm_train(api, data, name, chapters=2,
+                                         schedules=("all_layers",),
+                                         units=units)
+    attn_bwd_calls += bwd
     torch.use_deterministic_algorithms(False)
     del fit
     torch.cuda.empty_cache()
     t_29 = time.perf_counter() - t_new
     # 30. the training CLI on the card ---------------------------------------
     counts.reset(fa)
-    cli_fwd, cli_bwd = phase_train_cli(api, data, qwen_fit, kernel, vjp)
+    cli_fwd, cli_bwd, bwd = phase_train_cli(api, data, qwen_fit, kernel,
+                                            vjp)
+    attn_bwd_calls += bwd
     cli_attn = fa.LAUNCHES.total
     del qwen_fit
     for row in lm_rows:
@@ -5200,19 +5603,21 @@ def run(t_start, tmp):
           f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 31. the pod path on the card ---------------------------------------
-    pod_s = phase_pod(api, data, fa)
+    pod_s, bwd = phase_pod(api, data, fa)
+    attn_bwd_calls += bwd
     print(f"[wall] phase 31 took {pod_s:.1f} s of "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 32. the ff_dense autotuner and the table behind impl="auto"; 33. the
-    # dry run against the card, its --all started during 32 ---------------
+    # dry run against the card, its two --all runs started during 32 ------
     t_new = time.perf_counter()
     job = []
     try:
         tune_fwd, tune_bwd = phase_tuner(
             api, data, kernel, vjp, gen, rows,
             plain_acc["adaptive negatives, goodness"], tmp,
-            lambda: job.append(start_dryrun_all(tmp)))
+            lambda: job.extend((start_dryrun_all(tmp),
+                                start_dryrun_all(tmp, "pod1"))))
         print(f"[wall] phase 32 took {time.perf_counter() - t_new:.1f} s "
               f"of {time.perf_counter() - t_start:.1f} s so far")
         dry_s = phase_dryrun(job, tmp, smi)
@@ -5244,6 +5649,14 @@ def run(t_start, tmp):
     row["launches"] = bwd_rows[1]["launches"]
     rows.append(row)
     print(f"[wall] phase 36 took {chunk_s:.1f} s of "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    # 37. the backward of attention through the kernels ------------------
+    bwd_attn_rows, attn_bwd_s = phase_attn_bwd(gen, smi)
+    for row in bwd_attn_rows:
+        row["launches"] = attn_bwd_calls
+    rows += bwd_attn_rows
+    print(f"[wall] phase 37 took {attn_bwd_s:.1f} s of "
           f"{time.perf_counter() - t_start:.1f} s so far")
 
     # 35. isolation --------------------------------------------------------

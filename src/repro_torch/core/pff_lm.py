@@ -7,11 +7,12 @@ per-BLOCK training (chapter c trains block k for a fixed step budget on
 the outputs of blocks < k), producing the same ``TaskRecord`` stream the
 PFF simulator consumes, and a per-chapter softmax-head task.
 
-Routing (``core.train``'s rule): the trained block's forward runs
-through the plain attention / SSD under autograd (``impl="ref"``); the
-frozen prefix of blocks < k and the head task's forward through every
-block need no gradient and run under ``torch.no_grad()`` with the step
-maker's ``impl`` (default "auto": the CUDA kernels on the card).
+Routing (``core.train``'s rule): the trained block's forward runs under
+autograd through the plain SSD and the step maker's ``impl`` for
+attention (``train.REF``; default "auto": on the card the kernels'
+forward and backward where they take the call); the frozen prefix of
+blocks < k and the head task's forward through every block need no
+gradient and run under ``torch.no_grad()`` with that ``impl``.
 
 Two levels, so that the executor (``pff_exec.LMExecutor``) replays
 exactly the sequential trainer's calls without assembling full trees:
@@ -98,6 +99,7 @@ def make_block_task(cfg, *, lr=1e-3, seed=0, theta=None, key_fn=TorchKey,
     ``(unit params, unit m, unit v)``, updated in place."""
     pattern, repeat = _pattern(cfg)
     theta = theta if theta is not None else cfg.ff.theta
+    ctx = {**train_lib.REF, "attn_impl": impl}
 
     def task_step(embed, prefix, state, batch, block_idx, step_no):
         if not 0 <= block_idx < repeat:
@@ -125,7 +127,7 @@ def make_block_task(cfg, *, lr=1e-3, seed=0, theta=None, key_fn=TorchKey,
                     for kind, bp in zip(pattern, tp):
                         h_sg = h.detach()
                         y, moe_aux = blocks.block_apply(bp, cfg, kind, h_sg,
-                                                        train_lib.REF)
+                                                        ctx)
                         g = ff.mean_goodness(y - h_sg)
                         total = total + ff.ff_loss_masked(g, is_pos, theta) \
                             + 0.01 * moe_aux

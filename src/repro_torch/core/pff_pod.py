@@ -46,6 +46,10 @@ from repro_torch.core.train import (AUX_WEIGHT, REF, adam_leaves, grads_of,
                                     trainable, unit_views)
 from repro_torch.models import blocks, common
 
+# the blocks' ctx under autograd: the plain route for attention too, as
+# the reference's pod path reaches no kernel
+_CTX = {**REF, "attn_impl": "ref"}
+
 
 def stage_rows(tree, mesh):
     """This rank's stage rows of a stacked group tree, copied: nothing
@@ -105,7 +109,7 @@ def make_pff_pod_step(cfg, mesh, *, lr=1e-3, seed=0, theta=None,
             total = torch.zeros((), device=x.device)
             for kind, bp in zip(pattern, up):
                 h_sg = h.detach()
-                y, moe_aux = blocks.block_apply(bp, cfg, kind, h_sg, REF)
+                y, moe_aux = blocks.block_apply(bp, cfg, kind, h_sg, _CTX)
                 g = ff.mean_goodness(y - h_sg)
                 total = total + ff.ff_loss_masked(g, is_pos, theta) \
                     + AUX_WEIGHT * moe_aux

@@ -23,9 +23,12 @@ classifier loss, CE to the next token through the detached embedding
 table; no negatives).
 
 Routing: a forward that is differentiated runs with ``impl="ref"``, the
-plain attention and SSD, which autograd differentiates (the CUDA kernels
-have no backward and refuse inputs that need one, ``kernels/guard.py``):
-attention there is the reference's chunked route
+plain SSD, which autograd differentiates (its CUDA kernel has no backward
+and refuses inputs that need one, ``kernels/guard.py``), and attention
+with the step maker's ``impl`` (``REF``'s ``attn_impl``): on the card the
+causal self-attention the backward kernel takes goes through the
+kernels under autograd (``models.attention.kernel_attention``), every
+other differentiated call through the reference's chunked route
 (``models.attention.chunked_attention``), whose options ``attn_opts``
 carries.
 A forward that needs no gradient (AdaptiveNEG's, ``eval_ce``) runs under
@@ -69,7 +72,10 @@ from repro_torch.models.mlp import NO_DIST
 
 AUX_WEIGHT = 0.01      # router load-balance weight (local per block)
 CE_CHUNK = 512         # sequence chunk for vocab-logit computation
-REF = {"causal": True, "impl": "ref"}   # ctx of a differentiated forward
+# ctx of a differentiated forward: the plain SSD, attention by the
+# kernels' route rule (``models.attention.chunked_attention``); a step
+# maker puts its own ``impl`` in ``attn_impl``
+REF = {"causal": True, "impl": "ref", "attn_impl": "auto"}
 ENC_REF = {"causal": False, "impl": "ref"}   # the encoder's, bidirectional
 
 
@@ -450,7 +456,7 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
                 cross_src = common.rms_norm(xe, params["enc_norm"],
                                             cfg.norm_eps)
         x = train_units(transformer.groups_of(cfg), x,
-                        {**REF, "aux": cross_src})
+                        {**REF, "attn_impl": impl, "aux": cross_src})
 
         # ---- head: the paper's softmax layer (local CE) -----------------
         # CE on the positive half only (negatives carry no next-token
@@ -507,9 +513,9 @@ def make_ff_train_step(cfg, *, dist=NO_DIST, lr=1e-3, seed=0,
 # ---------------------------------------------------------------------------
 
 def make_bp_train_step(cfg, *, dist=NO_DIST, lr=1e-3, attn_opts=AttnOpts()):
-    """Standard end-to-end cross-entropy training step, through the plain
-    route (every forward here is differentiated; ``attn_opts`` its
-    chunked attention's options). batch as
+    """Standard end-to-end cross-entropy training step, every forward
+    differentiated: the plain SSD, attention by ``REF``'s route
+    (``attn_opts`` the chunked route's options). batch as
     ``make_ff_train_step`` takes it, its "aux" passed to the forward;
     ``dist`` as there: each rank runs its block of the batch's rows (the
     batch it is given), the CE of its vocab block of the logits
@@ -523,6 +529,7 @@ def make_bp_train_step(cfg, *, dist=NO_DIST, lr=1e-3, attn_opts=AttnOpts()):
         with torch.enable_grad():
             logits, aux_l = transformer.forward(tp, cfg, inp, aux=aux,
                                                 dist=dist, impl="ref",
+                                                attn_impl=REF["attn_impl"],
                                                 attn_opts=attn_opts)
             ce = vocab_ce(logits, labels, transformer.vocab_block(
                 cfg, dist, logits.shape[-1]))

@@ -48,6 +48,9 @@ class Counter:
 
 
 def reset(*modules):
-    """Zero the counters of the kernel ``modules``."""
+    """Zero the counters of the kernel ``modules``: ``LAUNCHES``, and
+    ``BWD_LAUNCHES`` where a module has a backward kernel of its own."""
     for m in modules:
         m.LAUNCHES.reset()
+        if hasattr(m, "BWD_LAUNCHES"):
+            m.BWD_LAUNCHES.reset()

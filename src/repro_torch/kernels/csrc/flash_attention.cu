@@ -78,6 +78,12 @@
 //   * Grid (B * H, q tiles) with the q tiles in the slow axis, last
 //     first: under a causal mask the heaviest tiles of every head are
 //     issued before any light one.
+//   * Residuals for the backward (flash_attention_bwd.cu), written only
+//     where the caller passes their buffers (a null pointer otherwise, so
+//     the no-grad calls store what they did): each row's log-sum-exp of
+//     the scaled scores, (m + log2 l) ln 2 from the online softmax's own
+//     max and sum, and the output in f32 before its rounding to bf16, from
+//     which the backward's rowsum(dout * o) is taken.
 //   * Not yet: TMA copies under mbarriers from a producer warp (which
 //     would let the two warpgroups drift apart instead of meeting at every
 //     tile, and make room for FlashAttention-3's ping-pong of one
@@ -103,6 +109,7 @@
 #include <cstdint>
 
 #include "tc_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -128,14 +135,9 @@ __device__ __forceinline__ int key_hi(int i, int Sk, int causal) {
   return causal ? min(i, Sk - 1) : Sk - 1;
 }
 
-// hd rounded up to whole 64-column groups (120 -> 128): the kernels keep
-// v (and, in bf16, q and k) in shared memory padded with zero columns,
-// which add nothing to Q.K^T and give output columns that are not
-// stored.
-template <int HD>
-__host__ __device__ constexpr int padded() {
-  return (HD + 63) / 64 * 64;
-}
+// hd rounded up to whole 64-column groups (wgmma_common.cuh): the kernels
+// keep v (and, in bf16, q and k) in shared memory padded with zero columns.
+using wg::padded;
 
 // Blocks an SM holds: at hd 256 one, so that a thread may use up to 255
 // registers (the output alone takes 128 in bf16).
@@ -341,7 +343,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // bf16 on the tensor cores.
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace wg;
 
 constexpr int WARPGROUPS = 2;            // each owns 64 q rows
 constexpr int THREADS = 128 * WARPGROUPS;
@@ -349,6 +351,7 @@ constexpr int BQ = 64 * WARPGROUPS;      // q rows a block
 constexpr int BKV = 64;                  // keys a k/v tile
 constexpr int NSTAGE = 2;                // k/v ring depth
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
 constexpr size_t smem_bytes() {          // + 1024 for the alignment below
@@ -356,194 +359,11 @@ constexpr size_t smem_bytes() {          // + 1024 for the alignment below
          1024;
 }
 
-// Element (r, c) of a ROWS-row tile kept as 64-column panels, each in
-// wgmma's 128-byte-swizzle layout: 128-byte rows whose 16-byte chunks are
-// XORed with r % 8 (the bank groups of 8 rows differ). A panel is both
-// the K-major operand (rows = M or N, 64 contiguous k) and, for v, the
-// MN-major one (rows = k, 64 contiguous n).
-template <int ROWS>
-__device__ __forceinline__ int sw(int r, int c) {
-  return (c >> 6) * (ROWS * 64) + r * 64 +
-         ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
-}
-
-// 16 bytes global -> shared (a shared-space address: the panels are
-// swizzled), zero-filled when !in (src is then unread).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0));
-}
-// Makes this thread's landed copies visible to wgmma (the async proxy).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A ROWS x HD tile from rows row0.. of src (stride elements apart) into
-// swizzled panels padded to padded<HD>() columns; rows at or past `rows`
-// and the pad columns are zero-filled.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t stride, int row0, int rows,
-                                          int tid) {
-  constexpr int CPR = padded<HD>() / 8;   // 16-byte chunks a padded row
-#pragma unroll
-  for (int e = tid; e < ROWS * CPR; e += THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    const bool in = row0 + r < rows && c < HD;
-    const bf16* g = in ? src + (size_t)(row0 + r) * stride + c : src;
-    cp_async16(smem_u32(dst + sw<ROWS>(r, c)), g, in);
-  }
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (K-major: sbo = 1024 between 8-row
-// groups, lbo unused; MN-major: sbo = 1024 between 8-k groups, lbo
-// between 64-column panels).
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
-                                         uint32_t sbo) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the fence, commit and wait above.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64) (+)= A (64 x 16, smem, K-major) . B (16 x 64, smem, K-major).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64) += A (64 x 16, registers) . B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128) += A (64 x 16, registers) . B (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// o (64 x HP) += A (64 x 16 keys, registers) . V (keys 16kk.., smem,
-// MN-major): one m64n64k16 at HP 64, one m64n128k16 per 128 columns
-// above (two at HP 256, each on its half of o and of v's panels).
-template <int HP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HP / 2],
-                                         const uint32_t (&a)[4],
-                                         const bf16* Vt, int kk) {
-  if constexpr (HP == 64) {
-    wgmma_rs_n64(o, a, desc(Vt + sw<BKV>(kk * 16, 0), BKV * 128, 1024));
-  } else {
-    static_assert(HP % 128 == 0, "P.V takes 64 or a multiple of 128 columns");
-#pragma unroll
-    for (int n0 = 0; n0 < HP; n0 += 128)
-      wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + n0 / 2), a,
-                    desc(Vt + sw<BKV>(kk * 16, n0), BKV * 128, 1024));
-  }
-}
-
-// 2^x on the MUFU unit (relative error ~2^-22; -inf gives +0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x, y) -> the bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi).
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
-}
-
 template <int HD>
 __global__ void __launch_bounds__(THREADS, min_blocks<HD>())
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
+             const bf16* __restrict__ v, bf16* __restrict__ out,
+             float* __restrict__ lse, float* __restrict__ out32, int Sq,
              int Sk, int H, int KV, int causal, int has_window, int window,
              float scale_log2) {
   constexpr int NS = NSTAGE;
@@ -583,13 +403,13 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = kt_end - kt_begin + 1;
 
   // Prologue: q with the first NS - 1 k/v tiles, one group each.
-  load_tile<HD, BQ>(Qs, qb, q_stride, q0, Sq, tid);
+  load_tile<HD, BQ, THREADS>(Qs, qb, q_stride, q0, Sq, tid);
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < n_tiles) {
       const int k0 = (kt_begin + s) * BKV;
-      load_tile<HD, BKV>(Ks + s * BKV * HP, kb, k_stride, k0, Sk, tid);
-      load_tile<HD, BKV>(Vs + s * BKV * HP, vb, k_stride, k0, Sk, tid);
+      load_tile<HD, BKV, THREADS>(Ks + s * BKV * HP, kb, k_stride, k0, Sk, tid);
+      load_tile<HD, BKV, THREADS>(Vs + s * BKV * HP, vb, k_stride, k0, Sk, tid);
     }
     cp_async_commit();
   }
@@ -622,8 +442,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int tn = t + NS - 1;
       if (tn < n_tiles) {
         const int st = tn % NS, kn = (kt_begin + tn) * BKV;
-        load_tile<HD, BKV>(Ks + st * BKV * HP, kb, k_stride, kn, Sk, tid);
-        load_tile<HD, BKV>(Vs + st * BKV * HP, vb, k_stride, kn, Sk, tid);
+        load_tile<HD, BKV, THREADS>(Ks + st * BKV * HP, kb, k_stride, kn, Sk, tid);
+        load_tile<HD, BKV, THREADS>(Vs + st * BKV * HP, vb, k_stride, kn, Sk, tid);
       }
       cp_async_commit();
     }
@@ -701,18 +521,13 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // wgmma's accumulator layout over 16 keys is its A layout.
     uint32_t ph[BKV / 16][4], pl[BKV / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)   // fragment j: keys 16kk + 8 (j / 2)..
-        split_pair(s[4 * (2 * kk + j / 2) + 2 * (j % 2)],
-                   s[4 * (2 * kk + j / 2) + 2 * (j % 2) + 1], ph[kk][j],
-                   pl[kk][j]);
+    for (int kk = 0; kk < BKV / 16; ++kk) split_frag(s, kk, ph[kk], pl[kk]);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      wgmma_pv<HP>(o, ph[kk], Vt, kk);
-      wgmma_pv<HP>(o, pl[kk], Vt, kk);
+      wgmma_pv<HP, BKV>(o, ph[kk], Vt, kk);
+      wgmma_pv<HP, BKV>(o, pl[kk], Vt, kk);
     }
     wgmma_commit();
     wgmma_wait();
@@ -732,13 +547,28 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
             __floats2bfloat162_rn(o[4 * j + 2 * hf] / denom,
                                   o[4 * j + 2 * hf + 1] / denom);
+    // The backward's residuals, where asked for: the output before its
+    // rounding to bf16, and the row's log-sum-exp of the scaled scores
+    // (natural log: m and l are kept in the log2 domain).
+    if (out32 != nullptr) {
+      float* frow = out32 + ((size_t)b * Sq * H + h) * HD +
+                    (size_t)row * q_stride + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        if (j * 8 < HD)
+          *reinterpret_cast<float2*>(frow + j * 8) =
+              make_float2(o[4 * j + 2 * hf] / denom,
+                          o[4 * j + 2 * hf + 1] / denom);
+    }
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * H + h) * Sq + row] = (m[hf] + log2f(denom)) * LN2;
   }
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KV, int causal,
-                   int has_window, int window, float scale,
+                   void* lse, void* out32, int B, int Sq, int Sk, int H,
+                   int KV, int causal, int has_window, int window, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -750,7 +580,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(B * H, nq);
   flash_fwd_tc<HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, H, KV,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), static_cast<float*>(out32), Sq, Sk, H, KV,
       causal, has_window, window, scale * LOG2E);
   return cudaGetLastError();
 }
@@ -758,19 +589,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace tc
 
 // dtype: 0 = float32 (flash_fwd), 1 = bfloat16 (flash_fwd_tc); hd: 64,
-// 120, 128 or 256. One launch on `stream`; returns cudaGetLastError()
-// after it (0 = success). Does not synchronise.
+// 120, 128 or 256. lse (B, H, Sq) and out32 (B, Sq, H, hd), both f32, are
+// written where not null (bf16 only). One launch on `stream`; returns
+// cudaGetLastError() after it (0 = success). Does not synchronise.
 template <int HD>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Sk, int H, int KV,
-                         int causal, int has_window, int window, float scale,
-                         int dtype, cudaStream_t s) {
-  if (dtype == 0)
+                         void* out, void* lse, void* out32, int B, int Sq,
+                         int Sk, int H, int KV, int causal, int has_window,
+                         int window, float scale, int dtype, cudaStream_t s) {
+  if (dtype == 0 && lse == nullptr && out32 == nullptr)
     return launch<HD>(q, k, v, out, B, Sq, Sk, H, KV, causal, has_window,
                       window, scale, s);
   if (dtype == 1)
-    return tc::launch<HD>(q, k, v, out, B, Sq, Sk, H, KV, causal, has_window,
-                          window, scale, s);
+    return tc::launch<HD>(q, k, v, out, lse, out32, B, Sq, Sk, H, KV, causal,
+                          has_window, window, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -779,29 +611,34 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 extern "C" {
 
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* out, int B, int Sq, int Sk, int H, int KV,
-                           int hd, int causal, int has_window, int window,
-                           float scale, int dtype, void* stream) {
+                           void* out, void* lse, void* out32, int B, int Sq,
+                           int Sk, int H, int KV, int hd, int causal,
+                           int has_window, int window, float scale, int dtype,
+                           void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return static_cast<int>(launch_dtype<64>(q, k, v, out, B, Sq, Sk, H,
-                                               KV, causal, has_window, window,
-                                               scale, dtype, s));
+      return static_cast<int>(launch_dtype<64>(q, k, v, out, lse, out32, B,
+                                               Sq, Sk, H, KV, causal,
+                                               has_window, window, scale,
+                                               dtype, s));
     case 120:
-      return static_cast<int>(launch_dtype<120>(q, k, v, out, B, Sq, Sk, H,
-                                                KV, causal, has_window,
-                                                window, scale, dtype, s));
+      return static_cast<int>(launch_dtype<120>(q, k, v, out, lse, out32, B,
+                                                Sq, Sk, H, KV, causal,
+                                                has_window, window, scale,
+                                                dtype, s));
     case 128:
-      return static_cast<int>(launch_dtype<128>(q, k, v, out, B, Sq, Sk, H,
-                                                KV, causal, has_window,
-                                                window, scale, dtype, s));
+      return static_cast<int>(launch_dtype<128>(q, k, v, out, lse, out32, B,
+                                                Sq, Sk, H, KV, causal,
+                                                has_window, window, scale,
+                                                dtype, s));
     case 256:
-      return static_cast<int>(launch_dtype<256>(q, k, v, out, B, Sq, Sk, H,
-                                                KV, causal, has_window,
-                                                window, scale, dtype, s));
+      return static_cast<int>(launch_dtype<256>(q, k, v, out, lse, out32, B,
+                                                Sq, Sk, H, KV, causal,
+                                                has_window, window, scale,
+                                                dtype, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

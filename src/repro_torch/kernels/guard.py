@@ -7,9 +7,13 @@ reach it only through the kernel (attention's ``wq``/``wk``/``wv``, the
 SSD's input projection through the scan) would silently get no
 gradient. So on a CUDA tensor each wrapper calls ``refuse_autograd``
 before it launches. The reference has no backward kernel for either
-function; training goes through the plain versions (``impl="ref"``),
-which autograd differentiates, and every forward that needs no gradient
-runs under ``torch.no_grad()`` through the kernel.
+function. The SSD trains through its plain version (``impl="ref"``),
+which autograd differentiates; attention through an autograd Function
+whose forward and backward are both kernels
+(``models.attention.kernel_attention``, for the calls its rule takes:
+the forward is launched there with grad mode off) or through its plain
+chunked route. Every forward that needs no gradient runs under
+``torch.no_grad()`` through the kernel.
 """
 from __future__ import annotations
 

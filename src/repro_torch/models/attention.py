@@ -2,23 +2,36 @@
 path for train and prefill, and the one-token path against a cache for
 decode.
 
-The full-sequence path takes one of two routes (``chunked_attention``).
-Where ``impl`` resolves to the hand-written CUDA kernel and both position
-offsets are 0, the call goes to ``ops.flash_attention``: the kernel, on
-the card, without autograd. Every other call runs the reference's own
-route, its pure-JAX chunked online softmax: q chunks of 512, k chunks of
-1024, peak score memory O(S·chunk), with its §Perf options
-``causal_skip`` and ``pv_bf16`` (``AttnOpts``). That is the CPU, every
-differentiated forward (the trainers pass ``impl="ref"``), the dry run's
-fake trace, and nonzero offsets, which no kernel takes. The ring
-attention body (``models.ring_attention``) shares the online-softmax
-merge. Decode attention is one query row against the cache and stays
-plain torch, as the reference's pure-jnp ``decode_attention`` is.
+The full-sequence path takes one of three routes (``chunked_attention``),
+where ``impl`` resolves to the hand-written CUDA kernels:
+
+  * a call that autograd records and ``kernel_grad_route`` takes (causal
+    self-attention at offsets 0 on bf16 CUDA tensors of hd 64 or 128:
+    the trainers' calls of qwen2, qwen3 and the like) goes to
+    ``kernel_attention``, an autograd Function whose forward is the
+    kernel saving its residuals and whose backward is the backward
+    kernel (``kernels.flash_attention.flash_attention_bwd``);
+  * a call that needs no gradient, at offsets 0, goes to
+    ``ops.flash_attention``: the kernel, without autograd.
+
+Every other call runs the reference's own route, its pure-JAX chunked
+online softmax: q chunks of 512, k chunks of 1024, peak score memory
+O(S·chunk), with its §Perf options ``causal_skip`` and ``pv_bf16``
+(``AttnOpts``, which act on this route only). That is the CPU, ``impl=
+"ref"``, the dry run's fake trace, nonzero offsets, and the
+differentiated calls the backward kernel does not take (f32, hd 120 and
+256, the encoder's and cross attention). The ring attention body
+(``models.ring_attention``) shares the online-softmax merge. Decode
+attention is one query row against the cache and stays plain torch, as
+the reference's pure-jnp ``decode_attention`` is.
 
 The chunked route records an ``attn.chunked.fwd`` span into
 ``obs.trace.active()`` and, where that tracer records, the counters
-``attn.chunked.pairs`` / ``attn.chunked.visible_pairs`` and, under
-autograd, an ``attn.chunked.bwd`` span between two autograd hooks.
+``attn.chunked.calls``, ``attn.chunked.pairs`` /
+``attn.chunked.visible_pairs`` and, under autograd, an
+``attn.chunked.bwd`` span between two autograd hooks; the kernel route
+an ``attn.kernel.fwd`` span, the counter ``attn.kernel.calls`` and an
+``attn.kernel.bwd`` span between the same two hooks.
 """
 from __future__ import annotations
 
@@ -28,7 +41,8 @@ import threading
 
 import torch
 
-from repro_torch.kernels import ops, registry
+from repro_torch.kernels import flash_attention as fa_kernel
+from repro_torch.kernels import guard, ops, registry
 from repro_torch.obs import trace as obs_trace
 
 NEG_INF = -1e30
@@ -224,10 +238,11 @@ def _chunked(q, k, v, *, causal, window, q_offset, k_offset, q_chunk,
     if tr.enabled:
         pairs, seen = chunk_pairs(Sq, Sk, qc, kc, q_offset, k_offset, causal,
                                   window, skip)
+        tr.counter("attn.chunked.calls")
         tr.counter("attn.chunked.pairs", B * H * pairs)
         tr.counter("attn.chunked.visible_pairs", B * H * seen)
         if torch.is_grad_enabled() and out.requires_grad:
-            _trace_backward(tr, out, (q, k, v))
+            _trace_backward(tr, out, (q, k, v), "attn.chunked.bwd")
     return out
 
 
@@ -252,11 +267,11 @@ def chunk_pairs(Sq, Sk, qc, kc, q_offset, k_offset, causal, window, skip):
     return pairs, seen
 
 
-def _trace_backward(tr, out, inputs):
-    """Opens an ``attn.chunked.bwd`` span when ``out``'s gradient
-    arrives and closes it when those of ``inputs`` (the ones that need
-    one) are computed; its parent is the span the forward's thread has
-    open meanwhile (the caller's backward)."""
+def _trace_backward(tr, out, inputs, name):
+    """Opens a span ``name`` when ``out``'s gradient arrives and closes
+    it when those of ``inputs`` (the ones that need one) are computed;
+    its parent is the span the forward's thread has open meanwhile (the
+    caller's backward)."""
     needs = [t for t in inputs if t.requires_grad]
     if not needs:
         return
@@ -264,7 +279,7 @@ def _trace_backward(tr, out, inputs):
     box = []
 
     def begin(grad):
-        box.append(tr.start("attn.chunked.bwd", device=grad.device,
+        box.append(tr.start(name, device=grad.device,
                             parent=tr.current(fwd_thread), push=False))
 
     def end(grads):
@@ -275,21 +290,88 @@ def _trace_backward(tr, out, inputs):
     torch.autograd.graph.register_multi_grad_hook(needs, end)
 
 
+def kernel_grad_route(device_type, dtypes, q_shape, k_shape, *, causal,
+                      q_offset, k_offset):
+    """Whether a call that autograd records goes to the kernels, from
+    what it shows: q on ``"cuda"``, q, k and v all bf16 (``dtypes``), hd
+    one the backward kernel is compiled for
+    (``flash_attention.BWD_HEAD_DIMS``), causal self-attention (Sq = Sk)
+    at offsets 0, with or without a window."""
+    return (device_type == "cuda"
+            and all(d == torch.bfloat16 for d in dtypes)
+            and q_shape[-1] in fa_kernel.BWD_HEAD_DIMS
+            and q_shape[1] == k_shape[1] and causal
+            and q_offset == 0 and k_offset == 0)
+
+
+class _KernelAttention(torch.autograd.Function):
+    """Causal self-attention through the kernels: the forward
+    ``flash_attention(residuals=True)`` keeps the f32 output and the
+    rows' log-sum-exp for the backward, ``flash_attention_bwd``
+    (f32 accumulation, bf16 grads). Both are called through the module
+    attribute, so that a wrapper put there sees the calls. CPU tensors
+    run the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out, lse, o32 = fa_kernel.flash_attention(q, k, v, causal=True,
+                                                  window=window,
+                                                  residuals=True)
+        ctx.save_for_backward(q, k, v, o32, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o32, lse = ctx.saved_tensors
+        grads = fa_kernel.flash_attention_bwd(q, k, v, o32, lse,
+                                              dout.contiguous(),
+                                              window=ctx.window)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad)) + (
+                         None,)
+
+
+def kernel_attention(q, k, v, *, window=None):
+    """Causal self-attention of q (B, S, H, hd) over k, v (B, S, KV, hd)
+    that autograd differentiates through the kernels (``_KernelAttention``;
+    q, k, v made contiguous). Records an ``attn.kernel.fwd`` span, the
+    counter ``attn.kernel.calls`` and, under autograd, an
+    ``attn.kernel.bwd`` span."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    tr = obs_trace.active()
+    with tr.span("attn.kernel.fwd", device=q.device):
+        out = _KernelAttention.apply(q, k, v, window)
+    if tr.enabled:
+        tr.counter("attn.kernel.calls")
+        if torch.is_grad_enabled() and out.requires_grad:
+            _trace_backward(tr, out, (q, k, v), "attn.kernel.bwd")
+    return out
+
+
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       k_offset=0, q_chunk=Q_CHUNK, k_chunk=K_CHUNK,
                       causal_skip=False, pv_bf16=False, impl="auto"):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). Returns (B, Sq, H, hd).
 
     Query i sits at position ``q_offset + i`` and key j at ``k_offset +
-    j``. Where ``impl`` resolves (``registry.flash_attention``, for q's
-    device) to an impl other than the plain ``"ref"`` (the CUDA kernel)
-    and both offsets are 0, the call goes to ``ops.flash_attention``; the
-    options do not reach it, as the reference's options never reach its
-    Pallas kernel. Every other call runs the reference's chunked online
+    j``. ``impl`` names a ``registry.flash_attention`` entry (``"auto"``:
+    the one for q's device). Where it names the CUDA kernel (``"cuda"``),
+    a call that autograd records goes to ``kernel_attention`` if
+    ``kernel_grad_route`` takes it, and to the chunked route if not. Any
+    other call at offsets 0 whose impl is not the plain ``"ref"`` goes to
+    ``ops.flash_attention``, that impl. The options reach neither, as the
+    reference's options never reach its Pallas kernel. Every other call
+    runs the reference's chunked online
     softmax (``_chunked``) with ``q_chunk``, ``k_chunk``, ``causal_skip``
     (offsets 0 only, as in the reference) and ``pv_bf16``."""
-    kimpl = registry.flash_attention.lookup(impl, q.device.type)
-    if kimpl.name != "ref" and q_offset == 0 and k_offset == 0:
+    name = registry.flash_attention.lookup(impl, q.device.type).name
+    if name == "cuda" and guard.records_grad(q, k, v):
+        if kernel_grad_route(
+                q.device.type, (q.dtype, k.dtype, v.dtype), q.shape, k.shape,
+                causal=causal, q_offset=q_offset, k_offset=k_offset):
+            return kernel_attention(q, k, v, window=window)
+    elif name != "ref" and q_offset == 0 and k_offset == 0:
         return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    impl=impl)
     return _chunked(q, k, v, causal=causal, window=window,

@@ -445,26 +445,28 @@ def _cross_residual(p, cfg, x, norm, aux, impl, dist, opts):
 
 
 def block_apply(p, cfg, kind, x, ctx):
-    """x: (B, S, d). ctx: dict(causal, aux, impl, dist, q_offset,
-    attn_opts). Returns (x_out, aux_loss)."""
+    """x: (B, S, d). ctx: dict(causal, aux, impl, attn_impl, dist,
+    q_offset, attn_opts); ``attn_impl`` (default ``impl``) routes the
+    attention, ``impl`` the SSD. Returns (x_out, aux_loss)."""
     impl = ctx.get("impl", "auto")
+    attn_impl = ctx.get("attn_impl", impl)
     q_off = ctx.get("q_offset", 0)
     dist = ctx.get("dist", mlp.NO_DIST)
     opts = ctx.get("attn_opts", attention.AttnOpts())
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + attn_apply(p["attn"], cfg, h, causal=ctx.get("causal", True),
-                           window=_window_for(cfg, kind), impl=impl,
+                           window=_window_for(cfg, kind), impl=attn_impl,
                            q_offset=q_off, dist=dist, opts=opts)
     elif kind == "cross_attn":
-        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"], impl,
-                            dist, opts)
+        x = _cross_residual(p["attn"], cfg, x, p["norm1"], ctx["aux"],
+                            attn_impl, dist, opts)
     elif kind == "xdec":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + attn_apply(p["attn"], cfg, h, causal=True, impl=impl,
+        x = x + attn_apply(p["attn"], cfg, h, causal=True, impl=attn_impl,
                            q_offset=q_off, dist=dist, opts=opts)
         x = _cross_residual(p["xattn"], cfg, x, p["norm_x"], ctx["aux"],
-                            impl, dist, opts)
+                            attn_impl, dist, opts)
     elif kind == "mamba2":
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
         x = x + ssm.forward(p["ssm"], cfg, h, impl=impl)

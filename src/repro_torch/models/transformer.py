@@ -476,21 +476,25 @@ def _cross_source(params, cfg, aux, impl, dist, attn_opts=AttnOpts()):
 
 
 def forward(params, cfg, tokens, *, aux=None, dist=NO_DIST, impl="auto",
-            attn_opts=AttnOpts()):
+            attn_impl=None, attn_opts=AttnOpts()):
     """tokens: (B, S) integer; aux: (B, T, d) stub embeddings (audio
     frames or vision patches). Returns (logits (B, S, V) f32,
     aux_loss). With ``dist`` enabled, tokens and aux are this rank's
     batch shard, the MoE runs expert-parallel (``mlp.Dist``) and the
     logits are the rank's vocab block (``vocab_parallel``).
-    ``attn_opts`` (``attention.AttnOpts``): the reference's §Perf
-    options of its chunked attention, for every call that runs it."""
+    ``attn_impl`` (default ``impl``) routes the decoder's attention,
+    ``impl`` the rest. ``attn_opts`` (``attention.AttnOpts``): the
+    reference's §Perf options of its chunked attention, for every call
+    that runs it."""
     cross_src, enc_loss = _cross_source(params, cfg, aux, impl, dist,
                                         attn_opts)
     x = embed_tokens(params, cfg, tokens, dist)
     x, aux_loss = _apply_groups(params, cfg, groups_of(cfg), x,
                                 {"causal": True, "aux": cross_src,
-                                 "impl": impl, "dist": dist,
-                                 "attn_opts": attn_opts})
+                                 "impl": impl,
+                                 "attn_impl": (impl if attn_impl is None
+                                               else attn_impl),
+                                 "dist": dist, "attn_opts": attn_opts})
     return unembed(params, cfg, x, dist), enc_loss + aux_loss
 
 

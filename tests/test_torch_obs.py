@@ -375,6 +375,7 @@ def test_block_and_head_steps_emit_their_spans():
     # head's three blocks over B
     rows = (2 + 1) * 2 * 2 + 3 * 2
     assert d["counters"] == {
+        "attn.chunked.calls": len(fwd),
         "attn.chunked.pairs": rows * cfg.n_heads * 32 * 32,
         "attn.chunked.visible_pairs": rows * cfg.n_heads * 528}
 

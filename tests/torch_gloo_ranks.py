@@ -110,6 +110,8 @@ def pod_oracle(cfg, params, batches, *, stages=1, n_data=1, lr, seed=0,
     from repro_torch.models import blocks, common
 
     key_fn = key_fn or TorchKey
+    # the pod path's blocks: the plain route for attention too
+    ctx = {**REF, "attn_impl": "ref"}
     (pattern, repeat), = cfg.groups
     group = params["groups"][0]
     opt = optim.adam_init({"groups": params["groups"]})
@@ -144,7 +146,7 @@ def pod_oracle(cfg, params, batches, *, stages=1, n_data=1, lr, seed=0,
                         for kind, bp in zip(pattern, up):
                             h_sg = h.detach()
                             y, aux = blocks.block_apply(bp, cfg, kind,
-                                                        h_sg, REF)
+                                                        h_sg, ctx)
                             g = ff.mean_goodness(y - h_sg)
                             total = total + ff.ff_loss_masked(
                                 g, is_pos[sl], cfg.ff.theta) \
