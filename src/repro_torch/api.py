@@ -500,6 +500,9 @@ def _fit_pod(cfg, task, *, num_nodes, steps, batch, seq, lr, verbose,
             "backend=\"pod\" expects a transformer LM config "
             "(repro_torch.configs.get_config(...)); FF-MLP configs run on "
             "the sequential/federated/executor/simulate backends")
+    from repro_torch.launch.dryrun import refuse_port_only
+
+    refuse_port_only(cfg, "the pod pipeline (backend=\"pod\")")
     stages = num_nodes
     dev = resolve_device(device)
     if dist.is_initialized():

@@ -15,6 +15,13 @@ All ten of the reference's LM configs are registered: ``qwen2-0.5b``,
 bidirectional ``attn`` encoder, then ``xdec`` decoder blocks) and
 ``llama-3.2-vision-90b`` (``attn`` and ``cross_attn`` blocks).
 
+One more has no counterpart in the reference (``port_only``):
+``moonlight-16b-a3b``, DeepSeek-V3's block (``mla_dense`` then
+``mla_moe``: multi-head latent attention, a dense MLP or the
+sigmoid-routed MoE). Its fields live in subclasses
+(``MLAModelConfig``, ``SigmoidMoEConfig``), so that the reference's
+configs keep the reference's fields, one for one.
+
 The reference's four input shapes (``INPUT_SHAPES``) and the archs that
 may run ``long_500k`` (``SUBQUADRATIC``) are copied for the dry run
 (``launch.dryrun``).
@@ -34,6 +41,44 @@ class MoEConfig:
     shared_ff: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class SigmoidMoEConfig(MoEConfig):
+    """DeepSeek-V3's router (arXiv:2412.19437 §2.1.2), with no group
+    limit (``n_group`` = ``topk_group`` = 1): sigmoid scores over every
+    expert, the top-k of scores plus a correction bias that takes no
+    gradient, the chosen scores normalised to sum 1 and scaled by
+    ``routed_scale``; the sequence-wise balance loss weighed by
+    ``router_aux_weight`` (alpha), and after each grad step the bias
+    moved by ``bias_rate`` (gamma) toward an even load. No choice is
+    dropped (``capacity_factor`` is not read). The layer holds experts
+    ``[expert_offset, expert_offset + experts_held)`` of
+    ``num_experts`` (0 held: every one) and computes their part alone."""
+    routed_scale: float = 1.0
+    bias_rate: float = 0.0
+    experts_held: int = 0
+    expert_offset: int = 0
+
+    @property
+    def held(self) -> int:
+        return self.experts_held or self.num_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention with no q LoRA (DeepSeek-V2/V3): q
+    from x directly, k and v from a ``kv_lora_rank`` latent under an RMS
+    norm, each head's key ``qk_nope_head_dim`` from the latent plus
+    ``qk_rope_head_dim`` roped ones shared by every head."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +205,34 @@ class ModelConfig:
             dtype="float32")
 
 
+@dataclasses.dataclass(frozen=True)
+class MLAModelConfig(ModelConfig):
+    """A ``ModelConfig`` with ``mla`` (``MLAConfig``), read by the
+    ``mla_dense`` and ``mla_moe`` blocks; ``d_ff`` is the dense
+    block's MLP."""
+    mla: Optional[MLAConfig] = None
+
+    def reduced(self, d_model: int = 64, layers_hint: int = 2
+                ) -> "MLAModelConfig":
+        """A tiny same-family variant for CPU tests: every width cut, a
+        value width other than the query's kept, every expert held."""
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, num_experts=8, top_k=3, expert_ff=2 * d_model,
+                num_shared=min(self.moe.num_shared, 1),
+                shared_ff=2 * d_model if self.moe.num_shared else 0,
+                experts_held=0, expert_offset=0)
+        groups = _reduce_groups(self.groups, layers_hint)
+        return dataclasses.replace(
+            self, name=self.name + "-smoke",
+            num_layers=sum(len(p) * r for p, r in groups), d_model=d_model,
+            n_heads=4, n_kv=4, d_ff=2 * d_model, vocab=min(self.vocab, 512),
+            head_dim=0, groups=groups, moe=moe, dtype="float32",
+            mla=MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
+                          qk_rope_head_dim=8, v_head_dim=16))
+
+
 def _reduce_groups(groups, layers_hint):
     """Keep one pattern-unit per distinct group, repeat=1."""
     out = []
@@ -223,8 +296,23 @@ def list_configs():
     return sorted(_REGISTRY)
 
 
+def reference_names():
+    """The registered configs that the reference has too (every one
+    ``port_only`` does not take): what a test pairing port and reference
+    iterates."""
+    return [n for n in list_configs() if not port_only(get_config(n))]
+
+
+def port_only(cfg) -> bool:
+    """Whether ``cfg`` (a registered config or a variant of one) has no
+    counterpart in the reference: the paths mirrored from it (``Dist``,
+    the dry run, the pod pipeline, serving) refuse it."""
+    return isinstance(cfg, MLAModelConfig)
+
+
 def load_all():
     from repro_torch.configs import (  # noqa: F401
         deepseek_moe_16b, h2o_danube_3_4b, llama_3_2_vision_90b,
-        mamba2_780m, qwen2_0_5b, qwen3_8b, qwen3_moe_235b_a22b,
-        recurrentgemma_2b, seamless_m4t_large_v2, tinyllama_1_1b)
+        mamba2_780m, moonlight_16b_a3b, qwen2_0_5b, qwen3_8b,
+        qwen3_moe_235b_a22b, recurrentgemma_2b, seamless_m4t_large_v2,
+        tinyllama_1_1b)

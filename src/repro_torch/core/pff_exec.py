@@ -385,13 +385,16 @@ class PFFExecutor(_NodeExecutor):
     device)``. device: ``None`` = ``cuda`` (raises without a GPU),
     ``"cpu"`` for the plain path. key: the run's random key (default
     ``TorchKey(cfg.seed)``), as ``pff.run_chapter_schedule`` takes it.
-    ``run()`` re-initializes params from the key every call.
+    params: the initial params (copied per run; default
+    ``ff_mlp.init(cfg, key, devices[0])``). ``run()`` starts from them
+    every call, unless ``carry=True`` continues from the state the last
+    run left (``state()``).
     """
 
     def __init__(self, cfg, task: data_lib.ImageTask, schedule: str,
                  num_nodes: int, *, devices=None, overlap: bool = True,
                  resilience: Optional[faults_lib.ResilienceConfig] = None,
-                 device=None, key=None):
+                 device=None, key=None, params=None):
         if schedule not in pff_dag.SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}; expected "
                              f"one of {pff_dag.SCHEDULES}")
@@ -413,6 +416,8 @@ class PFFExecutor(_NodeExecutor):
         self.has_head = self.cls.trains_head
         self.has_neg = self.good.uses_negatives and self.neg.regenerates
         self.resilience = resilience
+        self.params0 = params
+        self._next = None      # the chapter after the last run's last
         if resilience is not None and resilience.membership is not None:
             if schedule != "federated":
                 raise ValueError(
@@ -1017,10 +1022,24 @@ class PFFExecutor(_NodeExecutor):
 
     def run(self, *, profile: bool = False,
             resume_from: Optional[str] = None,
-            publish=None, trace=None) -> ExecResult:
+            publish=None, trace=None, chapters: Optional[int] = None,
+            carry: bool = False, evaluate: bool = True,
+            after_chapter=None) -> ExecResult:
         """Executes the schedule once. ``profile=True`` synchronizes after
         every task to collect per-task ``TaskRecord``s (destroys the
         overlap, so use a separate run for makespan).
+
+        chapters: how many chapters this call runs (default: every one
+        left of ``cfg.splits``; a count may run past it, at the
+        cooldown's zero rate). carry: continue from the trained state
+        the last run left, layers, Adam state, head and published
+        negatives, at the chapter after its last (a first run starts
+        from the initial params as without it); the chapters run as the
+        schedule's one run would run them, bit for bit. evaluate: score
+        the test split (``ExecResult.test_acc``; None without).
+        after_chapter: called with each chapter's number once its tasks
+        are dispatched, before the next chapter's; ``state(copy=True)``
+        there keeps that chapter's state while the run goes on.
 
         trace: an ``obs.trace.Tracer`` (or True for a fresh one): one
         ``task:<kind>`` span per DAG task plus hand-off / retry /
@@ -1040,9 +1059,55 @@ class PFFExecutor(_NodeExecutor):
         so the weight stream is bit-exact, publish or not.
         """
         with torch.no_grad():
-            return self._run(profile, resume_from, publish, trace)
+            return self._run(profile, resume_from, publish, trace,
+                             chapters, carry, evaluate, after_chapter)
 
-    def _run(self, profile, resume_from, publish, trace):
+    def state(self, copy: bool = False):
+        """The trained state the last run left: ``{"params", "opt"}``
+        (the layers' and the head's, on their holders' devices, views),
+        ``"neg"`` (the negatives published for the next chapter, or
+        None) and ``"next_chapter"``. copy: each tree copied on the
+        stream of the node that last wrote it, ordered after that write
+        and before the node's next task; read the copies once the run
+        has returned."""
+        def get(tree, node):
+            if not copy:
+                return tree
+            with self._nodes.on(node):
+                return tree_map(lambda t: t.clone(), tree)
+
+        states = [get(st, self._holder[k])
+                  for k, st in enumerate(self._states)]
+        head = get(self._head, self._head_holder)
+        return {"params": {**self.good.export(states), "head": head[0]},
+                "opt": {"layers": [st[1] for st in states],
+                        "head": head[1]},
+                "neg": get(self._neg[1], self._neg_holder),
+                "next_chapter": self._next}
+
+    def _fresh_state(self, dev0):
+        """The run's initial trees, versions and holders: node 0 holds
+        the initial params (``params0``, copied, or drawn from the
+        key)."""
+        cfg = self.cfg
+        params = (ff_mlp.init(cfg, self.key, dev0) if self.params0 is None
+                  else tree_map(lambda t: t.to(dev0, copy=True),
+                                self.params0))
+        opt = ff_mlp.opt_init(params)
+        self._neg: Tuple[int, object] = (-1, None)
+        self._ver = [-1] * self.n_layers       # chapter of last train(k)
+        self._head_ver = -1
+        # the node whose stream last wrote each tree (node 0 holds the
+        # initial and restored ones)
+        self._holder = [0] * self.n_layers
+        self._head_holder = 0
+        self._neg_holder = 0
+        self._states = [self.good.get_state(params, opt, k)
+                        for k in range(self.n_layers)]
+        self._head = (params["head"], opt["head"])
+
+    def _run(self, profile, resume_from, publish, trace, chapters=None,
+             carry=False, evaluate=True, after_chapter=None):
         cfg = self.cfg
         rc = self.resilience
         plan = self._fault_plan
@@ -1068,16 +1133,9 @@ class PFFExecutor(_NodeExecutor):
         if elastic:
             self._rstats["elastic_rounds"] = []
         dev0 = nodes.devices[0]
-        params = ff_mlp.init(cfg, self.key, dev0)
-        opt = ff_mlp.opt_init(params)
-        self._neg: Tuple[int, object] = (-1, None)
-        self._ver = [-1] * self.n_layers       # chapter of last train(k)
-        self._head_ver = -1
-        # the node whose stream last wrote each tree (node 0 holds the
-        # initial and restored ones)
-        self._holder = [0] * self.n_layers
-        self._head_holder = 0
-        self._neg_holder = 0
+        carried = carry and self._next is not None
+        if not carried:
+            self._fresh_state(dev0)
         self._publish = publish
         self._handoff = _Handoff(
             nodes, self.overlap,
@@ -1086,10 +1144,7 @@ class PFFExecutor(_NodeExecutor):
 
         t_start = time.perf_counter()
         t_trace0 = tracer.now()
-        self._states = [self.good.get_state(params, opt, k)
-                        for k in range(self.n_layers)]
-        self._head = (params["head"], opt["head"])
-        start_chapter = 0
+        start_chapter = self._next if carried else 0
         if resume_from is not None:
             t0 = time.perf_counter()
             done = self._restore(resume_from)
@@ -1101,12 +1156,15 @@ class PFFExecutor(_NodeExecutor):
                 strict_neg=self._ckpt_has_neg())
             self._rstats["resumed_from_chapter"] = done
             self._rtime("restore_time_s", time.perf_counter() - t0)
-        # the trees made on the current stream: every node may read them
-        nodes.share([self._states, self._head, self._neg[1]])
+        if not carried:
+            # the trees made on the current stream: every node may read
+            # them (carried ones were made before the last run's sync)
+            nodes.share([self._states, self._head, self._neg[1]])
         with nodes.on(0):
             self._publish_snapshot(min([self._head_ver] + self._ver
                                        if self.has_head else self._ver))
-        for chapter in range(start_chapter, cfg.splits):
+        stop = cfg.splits if chapters is None else start_chapter + chapters
+        for chapter in range(start_chapter, stop):
             if elastic:
                 self._run_round_elastic(chapter)
             elif self.schedule == "single_layer":
@@ -1125,7 +1183,10 @@ class PFFExecutor(_NodeExecutor):
             self._write_checkpoint(chapter)
             if rc is not None:
                 self._maybe_kill(chapter, "post")
+            if after_chapter is not None:
+                after_chapter(chapter)
         nodes.sync()
+        self._next = stop
         makespan = time.perf_counter() - t_start
         if tracer.enabled:
             # the closing run span carries the DAG shape so obs.analyze
@@ -1143,9 +1204,9 @@ class PFFExecutor(_NodeExecutor):
         final = tree_map(lambda t: t.to(dev0, copy=True),
                          {**self.good.export(self._states),
                           "head": self._head[0]})
-        acc = ff_mlp.accuracy(final, self.task.x_test, self.task.y_test,
-                              cfg.num_classes, self.good.eval_mode(cfg),
-                              impl=self.impl)
+        acc = (ff_mlp.accuracy(final, self.task.x_test, self.task.y_test,
+                               cfg.num_classes, self.good.eval_mode(cfg),
+                               impl=self.impl) if evaluate else None)
         records = node_busy = None
         if timeline:
             records, node_busy = _records_from_spans(tracer, span0,

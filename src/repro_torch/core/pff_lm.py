@@ -24,8 +24,18 @@ views of the stacked leaves. Params and Adam state are updated in place.
 
 Each task step records its spans into ``obs.trace.active()``: ``lm.block``
 over ``lm.negatives``, ``lm.prefix``, ``lm.block.fwd``, ``lm.block.bwd``
-and ``lm.adam``; ``lm.head`` over ``lm.head.prefix``, ``lm.head.ce`` and
+and ``lm.adam`` (then ``moe.bias_update``, for a sigmoid-routed MoE);
+``lm.head`` over ``lm.head.prefix``, ``lm.head.ce`` and
 ``lm.head.adam`` (CUDA-event device time on the card).
+
+The blocks are every unit of every group, in order (``unit_patterns``):
+one stacked group, or several (moonlight's dense MLA layer, then its
+MoE layers). A sigmoid-routed MoE (``configs.SigmoidMoEConfig``) adds
+its balance loss at its own weight, and after each grad step of its
+block moves its router's bias by the loads that step's forward counted
+(``mlp.update_bias``). Its vocabulary is the config's: a card's slice
+of a vocab-parallel deployment is a config whose ``vocab`` is the
+slice, ids and CE alike.
 """
 from __future__ import annotations
 
@@ -36,13 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import optim
+from repro_torch.configs.base import SigmoidMoEConfig
 from repro_torch.convert import tree_leaves, tree_map
 from repro_torch.core import ff
 from repro_torch.core import train as train_lib
 from repro_torch.core.pff import TaskRecord
 from repro_torch.core.rng import TorchKey
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, transformer
+from repro_torch.models import blocks, mlp, transformer
 from repro_torch.obs import trace as obs_trace
 
 
@@ -65,27 +76,46 @@ def check_chapter_config(cfg):
             f"without --chapters")
 
 
-def _pattern(cfg):
+def unit_patterns(cfg):
+    """The block kinds of each block (unit) the schedule trains, in
+    order: every unit of every group."""
     check_chapter_config(cfg)
-    if len(cfg.groups) != 1:
-        raise ValueError("the chapter schedule needs a uniform stack (one "
-                         f"group); got {len(cfg.groups)}")
-    return cfg.groups[0]
+    return tuple(pattern for pattern, repeat in cfg.groups
+                 for _ in range(repeat))
+
+
+def _unit(tree, k):
+    """Unit ``k`` over the groups of a stacked tree (params, or Adam's m
+    or v), the groups in order: views."""
+    groups = tree["groups"]
+    for group in groups[:-1]:
+        repeat = tree_leaves(group)[0].shape[0]
+        if k < repeat:
+            return train_lib.unit_views(group, k)
+        k -= repeat
+    return train_lib.unit_views(groups[-1], k)
 
 
 def block_units(params, n):
-    """Units 0..n-1 of the (one) group of ``params``: views."""
-    return [train_lib.unit_views(params["groups"][0], j) for j in range(n)]
+    """Units 0..n-1 over the groups of ``params``: views."""
+    return [_unit(params, j) for j in range(n)]
+
+
+def _aux_weight(cfg):
+    """The router loss's weight in a block's FF loss: the sigmoid
+    router's own (alpha); every other router's ``train.AUX_WEIGHT``."""
+    if isinstance(cfg.moe, SigmoidMoEConfig):
+        return cfg.moe.router_aux_weight
+    return train_lib.AUX_WEIGHT
 
 
 def frozen_forward(cfg, embed, units, tokens, impl):
     """No-grad forward of ``tokens`` through the embedding and ``units``
-    (each a tuple of the pattern's block trees), with ``impl``."""
-    pattern = cfg.groups[0][0]
+    (each a tuple of its pattern's block trees), with ``impl``."""
     ctx = {"causal": True, "impl": impl}
     with torch.no_grad():
         x = F.embedding(tokens.long(), embed)
-        for unit in units:
+        for pattern, unit in zip(unit_patterns(cfg), units):
             for kind, bp in zip(pattern, unit):
                 x, _ = blocks.block_apply(bp, cfg, kind, x, ctx)
     return x
@@ -97,9 +127,10 @@ def make_block_task(cfg, *, lr=1e-3, seed=0, theta=None, key_fn=TorchKey,
     -> loss: one grad step of block ``block_idx`` on the outputs of the
     ``prefix`` units (blocks < block_idx); ``state`` is the block's
     ``(unit params, unit m, unit v)``, updated in place."""
-    pattern, repeat = _pattern(cfg)
+    patterns = unit_patterns(cfg)
+    repeat = len(patterns)
     theta = theta if theta is not None else cfg.ff.theta
-    ctx = {**train_lib.REF, "attn_impl": impl}
+    aux_w = _aux_weight(cfg)
 
     def task_step(embed, prefix, state, batch, block_idx, step_no):
         if not 0 <= block_idx < repeat:
@@ -120,22 +151,27 @@ def make_block_task(cfg, *, lr=1e-3, seed=0, theta=None, key_fn=TorchKey,
                                 torch.zeros((B,), device=dev)])
             up, um, uv = state
             tp = train_lib.trainable(up)
+            ctx = {**train_lib.REF, "attn_impl": impl, "moe_loads": []}
             with torch.enable_grad():
                 with tr.span("lm.block.fwd", device=dev):
                     h = x
                     total = torch.zeros((), device=dev)
-                    for kind, bp in zip(pattern, tp):
+                    for kind, bp in zip(patterns[block_idx], tp):
                         h_sg = h.detach()
                         y, moe_aux = blocks.block_apply(bp, cfg, kind, h_sg,
                                                         ctx)
                         g = ff.mean_goodness(y - h_sg)
                         total = total + ff.ff_loss_masked(g, is_pos, theta) \
-                            + 0.01 * moe_aux
+                            + aux_w * moe_aux
                         h = y
                 with tr.span("lm.block.bwd", device=dev):
                     grads = train_lib.grads_of(total, tp)
             with tr.span("lm.adam", device=dev):
                 train_lib.adam_leaves(up, grads, um, uv, lr=lr, step=step_no)
+            if ctx["moe_loads"]:
+                with tr.span("moe.bias_update", device=dev):
+                    for bias, loads in ctx["moe_loads"]:
+                        mlp.update_bias(bias, loads, cfg.moe.bias_rate)
             return total.detach()
 
     return task_step
@@ -152,9 +188,7 @@ def make_block_step(cfg, *, lr=1e-3, seed=0, theta=None, key_fn=TorchKey,
     def step(params, opt_state, batch, block_idx, step_no):
         k = block_idx
         units = block_units(params, k + 1)
-        state = (units[k],
-                 train_lib.unit_views(opt_state["m"]["groups"][0], k),
-                 train_lib.unit_views(opt_state["v"]["groups"][0], k))
+        state = (units[k], _unit(opt_state["m"], k), _unit(opt_state["v"], k))
         loss = task(params["embed"], units[:k], state, batch, k, step_no)
         return params, opt_state, loss
 
@@ -174,7 +208,7 @@ def make_head_task(cfg, *, head_lr=1e-3, impl="auto"):
     subset; ``head`` is ``(params, m, v)`` dicts over
     ``head_param_names``, updated in place. ``embed`` is the table the
     forward reads (the head's own when tied)."""
-    _pattern(cfg)
+    check_chapter_config(cfg)
     names = head_param_names(cfg)
 
     def task_step(embed, units, head, batch, step_no):
@@ -205,7 +239,7 @@ def make_head_step(cfg, *, head_lr=1e-3, impl="auto"):
     loss): the per-chapter softmax-head task (DAG ``Task("head",
     n_layers, c)``), in place. Features are detached, so a tied table
     receives the CE grad only through the unembed."""
-    _, repeat = _pattern(cfg)
+    repeat = len(unit_patterns(cfg))
     task = make_head_task(cfg, head_lr=head_lr, impl=impl)
 
     def head_step(params, opt_state, batch, step_no):
@@ -266,7 +300,7 @@ def train_chapters(cfg, data_iter_fn, *, chapters, steps_per_chapter,
     the no-grad forwards. Task records are host times around work that
     ends in a synchronize.
     """
-    _, repeat = _pattern(cfg)
+    repeat = len(unit_patterns(cfg))
     if params is None:
         params = init_params(cfg, seed, device)
     else:

@@ -67,7 +67,8 @@ import torch
 import torch.distributed as tdist
 
 from repro_torch import sharding
-from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
+from repro_torch.configs import (INPUT_SHAPES, get_config, port_only,
+                                  reference_names)
 from repro_torch.convert import tree_leaves
 from repro_torch.core import train as train_lib
 from repro_torch.launch import op_analysis, specs as specs_lib
@@ -121,13 +122,30 @@ def check_opts(cfg, opts, sizes):
                 "cannot be split over that axis too")
 
 
+def refuse_port_only(cfg, what):
+    """Raise ``ValueError`` for a config that has no counterpart in the
+    reference (``configs.port_only``): the paths mirrored from the
+    reference's (a ``Dist``, the dry run on any mesh, pod1 included)
+    need what it lacks."""
+    if port_only(cfg):
+        raise ValueError(
+            f"{cfg.name} cannot take {what}: MLA has no tensor-parallel "
+            f"heads and no latent decode cache, and its sigmoid-routed MoE "
+            f"no expert exchange (a card holds its share of the experts, "
+            f"moe.experts_held), and the reference has no such config to "
+            f"mirror; it trains on one card by chapters (core.pff_lm)")
+
+
 def make_dist(cfg, mesh, *, batch_fold_model=False):
     """The mesh axes' roles (the reference's ``make_dist``): the batch on
     ``sharding.batch_axes(mesh)``, the experts on "model", the expert
     weights' d_model on "data" for a MoE config. ``batch_fold_model``
     (the reference's §Perf option for dense configs whose heads do not
     split over the model axis) adds "model" to the batch axes. ``mesh``
-    is a ``DeviceMesh``, or a mesh of sizes where nothing runs."""
+    is a ``DeviceMesh``, or a mesh of sizes where nothing runs. A
+    port-only config (``configs.port_only``) is refused: its blocks take
+    no ``Dist``."""
+    refuse_port_only(cfg, "a Dist (a mesh's roles)")
     ba = sharding.batch_axes(mesh)
     if batch_fold_model:
         ba = ba + ("model",)
@@ -394,6 +412,7 @@ def analyze_combo(arch, shape, *, mesh="none", rank=0, opts=(),
     utilization is the model's flops over the rank's times ``chips``, as
     the reference computes it."""
     cfg = get_config(arch)
+    refuse_port_only(cfg, f"the dry run (mesh {mesh})")
     if isinstance(shape, str):
         shape = INPUT_SHAPES[shape]
     if not specs_lib.combo_is_applicable(cfg, shape.name):
@@ -430,8 +449,9 @@ def analyze_combo(arch, shape, *, mesh="none", rank=0, opts=(),
 
 
 def all_combos():
-    """(arch, shape) of every applicable combination."""
-    return [(arch, shape) for arch in list_configs()
+    """(arch, shape) of every applicable combination of the reference's
+    configs."""
+    return [(arch, shape) for arch in reference_names()
             for shape in INPUT_SHAPES
             if specs_lib.combo_is_applicable(get_config(arch), shape)]
 

@@ -18,10 +18,12 @@ Every other call runs the reference's own route, its pure-JAX chunked
 online softmax: q chunks of 512, k chunks of 1024, peak score memory
 O(S·chunk), with its §Perf options ``causal_skip`` and ``pv_bf16``
 (``AttnOpts``, which act on this route only). That is the CPU, ``impl=
-"ref"``, the dry run's fake trace, nonzero offsets, and the
-differentiated calls the backward kernel does not take (f32, hd 120 and
-256, the encoder's and cross attention). The ring attention body
-(``models.ring_attention``) shares the online-softmax merge. Decode
+"ref"``, the dry run's fake trace, nonzero offsets, the differentiated
+calls the backward kernel does not take (f32, hd 120 and 256, the
+encoder's and cross attention), and every call whose values are
+narrower than its queries and keys (MLA's dv 128 against 192). The ring
+attention body (``models.ring_attention``) shares the online-softmax
+merge. Decode
 attention is one query row against the cache and stays plain torch, as
 the reference's pure-jnp ``decode_attention`` is.
 
@@ -148,12 +150,13 @@ def merge_block(m, l, acc, s, v, *, pv_bf16=False):
     return m_new, l_new, acc * corr[..., None] + _pv(p, v, pv_bf16)
 
 
-def softmax_state(qf):
-    """The online softmax's initial (m, l, acc) for scaled queries qf."""
+def softmax_state(qf, dv=None):
+    """The online softmax's initial (m, l, acc) for scaled queries qf;
+    ``dv``: the values' width (default the queries')."""
     B, Sq, KV, G, hd = qf.shape
     m = torch.full((B, KV, G, Sq), NEG_INF, device=qf.device)
-    return m, torch.zeros_like(m), torch.zeros((B, KV, G, Sq, hd),
-                                               device=qf.device)
+    return m, torch.zeros_like(m), torch.zeros(
+        (B, KV, G, Sq, hd if dv is None else dv), device=qf.device)
 
 
 def finish(l, acc, dtype):
@@ -212,7 +215,7 @@ def _chunked(q, k, v, *, causal, window, q_offset, k_offset, q_chunk,
         q_pos = q_offset + torch.arange(Sq, device=dev)
         k_pos = k_offset + torch.arange(Sk, device=dev)
         qf = scaled_queries(q, KV)
-        m, l, acc = softmax_state(qf)
+        m, l, acc = softmax_state(qf, v.shape[-1])
         for j in range(nk):
             lo, hi = 0, Sq
             if skip:
@@ -352,7 +355,8 @@ def kernel_attention(q, k, v, *, window=None):
 def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                       k_offset=0, q_chunk=Q_CHUNK, k_chunk=K_CHUNK,
                       causal_skip=False, pv_bf16=False, impl="auto"):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd). Returns (B, Sq, H, hd).
+    """q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, dv).
+    Returns (B, Sq, H, dv).
 
     Query i sits at position ``q_offset + i`` and key j at ``k_offset +
     j``. ``impl`` names a ``registry.flash_attention`` entry (``"auto"``:
@@ -364,8 +368,12 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     reference's options never reach its Pallas kernel. Every other call
     runs the reference's chunked online
     softmax (``_chunked``) with ``q_chunk``, ``k_chunk``, ``causal_skip``
-    (offsets 0 only, as in the reference) and ``pv_bf16``."""
+    (offsets 0 only, as in the reference) and ``pv_bf16``, and so does
+    every call whose value width differs from the query's (MLA's), which
+    no kernel takes."""
     name = registry.flash_attention.lookup(impl, q.device.type).name
+    if v.shape[-1] != q.shape[-1]:
+        name = "ref"
     if name == "cuda" and guard.records_grad(q, k, v):
         if kernel_grad_route(
                 q.device.type, (q.dtype, k.dtype, v.dtype), q.shape, k.shape,

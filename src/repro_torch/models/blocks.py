@@ -9,8 +9,12 @@ block), ``cross_attn`` (attention from the tokens to ``ctx["aux"]``, the
 vision embeddings or the encoder's output), each followed by its MLP
 (dense, or MoE when ``cfg.moe`` is set); ``xdec`` (the encoder-decoder's
 decoder block: causal self-attention, cross attention, MLP); and
-``mamba2`` (SSD, followed by an MLP only when ``d_ff`` > 0). Every block
-is pre-norm residual. Cross attention applies no rope and no mask, and
+``mamba2`` (SSD, followed by an MLP only when ``d_ff`` > 0); and, port
+only, DeepSeek-V3's ``mla_dense`` and ``mla_moe`` (``models.mla``'s
+latent attention, then the dense MLP at ``d_ff`` or the sigmoid-routed
+MoE, ``mlp.sigmoid_moe_apply``), which train and run forward but serve
+nothing (no latent cache) and take no ``Dist``. Every block is pre-norm
+residual. Cross attention applies no rope and no mask, and
 scales its output by ``tanh(gate)`` (a learned f32 scalar, 0 at init, so
 a fresh model ignores ``aux``); its decode reads K/V computed once from
 ``aux`` at prefill. The MoE's router load-balance loss comes back from
@@ -24,7 +28,9 @@ which attention params that hold the rank's query heads, and a dense
 MLP's that hold its ff slice, sum their parts (``_heads``,
 ``transformer.for_use``)),
 ``q_offset`` (``block_apply``: the first position of self-attention's
-rope and mask), ``attn_opts`` (``attention.AttnOpts``, the reference's
+rope and mask), ``moe_loads`` (a list, where the caller wants the
+``mla_moe`` blocks' expert loads for their routers' bias update:
+``(bias, loads)`` appended per block), ``attn_opts`` (``attention.AttnOpts``, the reference's
 §Perf options of its chunked attention: ``causal_skip`` reaches causal
 self-attention only, never the encoder or cross attention, as in the
 reference; ``pv_bf16`` every call) and, for prefill, ``max_len`` (the
@@ -35,7 +41,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch import sharding
-from repro_torch.models import attention, common, mlp, rglru, ssm
+from repro_torch.models import attention, common, mla, mlp, rglru, ssm
+
+MLA_KINDS = ("mla_dense", "mla_moe")
+
+
+def _refuse_mla(kind, what):
+    raise ValueError(
+        f"{kind} blocks (MLA) cannot {what}: decode needs a cache of the "
+        f"latent c and k_pe, which the port does not have; train them, or "
+        f"run them forward (transformer.forward), instead")
 
 
 # ---------------------------------------------------------------------------
@@ -396,7 +411,42 @@ def mlp_apply(p, cfg, x, dist=mlp.NO_DIST):
 # Block init / apply / prefill / decode
 # ---------------------------------------------------------------------------
 
+def _mla_init(gen, cfg, kind):
+    dnorm = torch.zeros((cfg.d_model,), device=gen.device)
+    p = {"norm1": dnorm, "attn": mla.init(gen, cfg), "norm2": dnorm.clone()}
+    if kind == "mla_dense":
+        p["mlp"] = mlp.dense_mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                      common.dtype_of(cfg))
+    else:
+        p["mlp"] = mlp.sigmoid_moe_init(gen, cfg.moe, cfg.d_model,
+                                        common.dtype_of(cfg))
+    return p
+
+
+def _mla_apply(p, cfg, kind, x, ctx):
+    """An ``mla_dense`` / ``mla_moe`` block: (x_out, the router's
+    balance loss, 0 for the dense one)."""
+    if ctx.get("dist", mlp.NO_DIST).enabled:
+        raise ValueError(
+            f"{kind} blocks take no Dist: MLA has no tensor-parallel heads "
+            f"and the sigmoid-routed MoE no expert exchange; a card holds "
+            f"its share of the experts (moe.experts_held) instead")
+    h = common.rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + mla.apply(p["attn"], cfg, h, q_offset=ctx.get("q_offset", 0),
+                      impl=ctx.get("attn_impl", ctx.get("impl", "auto")))
+    h = common.rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "mla_dense":
+        return x + mlp.dense_mlp_apply(p["mlp"], h, cfg.act), torch.zeros(
+            (), device=x.device)
+    y, bal, loads = mlp.sigmoid_moe_apply(p["mlp"], h, cfg.moe, cfg.act)
+    if ctx.get("moe_loads") is not None:
+        ctx["moe_loads"].append((p["mlp"]["bias"], loads))
+    return x + y, bal
+
+
 def block_init(gen, cfg, kind):
+    if kind in MLA_KINDS:
+        return _mla_init(gen, cfg, kind)
     dnorm = torch.zeros((cfg.d_model,), device=gen.device)
     if kind in ("attn", "local_attn", "rglru", "cross_attn"):
         p = {"norm1": dnorm}
@@ -448,6 +498,8 @@ def block_apply(p, cfg, kind, x, ctx):
     """x: (B, S, d). ctx: dict(causal, aux, impl, attn_impl, dist,
     q_offset, attn_opts); ``attn_impl`` (default ``impl``) routes the
     attention, ``impl`` the SSD. Returns (x_out, aux_loss)."""
+    if kind in MLA_KINDS:
+        return _mla_apply(p, cfg, kind, x, ctx)
     impl = ctx.get("impl", "auto")
     attn_impl = ctx.get("attn_impl", impl)
     q_off = ctx.get("q_offset", 0)
@@ -521,6 +573,8 @@ def block_prefill(p, cfg, kind, x, ctx):
     """x: (B, S, d). Returns (x_out, cache) — cache matches block_decode,
     the rank's block of it under a ``Dist`` (``cache_block``, with
     ``ctx["seq_axis_model"]``)."""
+    if kind in MLA_KINDS:
+        _refuse_mla(kind, "prefill")
     max_len = ctx.get("max_len", x.shape[1])
     impl = ctx.get("impl", "auto")
     dist = ctx.get("dist", mlp.NO_DIST)
@@ -562,6 +616,8 @@ def block_prefill(p, cfg, kind, x, ctx):
 
 
 def block_cache_init(cfg, kind, batch, max_len, dtype, device):
+    if kind in MLA_KINDS:
+        _refuse_mla(kind, "decode")
     KV, hd = cfg.n_kv, cfg.resolved_head_dim
 
     def kv_cache(length):
@@ -590,6 +646,8 @@ def block_cache_init(cfg, kind, batch, max_len, dtype, device):
 def block_decode(p, cfg, kind, cache, x, pos, ctx):
     """x: (B, d) one token. Returns (x_out, cache), the cache updated in
     place."""
+    if kind in MLA_KINDS:
+        _refuse_mla(kind, "decode")
     dist = ctx.get("dist", mlp.NO_DIST)
     if kind in ("attn", "local_attn"):
         h = common.rms_norm(x, p["norm1"], cfg.norm_eps)

@@ -14,6 +14,15 @@ package). Two branches, chosen from the token count T (a Python int):
 
 Nothing on either branch reads a value back to the host.
 
+DeepSeek-V3's MoE (``configs.SigmoidMoEConfig``: the ``mla_moe``
+block's) routes by sigmoid scores plus a correction bias
+(``sigmoid_router``), keeps every choice, and holds a contiguous share
+of the experts (``sigmoid_moe_apply``): the (token, slot) pairs that
+land on a held expert sort into one segment per expert, each expert's
+gated MLP runs on its segment alone (grouped GEMMs, ``torch._grouped_mm``,
+over segment ends that stay on the device: no capacity, no padding, no
+read back), and the rest are left out, for the cards that hold them.
+
 Expert parallelism (``Dist`` enabled: a mesh and a model axis): each
 rank runs the body on its own batch shard of the tokens, with the
 experts split over the model axis and the expert weights' d_model over
@@ -44,6 +53,8 @@ import torch
 
 from repro_torch import sharding
 from repro_torch.models import common
+from repro_torch.models.attention import _trace_backward
+from repro_torch.obs import trace as obs_trace
 
 
 # ---------------------------------------------------------------------------
@@ -311,3 +322,138 @@ def moe_apply(p, x, moe, act_name, dist=NO_DIST):
              for k, v in p.items()}
     y, aux = _moe_local(p, x.reshape(-1, d), moe, act_name, dist)
     return y.reshape(x.shape), aux
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's MoE: sigmoid router, no dropped choice, held experts
+# ---------------------------------------------------------------------------
+
+def sigmoid_moe_init(gen, moe, d_model, dtype):
+    """The router over every expert (f32) and its correction bias (f32,
+    zero, no gradient), the held experts' weights, the shared
+    experts."""
+    E_h, ff = moe.held, moe.expert_ff
+    dev = gen.device
+    p = {
+        "router": common.dense_init(gen, (d_model, moe.num_experts),
+                                    torch.float32),
+        "bias": torch.zeros((moe.num_experts,), device=dev),
+        "wi": common.dense_init(gen, (E_h, d_model, ff), dtype,
+                                fan_in=d_model),
+        "wg": common.dense_init(gen, (E_h, d_model, ff), dtype,
+                                fan_in=d_model),
+        "wo": common.dense_init(gen, (E_h, ff, d_model), dtype, fan_in=ff),
+    }
+    if moe.num_shared:
+        p["shared"] = dense_mlp_init(gen, d_model,
+                                     moe.num_shared * moe.shared_ff, dtype)
+    return p
+
+
+def sigmoid_router(p, x, moe, seqs):
+    """x: (T, d), the tokens of ``seqs`` sequences of equal length, ->
+    (weights (T, k) f32, eids (T, k), the sequence-wise balance loss,
+    loads (E,) f32: each expert's choices among the T tokens).
+
+    s = sigmoid(x W) in f32 over all E experts; the choice is the top k
+    of s + bias (the bias only chooses); the weights are the chosen s
+    over their sum (+ 1e-20), times ``routed_scale``. The balance loss
+    (arXiv:2412.19437 eqs. 17-20) is, per sequence of S tokens,
+    sum_i f_i P_i with f_i = E / (k S) x the tokens choosing i and P_i
+    the mean over the tokens of s_i / sum_j s_j; then averaged over the
+    sequences."""
+    with full_f32():
+        logits = x.float() @ p["router"]
+    s = torch.sigmoid(logits)
+    eids = torch.topk(s + p["bias"].detach(), moe.top_k, dim=-1,
+                      sorted=True).indices
+    w = s.gather(1, eids)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * moe.routed_scale
+    T, E = s.shape
+    S = T // seqs
+    chosen = torch.zeros_like(s).scatter_(1, eids, 1.0)
+    f = chosen.reshape(seqs, S, E).sum(1) * (E / (moe.top_k * S))
+    share = (s / s.sum(-1, keepdim=True)).reshape(seqs, S, E).mean(1)
+    bal = (f * share).sum(-1).mean()
+    return w, eids, bal, chosen.sum(0)
+
+
+def _held_pairs(eids, moe):
+    """Every (token, slot) pair, flattened and sorted by expert (stably)
+    with the pairs on held experts first, and where each held expert's
+    segment of them ends (int32, the grouped GEMMs' offsets). Nothing is
+    read back to the host."""
+    E_h = moe.held
+    local = eids.reshape(-1) - moe.expert_offset
+    key = torch.where((local >= 0) & (local < E_h), local, E_h)
+    order = torch.argsort(key, stable=True)
+    sizes = torch.zeros(E_h + 1, dtype=torch.int32, device=key.device)
+    sizes.scatter_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    return order, torch.cumsum(sizes[:E_h], 0, dtype=torch.int32)
+
+
+def sigmoid_moe_apply(p, x, moe, act_name):
+    """x: (B, S, d) -> (y (B, S, d), the balance loss, loads (E,)). y is
+    the held experts' part, each (token, slot) pair on a held expert
+    weighed by its router weight, plus the shared experts whole.
+
+    The sorted pairs past the held experts' segments keep their rows
+    through the dispatch (the shapes stay fixed, so nothing is read
+    back), but no GEMM computes them: they are zeroed on the way in and
+    out (``torch.where``, which zeroes their gradient too).
+
+    Spans (``obs.trace.active()``): ``moe.router``, ``moe.dispatch``
+    (the sort, the segment ends, the rows' gather), ``moe.experts``,
+    ``moe.combine``, ``moe.shared`` and, under autograd, ``moe.bwd``
+    between two autograd hooks; counters ``moe.choices`` (T k),
+    ``moe.pairs`` (the router's choices on held experts, counted apart
+    from the dispatch), ``moe.rows`` (the rows the expert GEMMs took:
+    fewer than the pairs if one was dropped, more if padded) and
+    ``moe.max_load`` (the largest held expert's rows, summed over
+    calls); the last three are counted on the device."""
+    B, S, d = x.shape
+    x = x.reshape(-1, d)
+    T, k = x.shape[0], moe.top_k
+    dev = x.device
+    tr = obs_trace.active()
+    with tr.span("moe.router", device=dev):
+        w, eids, bal, loads = sigmoid_router(p, x, moe, B)
+    with tr.span("moe.dispatch", device=dev):
+        order, ends = _held_pairs(eids, moe)
+        kept = (torch.arange(T * k, device=dev) < ends[-1])[:, None]
+        rows = torch.where(kept, x[order // k], 0)
+    with tr.span("moe.experts", device=dev):
+        # segment e of the rows times expert e's weights; the grouped
+        # GEMMs leave the rows past ends[-1] unwritten
+        act = common.activation(act_name)
+        h = act(torch._grouped_mm(rows, p["wg"], offs=ends)) \
+            * torch._grouped_mm(rows, p["wi"], offs=ends)
+        ys = torch.where(kept, torch._grouped_mm(h, p["wo"], offs=ends), 0)
+    with tr.span("moe.combine", device=dev):
+        y_tk = torch.empty_like(ys).index_copy(0, order, ys)
+        with full_f32():
+            y = torch.einsum("tkd,tk->td", y_tk.reshape(T, k, d).float(), w)
+        y = y.to(x.dtype)
+    if "shared" in p:
+        with tr.span("moe.shared", device=dev):
+            y = y + dense_mlp_apply(p["shared"], x, act_name)
+    if tr.enabled:
+        tr.counter("moe.choices", T * k)
+        off = moe.expert_offset
+        tr.counter("moe.pairs",
+                   ((eids >= off) & (eids < off + moe.held)).sum())
+        tr.counter("moe.rows", ends[-1].long())
+        tr.counter("moe.max_load", torch.diff(ends, prepend=ends[:1] * 0)
+                   .max().long())
+        if torch.is_grad_enabled() and y.requires_grad:
+            # x's gradient is whole once every part of the layer has
+            # run its backward, the weights' with it
+            _trace_backward(tr, y, (x,), "moe.bwd")
+    return y.reshape(B, S, d), bal, loads
+
+
+def update_bias(bias, loads, rate):
+    """The router's correction bias after a grad step, in place: b_i +=
+    rate x sign(mean load - load_i) (arXiv:2412.19437 §2.1.2)."""
+    with torch.no_grad():
+        bias.add_(rate * torch.sign(loads.mean() - loads))

@@ -243,7 +243,9 @@ class Tracer:
         return ev
 
     def counter(self, name: str, value: float = 1.0) -> None:
-        """Accumulate ``value`` onto the named counter."""
+        """Accumulate ``value`` onto the named counter. A 0-d tensor
+        (a count on the card) adds up where it lives and is read once,
+        by ``to_dict``."""
         with self._lock:
             self.counters[name] = self.counters.get(name, 0.0) + value
 
@@ -278,7 +280,7 @@ class Tracer:
                 "meta": dict(self.meta),
                 "spans": [dataclasses.asdict(s) for s in self.spans],
                 "events": [dataclasses.asdict(e) for e in self.events],
-                "counters": dict(self.counters),
+                "counters": {k: float(v) for k, v in self.counters.items()},
             }
 
 

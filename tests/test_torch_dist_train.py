@@ -52,7 +52,7 @@ from repro import optim as joptim, sharding as jsharding
 from repro.configs import get_config as jget
 from repro.models import transformer as jtransformer
 from repro_torch import sharding
-from repro_torch.configs import get_config as tget, list_configs
+from repro_torch.configs import get_config as tget, reference_names
 from repro_torch.convert import (params_from_numpy, params_to_numpy,
                                  tree_leaves)
 from repro_torch.core import ff as tff
@@ -361,8 +361,8 @@ def test_make_dist_matches_the_references(runs):
     (the ranks' ``DeviceMesh``) and a (pod 1, data 2, model 2) one."""
     _, ref, ranks = runs
     pod = SizesMesh({"pod": 1, "data": 2, "model": 2})
-    assert len({k[0] for k in ref["make_dist"]}) == len(list_configs())
-    for name in list_configs():
+    assert len({k[0] for k in ref["make_dist"]}) == len(reference_names())
+    for name in reference_names():
         for fold in (False, True):
             want = ref["make_dist"][name, "2x2", fold]
             assert all(r["make_dist"][name, fold] == want for r in ranks)
@@ -394,7 +394,7 @@ def _jax_paths(tree):
                      for k in path) for path, _ in flat]
 
 
-@pytest.mark.parametrize("name", list_configs())
+@pytest.mark.parametrize("name", reference_names())
 def test_held_specs_are_the_references_param_specs(name):
     """For every leaf of the params and of Adam's m and v (the
     reference's init and ``adam_init``, ``jax.eval_shape``'d: published
@@ -637,5 +637,5 @@ def test_greedy_over_vocab_blocks_is_argmax():
 @pytest.mark.parametrize("layout", gr.TP_LAYOUTS)
 def test_gather_params_undoes_shard_params_for_every_config(runs, layout):
     for res in runs[2]:
-        for name in list_configs():
+        for name in reference_names():
             assert res[f"identity:{name}:{layout}"], name

@@ -22,7 +22,7 @@ from repro.configs import get_config as jget
 from repro.launch import serve as jserve
 from repro.models import transformer as jtr
 from repro_torch import data as tdata
-from repro_torch.configs import get_config as tget, list_configs
+from repro_torch.configs import get_config as tget, reference_names
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.models import blocks, transformer
@@ -103,7 +103,7 @@ def test_configs_match_reference(name, reduce):
         assert got == want, f.name
     assert tc.resolved_head_dim == jc.resolved_head_dim
     assert tc.padded_vocab == jc.padded_vocab
-    assert set(list_configs()) == set(REGISTERED)
+    assert set(reference_names()) == set(REGISTERED)
 
 
 def test_unknown_config_names_the_registered_ones():

@@ -359,7 +359,7 @@ def run_dist(outdir):
     import pickle
 
     from repro_torch import optim, sharding
-    from repro_torch.configs import get_config, list_configs
+    from repro_torch.configs import get_config, reference_names
     from repro_torch.convert import params_from_numpy, tree_leaves
     from repro_torch.core import train
     from repro_torch.launch.dryrun import make_dist
@@ -374,7 +374,7 @@ def run_dist(outdir):
     out = {"coords": {a: sharding.axis_index(mesh, a)
                       for a in ("data", "model")},
            "make_dist": {}}
-    for name in list_configs():
+    for name in reference_names():
         for fold in (False, True):
             d = make_dist(get_config(name), mesh, batch_fold_model=fold)
             out["make_dist"][name, fold] = (tuple(d.batch_axes),
@@ -531,7 +531,7 @@ def run_dist(outdir):
                 cfg, make_dist(cfg, tmesh), tp_params(outdir, f"b1-{name}"),
                 inputs["b1"][name]["prompts"], None, gen)
         # (f) every config's tree through shard_params and gather_params
-        for name in list_configs():
+        for name in reference_names():
             cfg = get_config(name).reduced()
             d = make_dist(cfg, tmesh)
             params = transformer.init(torch.Generator().manual_seed(0), cfg)
